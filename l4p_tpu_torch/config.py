@@ -1,0 +1,182 @@
+"""Configs of the port: the released giant model as dataclass defaults.
+
+Counterparts of `EncoderConfig`/`GIANT` (l4p_tpu/models/encoder.py),
+`DPTConfig` (models/dpt.py), `DenseHeadConfig`/`default_dense_heads`/
+`L4PConfig` (models/l4p.py) and `load_model_config` (config.py), holding the
+fields the dense-task slice runs. The defaults equal what the JAX package
+reads from configs/model.yaml, so no YAML parser is needed to build the
+released model; `yaml` is imported only by `load_model_config`.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+DENSE_KINDS = {
+    "VideoMAEFlowDPTHead": "flow",
+    "VideoMAEDepthDPTHead": "depth",
+    "VideoMAEDynMaskDPTHead": "dyn_mask",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class EncoderConfig:
+    """ViT-giant video encoder (reference l4p_videomae.py:163-186)."""
+
+    img_size: int = 224
+    patch_size: int = 14
+    in_chans: int = 3
+    embed_dim: int = 1408
+    depth: int = 40
+    num_heads: int = 16
+    mlp_ratio: float = 48 / 11
+    tubelet_size: int = 2
+    all_frames: int = 16
+    ln_eps: float = 1e-6
+
+    @property
+    def tokens_thw(self) -> Tuple[int, int, int]:
+        return (
+            self.all_frames // self.tubelet_size,
+            self.img_size // self.patch_size,
+            self.img_size // self.patch_size,
+        )
+
+    @property
+    def num_tokens(self) -> int:
+        t, h, w = self.tokens_thw
+        return t * h * w
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.embed_dim * self.mlp_ratio)
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
+
+
+GIANT = EncoderConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class DPTConfig:
+    num_channels: int
+    hooks: Tuple[int, ...] = (14, 21, 28, 36)
+    layer_dims: Tuple[int, ...] = (256, 512, 1024, 1024)
+    feature_dim: int = 256
+    last_dim: int = 128
+    dim_tokens: int = 1408
+    patch_size: Tuple[int, int, int] = (2, 14, 14)
+    actpost_scale_factors: Tuple[Tuple[int, int, int], ...] = ((1, 2, 2), (1, 1, 1), (0, 0, 0), (-1, -1, -1))
+    fusion_scale_factors: Tuple[Tuple[int, int, int], ...] = ((1, 2, 2), (1, 2, 2), (2, 2, 2), (2, 2, 2))
+    output_size: Optional[Tuple[int, int, int]] = None  # None -> the window's (T, H, W)
+
+
+@dataclasses.dataclass(frozen=True)
+class DenseHeadConfig:
+    """Defaults are the reference's (dense_heads.py:155), as the YAML loader
+    applies them; `default_dense_heads` sets what configs/model.yaml sets."""
+
+    task_name: str
+    kind: str  # 'flow' | 'depth' | 'dyn_mask'
+    out_nchan: int
+    dpt: DPTConfig
+    depth_fn: str = "linear"
+    mask_fn: str = "linear"
+    align_pre_inverse: bool = False  # depth aligned in disparity
+    align_type: str = "affine"  # 'affine' | 'linear'
+
+
+def default_dense_heads(hooks: Tuple[int, ...] = (14, 21, 28, 36)) -> Dict[str, DenseHeadConfig]:
+    """The released configs/model.yaml flow, depth and dyn_mask heads."""
+    return {
+        "flow_2d_backward": DenseHeadConfig(
+            task_name="flow_2d_backward", kind="flow", out_nchan=2,
+            dpt=DPTConfig(num_channels=2, hooks=hooks),
+        ),
+        "depth": DenseHeadConfig(
+            task_name="depth", kind="depth", out_nchan=1,
+            dpt=DPTConfig(num_channels=1, hooks=hooks),
+            depth_fn="exp", align_pre_inverse=True,
+        ),
+        "dyn_mask": DenseHeadConfig(
+            task_name="dyn_mask", kind="dyn_mask", out_nchan=1,
+            dpt=DPTConfig(num_channels=1, hooks=hooks),
+        ),
+    }
+
+
+@dataclasses.dataclass(frozen=True)
+class L4PConfig:
+    encoder: EncoderConfig = GIANT
+    window_size: Tuple[int, int, int] = (16, 224, 224)
+    window_stride_t: int = 8
+    heads: Tuple[Tuple[str, DenseHeadConfig], ...] = tuple(default_dense_heads().items())
+    enc_window_chunk: int = 2  # windows per encoder call
+    dense_window_chunk: int = 2  # windows per DPT head call
+
+    @property
+    def head_dict(self) -> Dict[str, DenseHeadConfig]:
+        return dict(self.heads)
+
+    @property
+    def all_hooks(self) -> Tuple[int, ...]:
+        hooks: List[int] = []
+        for _, h in self.heads:
+            for idx in h.dpt.hooks:
+                if idx not in hooks:
+                    hooks.append(idx)
+        return tuple(sorted(hooks))
+
+
+def _dense_head_from_yaml(name: str, cls: str, args: Mapping[str, Any]) -> DenseHeadConfig:
+    kind = DENSE_KINDS[cls]
+    d = args.get("depth", 40)
+    hooks = tuple(args.get("hooks_idx") or (d * 2 // 5, d * 3 // 5, d * 4 // 5, d))
+    out_nchan = args.get("out_nchan", 2 if kind == "flow" else 1)
+    dpt_kw: Dict[str, Any] = dict(num_channels=out_nchan, hooks=hooks)
+    if "embed_dim" in args:
+        dpt_kw["dim_tokens"] = args["embed_dim"]
+    for ext in ("layer_dims", "feature_dim", "last_dim"):
+        if ext in args:
+            dpt_kw[ext] = tuple(args[ext]) if ext == "layer_dims" else args[ext]
+    return DenseHeadConfig(
+        task_name=args.get("task_name", name),
+        kind=kind,
+        out_nchan=out_nchan,
+        dpt=DPTConfig(**dpt_kw),
+        depth_fn=args.get("depth_fn", "linear"),
+        mask_fn=args.get("apply_fn", "linear"),
+        align_pre_inverse=args.get("align_window_overlap_fn") == "inverse",
+        align_type=args.get("align_type", "affine"),
+    )
+
+
+def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
+    """Parse a reference-schema model YAML into (L4PConfig, tasks).
+
+    Only the flow, depth and dyn_mask heads are read; the YAML's other heads
+    (track_2d, camray) are not ported yet and are left out of the config,
+    while `tasks` is returned as written (InferenceSession refuses the
+    tasks it cannot run)."""
+    import yaml
+
+    with open(path) as f:
+        tree = yaml.safe_load(f)
+    init = tree["init_args"]
+    m = init["l4p_model"]["init_args"]
+    heads = []
+    for name, node in m["task_heads"]["init_args"]["modules"].items():
+        cls = node["class_path"].rsplit(".", 1)[-1]
+        if cls in DENSE_KINDS:
+            heads.append((name, _dense_head_from_yaml(name, cls, dict(node.get("init_args", {})))))
+    enc = EncoderConfig(**m["encoder"]) if "encoder" in m else GIANT
+    cfg = L4PConfig(
+        encoder=enc,
+        window_size=tuple(m.get("window_size", (16, 224, 224))),
+        window_stride_t=m.get("window_stride_T", 8),
+        heads=tuple(heads),
+    )
+    return cfg, tuple(init["tasks"])

@@ -1,0 +1,217 @@
+"""PyTorch port vs the JAX package: ops, aligners and config (fp32, CPU).
+
+Inputs are made with numpy from a seed and fed to both packages. `check`
+holds the port to the reference with |port - ref| <= tol * (1 + |ref|);
+each tolerance is about twice the error measured on this comparison.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+import l4p_tpu_torch.config as PC
+from l4p_tpu_torch.geometry import alignment as PA
+from l4p_tpu_torch.ops import attention as PATT
+from l4p_tpu_torch.ops import conv as PCONV
+from l4p_tpu_torch.ops import misc as PMISC
+from l4p_tpu_torch.ops import resize as PRES
+
+torch.set_num_threads(1)
+
+DENSE_KINDS = ("flow", "depth", "dyn_mask")
+
+
+def check(port, ref, tol: float, what: str = "") -> None:
+    a = np.asarray(port.float() if isinstance(port, torch.Tensor) else port, np.float64)
+    b = np.asarray(ref, np.float64)
+    assert a.shape == b.shape, f"{what}: shape {a.shape} vs {b.shape}"
+    err = float(np.max(np.abs(a - b) / (1.0 + np.abs(b)))) if a.size else 0.0
+    assert err <= tol, f"{what}: error {err:.3g} above tolerance {tol:g}"
+
+
+def port_config(jcfg) -> PC.L4PConfig:
+    """The port's config with the JAX config's encoder and dense heads,
+    copied field by field (the port's dataclasses mirror the JAX names)."""
+    def same(cls, obj, **kw):
+        return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls) if f.name not in kw}, **kw)
+
+    heads = tuple(
+        (name, same(PC.DenseHeadConfig, h, dpt=same(PC.DPTConfig, h.dpt)))
+        for name, h in jcfg.heads if h.kind in DENSE_KINDS
+    )
+    return same(PC.L4PConfig, jcfg, encoder=same(PC.EncoderConfig, jcfg.encoder), heads=heads)
+
+
+def tiny_port_cfg() -> PC.L4PConfig:
+    from tests.test_l4p_forward import tiny_cfg
+
+    return port_config(tiny_cfg())
+
+
+def rand(shape, seed=0, lo=None, hi=None) -> np.ndarray:
+    rng = np.random.default_rng(seed)
+    if lo is not None:
+        return rng.uniform(lo, hi, shape).astype(np.float32)
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+T = torch.from_numpy
+J = jnp.asarray
+
+
+# --- config ---------------------------------------------------------------
+
+def test_defaults_match_released_yaml_field_by_field():
+    """The port's dataclass defaults are the released model: they equal what
+    the JAX package reads from configs/model.yaml (track_2d and camray are
+    not in this slice)."""
+    from l4p_tpu.config import load_model_config
+
+    jcfg, tasks = load_model_config("configs/model.yaml")
+    ref = port_config(jcfg)
+    port = PC.L4PConfig()
+    for f in dataclasses.fields(PC.L4PConfig):
+        if f.name != "heads":
+            assert getattr(port, f.name) == getattr(ref, f.name), f.name
+    assert port.encoder == PC.GIANT
+    assert [n for n, _ in port.heads] == [n for n, _ in ref.heads] == ["flow_2d_backward", "depth", "dyn_mask"]
+    for (name, ph), (_, rh) in zip(port.heads, ref.heads):
+        for f in dataclasses.fields(PC.DenseHeadConfig):
+            assert getattr(ph, f.name) == getattr(rh, f.name), f"{name}.{f.name}"
+
+
+@pytest.mark.parametrize("path", ["configs/model.yaml", "configs/model_tiny.yaml"])
+def test_load_model_config_matches_jax(path):
+    from l4p_tpu.config import load_model_config
+
+    jcfg, jtasks = load_model_config(path)
+    pcfg, ptasks = PC.load_model_config(path)
+    assert ptasks == jtasks
+    assert pcfg == port_config(jcfg)
+
+
+# --- conv / norm / activation ----------------------------------------------
+
+def test_layer_norm_matches_jax():
+    from l4p_tpu.ops.conv import layer_norm
+
+    x, w, b = rand((3, 5, 64), 0) * 3 + 1, rand((64,), 1), rand((64,), 2)
+    check(PCONV.layer_norm(T(x), T(w), T(b), 1e-6), layer_norm(J(x), J(w), J(b), 1e-6), 7e-7)  # measured 3.1e-7
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gelu_dtype_policy_matches_jax(dtype):
+    """Exact erf in fp32, tanh approximation in bf16. Measured 8.0e-7 in
+    fp32; 5.2e-3 (one bf16 step) in bf16, where JAX evaluates the tanh form
+    in bf16 steps and torch in fp32 with one final rounding."""
+    from l4p_tpu.ops.conv import gelu
+
+    x = rand((4096,), 0) * 4
+    port = PCONV.gelu(T(x).to(getattr(torch, dtype)))
+    ref = gelu(J(x).astype(dtype)).astype(jnp.float32)
+    check(port, ref, 1.6e-6 if dtype == "float32" else 1.1e-2)
+
+
+def test_linear_matches_jax():
+    from l4p_tpu.ops.conv import linear
+
+    x, w, b = rand((2, 7, 48), 0), rand((32, 48), 1), rand((32,), 2)
+    check(PCONV.linear(T(x), T(w), T(b)), linear(J(x), J(w), J(b)), 3e-6)  # measured 1.3e-6
+
+
+@pytest.mark.parametrize("stride,padding,k", [(1, 1, 3), (2, 1, 3), (1, 0, 1)])
+def test_conv3d_matches_jax(stride, padding, k):
+    from l4p_tpu.ops.conv import conv3d
+
+    x, w, b = rand((2, 4, 5, 6, 7), 0), rand((3, 4, k, k, k), 1), rand((3,), 2)
+    port = PCONV.conv3d(T(x), T(w), T(b), stride=stride, padding=padding)
+    check(port, conv3d(J(x), J(w), J(b), stride=stride, padding=padding), 2.6e-7)  # measured <= 1.3e-7
+
+
+@pytest.mark.parametrize("stride", [(2, 4, 4), (2, 2, 2)])
+def test_conv_transpose3d_matches_jax(stride):
+    from l4p_tpu.ops.conv import conv_transpose3d
+
+    x, w, b = rand((2, 4, 3, 3, 3), 0), rand((4, 5, *stride), 1), rand((5,), 2)
+    port = PCONV.conv_transpose3d(T(x), T(w), T(b), stride=stride)
+    check(port, conv_transpose3d(J(x), J(w), J(b), stride=stride), 1e-7)  # measured 0
+
+
+# --- resize ------------------------------------------------------------------
+
+@pytest.mark.parametrize("sf", [(1, 2, 2), (2, 2, 2), (2, 1, 1)])
+def test_interpolate_scale_matches_jax(sf):
+    from l4p_tpu.ops.resize import interpolate_scale
+
+    x = rand((2, 3, 4, 5, 6), 0)
+    check(PRES.interpolate_scale(T(x), sf), interpolate_scale(J(x), sf, align_corners=True), 8e-7)  # measured <= 3.9e-7
+
+
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_interpolate_trilinear_matches_jax(align_corners):
+    from l4p_tpu.ops.resize import interpolate_trilinear
+
+    x, size = rand((1, 2, 4, 16, 16), 0), (4, 28, 28)
+    port = PRES.interpolate_trilinear(T(x), size, align_corners)
+    # measured <= 3.5e-6: the JAX package builds fp32 interpolation matrices
+    # from float64 positions, torch computes the weights in fp32
+    check(port, interpolate_trilinear(J(x), size, align_corners=align_corners), 7e-6)
+
+
+# --- misc --------------------------------------------------------------------
+
+@pytest.mark.parametrize("fn_type", ["linear", "exp", "sigmoid", "log", "inverse"])
+def test_apply_fn_matches_jax(fn_type):
+    from l4p_tpu.ops.misc import apply_fn
+
+    x = rand((257,), 0, 0.05, 3.0) if fn_type == "log" else rand((257,), 0)
+    if fn_type == "inverse":
+        x[:5] = 0.0
+    check(PMISC.apply_fn(T(x), fn_type), apply_fn(J(x), fn_type), 2e-7)  # measured <= 7.9e-8
+
+
+def test_safe_inverse_matches_jax():
+    from l4p_tpu.ops.misc import safe_inverse
+
+    x = rand((300,), 0)
+    x[:7] = 0.0
+    check(PMISC.safe_inverse(T(x), 0.1), safe_inverse(J(x), 0.1), 1e-7)  # measured 0
+
+
+def test_mha_matches_jax():
+    from l4p_tpu.ops.attention import mha
+
+    q, k, v = rand((2, 3, 40, 16), 0), rand((2, 3, 24, 16), 1), rand((2, 3, 24, 16), 2)
+    check(PATT.mha(T(q), T(k), T(v), 0.3), mha(J(q), J(k), J(v), 0.3), 7e-7)  # measured 3.1e-7
+
+
+# --- aligners ------------------------------------------------------------------
+
+@pytest.mark.parametrize("pre_inverse", [True, False])
+def test_lstsq_affine_matches_jax(pre_inverse):
+    from l4p_tpu.geometry import alignment as A
+
+    pred, target = rand((2, 1, 4, 8, 8), 0, 0.5, 4.0), rand((2, 1, 4, 8, 8), 1, 0.5, 4.0)
+    sol_p = PA.lstsq_affine_solve(T(pred), T(target), pre_inverse)
+    sol_j = A.lstsq_affine_solve(J(pred), J(target), pre_inverse)
+    # measured <= 9.3e-8
+    check(sol_p, sol_j, 2e-7, "solve")
+    check(PA.lstsq_affine_apply(sol_p, T(pred), pre_inverse), A.lstsq_affine_apply(sol_j, J(pred), pre_inverse),
+          2e-7, "apply")
+
+
+@pytest.mark.parametrize("method,pre_inverse", [("mean", False), ("median", False), ("median", True)])
+def test_linear_scale_matches_jax(method, pre_inverse):
+    from l4p_tpu.geometry import alignment as A
+
+    pred, target = rand((3, 1, 2, 4, 4), 0, 0.5, 4.0), rand((3, 1, 2, 4, 4), 1, 0.5, 4.0)
+    sol_p = PA.linear_scale_solve(T(pred), T(target), pre_inverse, method)
+    sol_j = A.linear_scale_solve(J(pred), J(target), pre_inverse, method)
+    # measured <= 1.2e-7
+    check(sol_p, sol_j, 2.5e-7, "solve")
+    check(PA.linear_scale_apply(sol_p, T(pred), pre_inverse), A.linear_scale_apply(sol_j, J(pred), pre_inverse),
+          2.5e-7, "apply")
