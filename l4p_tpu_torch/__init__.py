@@ -1,9 +1,12 @@
 """l4p_tpu_torch: the PyTorch/CUDA port of l4p_tpu for NVIDIA Hopper.
 
-This slice serves the dense tasks (backward flow, depth, dynamic mask):
-the ViT-giant encoder with its attention on a hand-written CUDA kernel
-(ops/flash_attention.py, csrc/flash_attention.cu), the DPT heads and the
-window stitching. It imports torch and never jax or l4p_tpu.
+The port serves the dense tasks (backward flow, depth, dynamic mask) and
+point tracks: the ViT-giant encoder with its attention on a hand-written
+CUDA kernel (ops/flash_attention.py, csrc/flash_attention.cu), the DPT heads
+and the window stitching, and the SAM-style track head whose two-way
+transformer and mask decoder stream the per-query image tokens through
+three more (ops/fused_keys.py, ops/fused_upscale.py). It imports torch and
+never jax or l4p_tpu.
 """
 
 from l4p_tpu_torch.checkpoint import params_from_jax
@@ -13,15 +16,21 @@ from l4p_tpu_torch.config import (
     DPTConfig,
     EncoderConfig,
     L4PConfig,
+    SamConfig,
+    TrackConfig,
     default_dense_heads,
     load_model_config,
 )
-from l4p_tpu_torch.inference import SLICE_TASKS, InferenceSession
+from l4p_tpu_torch.inference import DENSE_TASKS, SLICE_TASKS, InferenceSession
 from l4p_tpu_torch.models.l4p import L4P
+from l4p_tpu_torch.models.sam import KERNELS, PLAIN, TrackKernels
 from l4p_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from l4p_tpu_torch.ops.fused_keys import i2t_ln_t2i, i2t_ln_t2i_plain, t2i_flash, t2i_flash_plain
+from l4p_tpu_torch.ops.fused_upscale import fused_upscale_hypernet, fused_upscale_hypernet_plain
 
 __all__ = [
-    "GIANT", "DPTConfig", "DenseHeadConfig", "EncoderConfig", "InferenceSession", "L4P", "L4PConfig",
-    "SLICE_TASKS", "default_dense_heads", "flash_attention", "flash_attention_plain", "load_model_config",
-    "params_from_jax",
+    "DENSE_TASKS", "GIANT", "KERNELS", "PLAIN", "DPTConfig", "DenseHeadConfig", "EncoderConfig", "InferenceSession",
+    "L4P", "L4PConfig", "SLICE_TASKS", "SamConfig", "TrackConfig", "TrackKernels", "default_dense_heads",
+    "flash_attention", "flash_attention_plain", "fused_upscale_hypernet", "fused_upscale_hypernet_plain",
+    "i2t_ln_t2i", "i2t_ln_t2i_plain", "load_model_config", "params_from_jax", "t2i_flash", "t2i_flash_plain",
 ]

@@ -3,20 +3,24 @@
 Each library is compiled by ``nvcc`` for Hopper (``sm_90a``) into a shared
 object with a plain C interface and loaded with ``ctypes``; nothing includes
 PyTorch's headers, so a build takes seconds. Outputs go to
-``l4p_tpu_torch/build/``, named by a hash of the sources and flags, so an
-edited source rebuilds and an unchanged one is reused.
+``l4p_tpu_torch/build/``, named by a hash of the sources, the shared headers
+(``csrc/*.cuh``) and the flags, so an edited source rebuilds and an
+unchanged one is reused. `build_all` runs one nvcc per library, all at once.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import hashlib
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
-from typing import Dict, Sequence
+import time
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, Mapping, Sequence
 
 CSRC_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -29,6 +33,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: Dict[str, ctypes.CDLL] = {}
+_name_locks: Dict[str, threading.Lock] = {}
 
 
 def find_nvcc() -> str:
@@ -50,7 +55,7 @@ def nvcc_command(nvcc: str, sources: Sequence[str], out: str) -> list:
 
 def library_path(name: str, sources: Sequence[str]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in [*sources, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
         with open(src, "rb") as f:
             h.update(f.read())
     return os.path.join(BUILD_DIR, f"lib{name}-{h.hexdigest()[:16]}.so")
@@ -85,13 +90,28 @@ def build(name: str, sources: Sequence[str]) -> str:
 
 
 def load(name: str, sources: Sequence[str]) -> ctypes.CDLL:
-    """Builds (if needed) and loads library `name` once per process."""
+    """Builds (if needed) and loads library `name` once per process; two
+    libraries build concurrently, one library once."""
     with _lock:
+        name_lock = _name_locks.setdefault(name, threading.Lock())
+    with name_lock:
         lib = _loaded.get(name)
         if lib is None:
             lib = ctypes.CDLL(build(name, sources))
             _loaded[name] = lib
         return lib
+
+
+def build_all(libraries: Mapping[str, Sequence[str]]) -> Dict[str, float]:
+    """Builds and loads every {name: sources} library, each nvcc in its own
+    thread, all started together; returns the seconds each took."""
+    def one(item):
+        t0 = time.perf_counter()
+        load(*item)
+        return item[0], time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=max(1, len(libraries))) as pool:
+        return dict(pool.map(one, libraries.items()))
 
 
 def build_log(name: str, sources: Sequence[str]) -> str:

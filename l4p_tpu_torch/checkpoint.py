@@ -1,7 +1,7 @@
 """The JAX package's parameter tree -> the port's state dict.
 
-The inverse of `convert_encoder`/`convert_dpt` (l4p_tpu/checkpoint.py:71-110,
-:258-300): keys come out in the released checkpoint's layout without the
+The inverse of `convert_encoder`/`convert_dpt`/`convert_track_head`
+(l4p_tpu/checkpoint.py:71-110, :258-300, :308-385): keys come out in the released checkpoint's layout without the
 Lightning `l4p_model.` prefix, so `L4P(cfg).load_state_dict(sd, strict=True)`
 accepts them. The tree may hold numpy arrays or anything `np.asarray` reads;
 heads that `cfg` does not configure are ignored.
@@ -14,7 +14,7 @@ from typing import Dict, Mapping
 import numpy as np
 import torch
 
-from l4p_tpu_torch.config import DPTConfig, EncoderConfig, L4PConfig
+from l4p_tpu_torch.config import DPTConfig, EncoderConfig, L4PConfig, TrackConfig
 from l4p_tpu_torch.models.dpt import rescale_kind
 
 
@@ -73,10 +73,69 @@ def _dpt_state(p: Mapping, cfg: DPTConfig) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _track_state(p: Mapping, cfg: TrackConfig) -> Dict[str, torch.Tensor]:
+    """The track head; stacked embeddings become one (1, C) entry each. The
+    reference's `iou_token` and `no_mask_embed` have no JAX counterpart and
+    are never read by the video forward: they come out as zeros."""
+    sd: Dict[str, torch.Tensor] = {}
+
+    def lin(name: str, q: Mapping) -> None:
+        sd[name + ".weight"] = _t(q["weight"])
+        sd[name + ".bias"] = _t(q["bias"])
+
+    def rows(name: str, stacked, count: int) -> None:
+        for i in range(count):
+            sd[f"{name}.{i}.weight"] = _t(stacked)[i][None]
+
+    pe = p["prompt_encoder"]
+    gauss = _t(pe["pe_gaussian"])
+    c = gauss.shape[1] * 2
+    sd["prompt_encoder.pe_layer.positional_encoding_gaussian_matrix"] = gauss
+    rows("prompt_encoder.point_embeddings", pe["point_embeddings"], cfg.sam.num_point_embeddings)
+    sd["prompt_encoder.not_a_point_embed.weight"] = _t(pe["not_a_point_embed"])[None]
+    sd["prompt_encoder.no_mask_embed.weight"] = torch.zeros((1, c), dtype=gauss.dtype)
+    if cfg.prompt_using_features:
+        rows("prompt_encoder.prompt_feature_embeddings", pe["prompt_feature_embeddings"], 2)
+
+    md = p["mask_decoder"]
+    sd["mask_decoder.mask_tokens.weight"] = _t(md["mask_tokens"])
+    sd["mask_decoder.iou_token.weight"] = torch.zeros((1, c), dtype=gauss.dtype)
+    tf = md["transformer"]
+    attns = ("self_attn", "cross_attn_token_to_image", "cross_attn_image_to_token")
+    for i, layer in enumerate(tf["layers"]):
+        pre = f"mask_decoder.transformer.layers.{i}."
+        for a in attns:
+            for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+                lin(f"{pre}{a}.{proj}", layer[a][proj])
+        for norm in ("norm1", "norm2", "norm3", "norm4"):
+            lin(pre + norm, layer[norm])
+        lin(pre + "mlp.lin1", layer["mlp"]["lin1"])
+        lin(pre + "mlp.lin2", layer["mlp"]["lin2"])
+    for proj in ("q_proj", "k_proj", "v_proj", "out_proj"):
+        lin(f"mask_decoder.transformer.final_attn_token_to_image.{proj}", tf["final_attn_token_to_image"][proj])
+    lin("mask_decoder.transformer.norm_final_attn", tf["norm_final_attn"])
+    up = md["upscale"]
+    lin("mask_decoder.output_upscaling.0", up["deconv1"])
+    lin("mask_decoder.output_upscaling.1", up["ln"])
+    lin("mask_decoder.output_upscaling.3", up["deconv2"])
+    for i, h in enumerate(md["hypernet"]):
+        for j, layer in enumerate(h["layers"]):
+            lin(f"mask_decoder.output_hypernetworks_mlps.{i}.layers.{j}", layer)
+    if cfg.prompt_using_features:
+        lin("prompt_feature_linear_layer", p["prompt_feature_linear"])
+    if cfg.attend_to_past:
+        sd["processed_video_mask_token.weight"] = _t(p["processed_video_mask_token"])[None]
+        lin("processed_video_features_proj", p["processed_video_features_proj"])
+    return sd
+
+
 def params_from_jax(tree: Mapping, cfg: L4PConfig) -> Dict[str, torch.Tensor]:
     """{'video_encoder': ..., 'task_heads': {task: ...}} -> state dict."""
     sd = {f"video_encoder.{k}": v for k, v in _encoder_state(tree["video_encoder"], cfg.encoder).items()}
     for name, hcfg in cfg.heads:
         for k, v in _dpt_state(tree["task_heads"][name], hcfg.dpt).items():
             sd[f"task_heads.{name}.task_head.{k}"] = v
+    if cfg.track is not None:
+        for k, v in _track_state(tree["task_heads"]["track_2d"], cfg.track).items():
+            sd[f"task_heads.track_2d.{k}"] = v
     return sd

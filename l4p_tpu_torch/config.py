@@ -2,10 +2,12 @@
 
 Counterparts of `EncoderConfig`/`GIANT` (l4p_tpu/models/encoder.py),
 `DPTConfig` (models/dpt.py), `DenseHeadConfig`/`default_dense_heads`/
-`L4PConfig` (models/l4p.py) and `load_model_config` (config.py), holding the
-fields the dense-task slice runs. The defaults equal what the JAX package
-reads from configs/model.yaml, so no YAML parser is needed to build the
-released model; `yaml` is imported only by `load_model_config`.
+`L4PConfig` (models/l4p.py), `SamConfig` (models/sam.py), `TrackConfig`
+(models/track.py) and `load_model_config` (config.py), holding the fields the
+port runs. The dataclass defaults equal what the JAX package reads from
+configs/model.yaml, so no YAML parser is needed to build the released model;
+`yaml` is imported only by `load_model_config`, which applies the YAML
+schema's own defaults to keys a file leaves out.
 """
 
 from __future__ import annotations
@@ -109,11 +111,83 @@ def default_dense_heads(hooks: Tuple[int, ...] = (14, 21, 28, 36)) -> Dict[str, 
 
 
 @dataclasses.dataclass(frozen=True)
+class SamConfig:
+    """Prompt encoder + two-way transformer + mask decoder of the track head
+    (l4p_tpu/models/sam.py:24-47)."""
+
+    embed_dim: int = 1408
+    image_embedding_size: Tuple[int, int, int] = (8, 16, 16)
+    input_image_size: Tuple[int, int, int] = (16, 224, 224)
+    num_point_embeddings: int = 2
+    num_prompt_feature_embeddings: int = 2
+    prompt_using_features: bool = True
+    num_mask_tokens: int = 3
+    sam_head_depth: int = 2
+    num_heads: int = 8
+    mlp_dim: int = 2048
+    attention_downsample_rate: int = 2
+    decoding_out_dim_factor: int = 8
+
+    @property
+    def num_video_tokens(self) -> int:
+        t, h, w = self.image_embedding_size
+        return t * h * w
+
+    @property
+    def decode_dims(self) -> Tuple[int, int]:
+        """(d1, d2) of the two upscaling deconvs: (352, 176) at C = 1408."""
+        d, f = self.embed_dim, self.decoding_out_dim_factor
+        return (min(2 * d // f, d), d // f)
+
+
+@dataclasses.dataclass(frozen=True)
+class TrackConfig:
+    """The SAM-style point-track head (l4p_tpu/models/track.py:46-82), with
+    the released configs/model.yaml values as defaults."""
+
+    task_name: str = "track_2d"
+    image_size: Tuple[int, int, int] = (16, 224, 224)
+    patch_size: Tuple[int, int, int] = (2, 14, 14)
+    estimate_vis: bool = True
+    estimate_depth: bool = True
+    modify_pointlabels_for_windowing: bool = True
+    prompt_using_features: bool = True
+    attend_to_past: bool = True
+    depth_fn: str = "exp"
+    vis_fn: str = "linear"
+    max_queries: int = 192  # the YAML schema's default; the released file sets none
+    num_prompt_points: int = 2
+    estimation_directions: Tuple[int, ...] = (1,)
+    sam: SamConfig = SamConfig()
+
+    @property
+    def token_ids(self) -> Dict[str, int]:
+        """Decoder output token of each estimate (mask tokens first, then
+        the prompts: points, padding point, prompt feature)."""
+        ids = {"xy": 0}
+        n = 1
+        if self.estimate_vis:
+            ids["vis"] = n
+            n += 1
+        if self.estimate_depth:
+            ids["depth"] = n
+            n += 1
+        if self.prompt_using_features:
+            ids["prompt_feat"] = n + self.num_prompt_points
+        return ids
+
+    @property
+    def num_mask_tokens(self) -> int:
+        return 1 + int(self.estimate_vis) + int(self.estimate_depth)
+
+
+@dataclasses.dataclass(frozen=True)
 class L4PConfig:
     encoder: EncoderConfig = GIANT
     window_size: Tuple[int, int, int] = (16, 224, 224)
     window_stride_t: int = 8
     heads: Tuple[Tuple[str, DenseHeadConfig], ...] = tuple(default_dense_heads().items())
+    track: Optional[TrackConfig] = TrackConfig()  # None: no track head
     enc_window_chunk: int = 2  # windows per encoder call
     dense_window_chunk: int = 2  # windows per DPT head call
 
@@ -154,13 +228,46 @@ def _dense_head_from_yaml(name: str, cls: str, args: Mapping[str, Any]) -> Dense
     )
 
 
+def _track_from_yaml(args: Mapping[str, Any]) -> TrackConfig:
+    """VideoMAETrack2DSamHead init_args -> TrackConfig, with the schema's
+    defaults for absent keys (l4p_tpu/config.py:48-75), which are not the
+    dataclass defaults: max_queries 192, estimation_directions [1, -1], and
+    every estimate/prompt/memory switch off."""
+    image_size = tuple(args.get("image_size", (16, 224, 224)))
+    patch_size = tuple(args.get("patch_size", (2, 14, 14)))
+    sam = SamConfig(
+        embed_dim=args.get("prompt_embed_dim", 1408),
+        image_embedding_size=tuple(image_size[i] // patch_size[i] for i in range(3)),
+        input_image_size=image_size,
+        num_point_embeddings=args.get("num_point_embeddings", 2),
+        prompt_using_features=args.get("prompt_using_features", False),
+        num_mask_tokens=1 + int(args.get("estimate_vis", False)) + int(args.get("estimate_depth", False)),
+        sam_head_depth=args.get("sam_head_depth", 2),
+    )
+    return TrackConfig(
+        task_name=args.get("task_name", "track_2d"),
+        image_size=image_size,
+        patch_size=patch_size,
+        estimate_vis=args.get("estimate_vis", False),
+        estimate_depth=args.get("estimate_depth", False),
+        modify_pointlabels_for_windowing=args.get("modify_pointlabels_for_windowing", False),
+        prompt_using_features=args.get("prompt_using_features", False),
+        attend_to_past=args.get("attend_to_past", False),
+        depth_fn=args.get("depth_fn", "linear"),
+        vis_fn=args.get("vis_fn", "linear"),
+        max_queries=args.get("max_queries", 192),
+        estimation_directions=tuple(args.get("estimation_directions", [1, -1])),
+        sam=sam,
+    )
+
+
 def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
     """Parse a reference-schema model YAML into (L4PConfig, tasks).
 
-    Only the flow, depth and dyn_mask heads are read; the YAML's other heads
-    (track_2d, camray) are not ported yet and are left out of the config,
-    while `tasks` is returned as written (InferenceSession refuses the
-    tasks it cannot run)."""
+    The flow, depth, dyn_mask and track_2d heads are read; camray is not
+    ported yet and is left out of the config, while `tasks` is returned as
+    written (InferenceSession refuses the tasks it cannot run). A file with
+    no track_2d head gives `track=None`."""
     import yaml
 
     with open(path) as f:
@@ -168,15 +275,20 @@ def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
     init = tree["init_args"]
     m = init["l4p_model"]["init_args"]
     heads = []
+    track = None
     for name, node in m["task_heads"]["init_args"]["modules"].items():
         cls = node["class_path"].rsplit(".", 1)[-1]
+        args = dict(node.get("init_args", {}))
         if cls in DENSE_KINDS:
-            heads.append((name, _dense_head_from_yaml(name, cls, dict(node.get("init_args", {})))))
+            heads.append((name, _dense_head_from_yaml(name, cls, args)))
+        elif cls == "VideoMAETrack2DSamHead":
+            track = _track_from_yaml(args)
     enc = EncoderConfig(**m["encoder"]) if "encoder" in m else GIANT
     cfg = L4PConfig(
         encoder=enc,
         window_size=tuple(m.get("window_size", (16, 224, 224))),
         window_stride_t=m.get("window_stride_T", 8),
         heads=tuple(heads),
+        track=track,
     )
     return cfg, tuple(init["tasks"])

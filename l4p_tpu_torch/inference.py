@@ -1,10 +1,14 @@
-"""Dense-task inference session (counterpart of l4p_tpu/inference.py:25-181).
+"""Inference session (counterpart of l4p_tpu/inference.py:25-181).
 
 `InferenceSession(cfg, tasks, device)(model_or_state, data)` returns the same
-keys and layouts as the JAX session for the tasks of this slice:
+keys and layouts as the JAX session for the tasks of the port: the dense
 `flow_2d_backward_est_b2thw`, `depth_est_b1thw`, `dyn_mask_est_b1thw`, each
-(B, C, T, H, W). `data` holds `rgb_u8_bthw3` (uint8, normalised on the device)
-or `rgb_b3thw` (normalised float), as tensors or numpy arrays.
+(B, C, T, H, W), and for `track_2d` `track_2d_traj_est_bn2t` (B, N, 2, T),
+`track_2d_vis_est_bn1t` and `track_2d_depth_est_bn1t` (B, N, 1, T). `data`
+holds `rgb_u8_bthw3` (uint8, normalised on the device) or `rgb_b3thw`
+(normalised float), and for tracking `track_2d_pointquerries_bn3` (B, N, 3)
+as (t, x, y) in frames and pixels and `track_2d_pointlabels_bn`, as tensors
+or numpy arrays.
 """
 
 from __future__ import annotations
@@ -16,28 +20,39 @@ import torch.nn as nn
 
 from l4p_tpu_torch.config import L4PConfig
 from l4p_tpu_torch.models.encoder import AttentionFn
-from l4p_tpu_torch.models.l4p import L4P, encode_windows, run_dense_head, stitch_dense_outputs
+from l4p_tpu_torch.models.l4p import L4P, encode_windows, run_dense_head, run_track_chunked, stitch_dense_outputs
+from l4p_tpu_torch.models.sam import KERNELS, TrackKernels
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 
-SLICE_TASKS = ("flow_2d_backward", "depth", "dyn_mask")
+SLICE_TASKS = ("flow_2d_backward", "track_2d", "depth", "dyn_mask")
+DENSE_TASKS = ("flow_2d_backward", "depth", "dyn_mask")
 
 
 class InferenceSession:
-    """`attention` replaces the encoder's attention kernel; tests pass
-    `flash_attention_plain` to hold the kernel's path against the plain one."""
+    """`attention` replaces the encoder's attention kernel and
+    `track_kernels` the track head's three kernels; tests pass the plain
+    versions (`flash_attention_plain`, `models.sam.PLAIN`) to hold the
+    kernels' path against the plain one. Tracking runs forward in time only
+    (the released `estimation_directions: [1]`)."""
 
     def __init__(self, cfg: L4PConfig, tasks: Sequence[str], device: Union[str, torch.device],
-                 attention: AttentionFn = flash_attention):
+                 attention: AttentionFn = flash_attention, track_kernels: TrackKernels = KERNELS):
         self.tasks = tuple(tasks)
         unsupported = [t for t in self.tasks if t not in SLICE_TASKS]
         if unsupported:
             raise ValueError(f"tasks {unsupported} are not ported yet; the port serves {SLICE_TASKS}")
-        missing = [t for t in self.tasks if t not in cfg.head_dict]
+        missing = [t for t in self.tasks if t in DENSE_TASKS and t not in cfg.head_dict]
+        if "track_2d" in self.tasks and cfg.track is None:
+            missing.append("track_2d")
         if not self.tasks or missing:
             raise ValueError(f"no configured head for tasks {missing or self.tasks}")
+        if "track_2d" in self.tasks and tuple(cfg.track.estimation_directions) != (1,):
+            raise ValueError(f"tracking runs forward only; estimation_directions "
+                             f"{tuple(cfg.track.estimation_directions)} are not ported yet")
         self.cfg = cfg
         self.device = torch.device(device)
         self.attention = attention
+        self.track_kernels = track_kernels
         self._loaded = None  # (state dict, model built from it)
 
     def model(self, model_or_state: Union[nn.Module, Mapping[str, torch.Tensor]]) -> L4P:
@@ -65,9 +80,17 @@ class InferenceSession:
             raise ValueError(f"frames are {tuple(hw)}, the model takes {tuple(cfg.window_size[1:])} only")
 
         enc = encode_windows(model.video_encoder, cfg, rgb, rgb_u8, self.attention)
-        hooks = enc["hooks"]
-        del enc  # `final` feeds only the track head
+        hooks, final = enc["hooks"], enc["final"]
+        del enc
         img_info = tuple(cfg.window_size)
-        dense = {t: run_dense_head(model.task_heads[t], hooks, img_info, cfg.dense_window_chunk) for t in self.tasks}
-        del hooks
-        return stitch_dense_outputs(cfg, self.tasks, dense, cfg.window_stride_t, t)
+        dense_tasks = [t_ for t_ in self.tasks if t_ in DENSE_TASKS]
+        dense = {t_: run_dense_head(model.task_heads[t_], hooks, img_info, cfg.dense_window_chunk)
+                 for t_ in dense_tasks}
+        out = stitch_dense_outputs(cfg, dense_tasks, dense, cfg.window_stride_t, t)
+        del hooks, dense  # the hook pyramid is freed before the track stage, the largest
+        if "track_2d" in self.tasks:
+            queries = torch.as_tensor(data["track_2d_pointquerries_bn3"], device=self.device)
+            labels = torch.as_tensor(data["track_2d_pointlabels_bn"], device=self.device)
+            out.update(run_track_chunked(model.task_heads["track_2d"], final, queries, labels,
+                                         cfg.window_stride_t, self.track_kernels))
+        return out

@@ -1,10 +1,11 @@
-"""L4P for the dense tasks: shared encoder + flow/depth/dyn_mask DPT heads +
-sliding-window stitching (counterpart of l4p_tpu/models/l4p.py).
+"""L4P: shared encoder + flow/depth/dyn_mask DPT heads + the point-track
+head + sliding-window stitching (counterpart of l4p_tpu/models/l4p.py).
 
 Windows are encoded `enc_window_chunk` at a time with the window axis merged
 into the batch, and each dense head runs `dense_window_chunk` windows at a
 time; the JAX package's lax.map chunking and stacked zero-padded heads exist
 for XLA's compiler and are not carried over (the outputs are the same).
+Tracking runs `max_queries` queries at a time (`run_track_chunked`).
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from l4p_tpu_torch.geometry.alignment import (
 from l4p_tpu_torch.models.dpt import DPTHead
 from l4p_tpu_torch.models.encoder import AttentionFn, VideoEncoder
 from l4p_tpu_torch.models.ingest import ingest_video_tokens
+from l4p_tpu_torch.models.sam import KERNELS, TrackKernels
+from l4p_tpu_torch.models.track import TrackHead, track_forward_windowed
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 from l4p_tpu_torch.ops.misc import apply_fn
 
@@ -41,20 +44,25 @@ class DenseTaskHead(nn.Module):
 
 
 class L4P(nn.Module):
-    """`video_encoder` + `task_heads.<task>.task_head`: the released
-    `l4p_model.` state dict (minus that prefix) loads with strict=True."""
+    """`video_encoder` + `task_heads.<task>.task_head` for the dense heads +
+    `task_heads.track_2d` (no `task_head.` infix) when the config has a
+    track head: the released `l4p_model.` state dict (minus that prefix)
+    loads with strict=True."""
 
     def __init__(self, cfg: L4PConfig = L4PConfig(), device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         self.video_encoder = VideoEncoder(cfg.encoder, device, dtype)
-        self.task_heads = nn.ModuleDict({name: DenseTaskHead(h, device, dtype) for name, h in cfg.heads})
+        heads = {name: DenseTaskHead(h, device, dtype) for name, h in cfg.heads}
+        if cfg.track is not None:
+            heads["track_2d"] = TrackHead(cfg.track, device, dtype)
+        self.task_heads = nn.ModuleDict(heads)
 
     @torch.no_grad()
     def init_weights(self, generator: torch.Generator) -> None:
         self.video_encoder.init_weights(generator)
         for head in self.task_heads.values():
-            head.task_head.init_weights(generator)
+            (head if isinstance(head, TrackHead) else head.task_head).init_weights(generator)
 
 
 def dense_head_raw(head: DPTHead, hcfg: DenseHeadConfig, hook_feats: Sequence[torch.Tensor],
@@ -185,3 +193,32 @@ def stitch_dense_outputs(cfg: L4PConfig, tasks: Sequence[str], dense_outs: Dict[
         elif t == "depth":
             out[f"{hcf.task_name}_est_b1thw"] = stitch_depth_aligned(dense_outs[t], stride, t_total, hcf)
     return out
+
+
+def merge_query_chunks(v: torch.Tensor, n_queries: int) -> torch.Tensor:
+    """(n_chunks, B, chunk, ...) -> (B, n_queries, ...): undoes the
+    `max_queries` chunking and drops the padding queries."""
+    m = v.movedim(0, 1)
+    return m.reshape(m.shape[0], m.shape[1] * m.shape[2], *m.shape[3:])[:, :n_queries]
+
+
+def run_track_chunked(head: TrackHead, enc_final: torch.Tensor, queries: torch.Tensor, labels: torch.Tensor,
+                      stride: int, kernels: TrackKernels = KERNELS) -> Dict[str, torch.Tensor]:
+    """Forward-direction windowed tracking over the encoder's final features
+    (nw, B, P, C), `max_queries` queries at a time (the reference's memory
+    governor, sparse_heads.py:181-211). Padding queries get coordinates 0
+    and label 0, and their outputs are sliced off."""
+    tcfg = head.cfg
+    n = queries.shape[1]
+    chunk = min(tcfg.max_queries, n)
+    n_chunks = -(-n // chunk)
+    pad = n_chunks * chunk - n
+    if pad:
+        queries = torch.cat([queries, queries.new_zeros((queries.shape[0], pad, 3))], dim=1)
+        labels = torch.cat([labels, labels.new_zeros((labels.shape[0], pad))], dim=1)
+    outs = [
+        track_forward_windowed(head, tcfg, enc_final, queries[:, i * chunk: (i + 1) * chunk],
+                               labels[:, i * chunk: (i + 1) * chunk], stride, kernels)
+        for i in range(n_chunks)
+    ]
+    return {k: merge_query_chunks(torch.stack([o[k] for o in outs]), n) for k in outs[0]}

@@ -1,0 +1,140 @@
+"""The mask decoder's upscale + hypernetwork contraction: a hand-written
+Hopper kernel and its plain version.
+
+`fused_upscale_hypernet` launches ``csrc/fused_upscale.cu``, which replaces
+the Pallas TPU kernel ``l4p_tpu/ops/fused_upscale.py:_kernel`` (the
+source's header says what bounds it on the card and how the design answers
+that). Both deconvs of the upscale have kernel == stride, so each output
+voxel depends on one token: per token and deconv1 offset (k1 of them) the
+chain is src . W1[k1] + b1 -> LayerNorm(eps 1e-6) -> GELU -> . W2[k2] + b2
+-> GELU -> dot with each mask token's hypernetwork vector. The result keeps
+the offsets packed, (N, M, P, k1, k2) fp32, as the JAX package's
+`fused_upscale_hypernet` and `_upscale_xla` return it. GELU is the exact
+erf form in every dtype (the XLA path's; the TPU kernel's polynomial erf was
+a Pallas workaround).
+
+For tensors on the CPU the wrapper runs the plain version; for CUDA bf16
+tensors it launches the kernel or raises, never falls back.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from l4p_tpu_torch import _build
+
+NAME = "fused_upscale"
+SOURCES = ("fused_upscale.cu",)
+LN_EPS = 1e-6
+PLAIN_CHUNK = 16  # queries per step of the plain version (bounds its fp32 temporaries)
+
+
+def _round_up(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
+def _dims(w1: torch.Tensor, w2: torch.Tensor):
+    c, d1 = w1.shape[:2]
+    d2 = w2.shape[1]
+    return c, d1, d2, w1[0, 0].numel(), w2[0, 0].numel()
+
+
+def fused_upscale_hypernet_plain(src, w1, b1, lnw, lnb, w2, b2, hyper) -> torch.Tensor:
+    """src (N, P, C), w1 (C, d1, kt, kh, kw), w2 (d1, d2, lt, lh, lw),
+    hyper (N, M, d2) -> (N, M, P, k1, k2) fp32. Products accumulate in fp32;
+    the GELU outputs and the hypernetwork vectors are rounded to src's dtype,
+    as the kernel rounds them."""
+    n, p, _ = src.shape
+    c, d1, d2, k1, k2 = _dims(w1, w2)
+    dt = src.dtype
+    wm1 = w1.flatten(2).permute(0, 2, 1).reshape(c, k1 * d1).to(dt).float()
+    wm2 = w2.flatten(2).permute(0, 2, 1).reshape(d1, k2 * d2).to(dt).float()
+    bias1 = b1.to(dt).float().repeat(k1)
+    bias2 = b2.to(dt).float().repeat(k2)
+    outs = []
+    for i in range(0, n, PLAIN_CHUNK):
+        x = torch.matmul(src[i: i + PLAIN_CHUNK].float(), wm1) + bias1
+        x = F.layer_norm(x.unflatten(-1, (k1, d1)), (d1,), lnw.float(), lnb.float(), LN_EPS)
+        x = F.gelu(x).to(dt).float()
+        x = F.gelu(torch.matmul(x, wm2) + bias2).to(dt).float()
+        h = hyper[i: i + PLAIN_CHUNK].to(dt).float()
+        outs.append(torch.einsum("npkld,nmd->nmpkl", x.unflatten(-1, (k2, d2)), h))
+    return torch.cat(outs)
+
+
+def _kernel():
+    fn = _build.load(NAME, SOURCES).l4p_fused_upscale_bf16
+    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def pack_weights(w1, b1, lnw, lnb, w2, b2):
+    """Kernel layout: w1 -> (k1, D1P, C) and w2 -> (k2, D2P, D1P) bf16, one
+    (n, k) row-major matrix per offset (rows are the B fragments' columns),
+    with d1 padded to D1P (a multiple of 32) and d2 to D2P (of 16); vectors
+    fp32. All padding is zero, which is exact: padded deconv1 columns are
+    left out of the LayerNorm and come out of it as 0, GELU(0) = 0, and the
+    padded hypernetwork entries are 0."""
+    c, d1, d2, k1, k2 = _dims(w1, w2)
+    d1p, d2p = _round_up(d1, 32), _round_up(d2, 16)
+    dev = w1.device
+    w1t = torch.zeros((k1, d1p, c), device=dev, dtype=torch.bfloat16)
+    w1t[:, :d1] = w1.flatten(2).permute(2, 1, 0)
+    w2t = torch.zeros((k2, d2p, d1p), device=dev, dtype=torch.bfloat16)
+    w2t[:, :d2, :d1] = w2.flatten(2).permute(2, 1, 0)
+
+    def vec(v, size, dtype=torch.float32):  # the deconv biases round to the compute dtype first
+        out = torch.zeros(size, device=dev, dtype=torch.float32)
+        out[: v.numel()] = v.to(dtype).float()
+        return out
+
+    bf16 = torch.bfloat16
+    return w1t, vec(b1, d1p, bf16), vec(lnw, d1p), vec(lnb, d1p), w2t, vec(b2, d2p, bf16)
+
+
+def fused_upscale_hypernet(src, w1, b1, lnw, lnb, w2, b2, hyper) -> torch.Tensor:
+    """(N, P, C) tokens -> (N, M, P, k1, k2) fp32 packed logits; shapes as in
+    `fused_upscale_hypernet_plain`."""
+    n, p, c = src.shape
+    cw, d1, d2, k1, k2 = _dims(w1, w2)
+    m = hyper.shape[1]
+    if cw != c or hyper.shape != (n, m, d2) or w2.shape[0] != d1 or any(
+            v.shape != (d1,) for v in (b1, lnw, lnb)) or b2.shape != (d2,):
+        raise ValueError(f"fused_upscale_hypernet: incompatible shapes src{tuple(src.shape)} w1{tuple(w1.shape)} "
+                         f"w2{tuple(w2.shape)} hyper{tuple(hyper.shape)}")
+    devices = {t.device for t in (src, w1, b1, lnw, lnb, w2, b2, hyper)}
+    if devices == {torch.device("cpu")}:
+        return fused_upscale_hypernet_plain(src, w1, b1, lnw, lnb, w2, b2, hyper)
+    if len(devices) != 1 or src.device.type != "cuda":
+        raise ValueError(f"fused_upscale_hypernet: operands must lie on one CUDA device, got {devices}")
+    if src.dtype != torch.bfloat16:
+        raise TypeError(f"fused_upscale_hypernet: the kernel takes bf16 tokens, got {src.dtype}")
+    if not src.is_contiguous():
+        raise ValueError("fused_upscale_hypernet: src must be contiguous")
+    if src.data_ptr() % 16:
+        raise ValueError("fused_upscale_hypernet: src must be 16-byte aligned")
+    if c % 32 or _round_up(d1, 32) > 384 or _round_up(d2, 16) > 256 or m > 4 or min(n, p) == 0 or n > 65535:
+        raise ValueError(f"fused_upscale_hypernet: unsupported shape src{tuple(src.shape)} d1={d1} d2={d2} M={m} "
+                         f"(needs C % 32 == 0, d1 <= 384, d2 <= 256, M <= 4)")
+    w1t, b1p, lnwp, lnbp, w2t, b2p = pack_weights(w1, b1, lnw, lnb, w2, b2)
+    d1p, d2p = w1t.shape[1], w2t.shape[1]
+    hyp = torch.zeros((n, m, d2p), device=src.device, dtype=torch.bfloat16)
+    hyp[:, :, :d2] = hyper
+    out = torch.empty((n, m, p, k1, k2), device=src.device, dtype=torch.float32)
+    with torch.cuda.device(src.device):
+        err = _kernel()(
+            src.data_ptr(), w1t.data_ptr(), b1p.data_ptr(), lnwp.data_ptr(), lnbp.data_ptr(), w2t.data_ptr(),
+            b2p.data_ptr(), hyp.data_ptr(), out.data_ptr(), n, p, c, d1, d1p, d2p, k1, k2, m, LN_EPS,
+            torch.cuda.current_stream(src.device).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"fused_upscale_hypernet: kernel launch failed with CUDA error {err}")
+    fused_upscale_hypernet.launches += 1
+    return out
+
+
+fused_upscale_hypernet.launches = 0  # kernel launches since the last reset

@@ -1,8 +1,10 @@
-"""Trilinear resize with align_corners=True (l4p_tpu/ops/resize.py:95-125).
+"""Trilinear resize (l4p_tpu/ops/resize.py:95-125) and the per-axis
+interpolation matrix (l4p_tpu/ops/resize.py:21-48).
 
 The JAX package builds per-axis interpolation matrices because
-jax.image.resize has no align_corners=True mode; F.interpolate has one, and
-given the explicit output size it computes the same sampling positions.
+jax.image.resize has no align_corners=True mode; F.interpolate has both
+modes, and given the explicit output size it computes the same sampling
+positions. `interp_matrix` is kept for the track head's exact column means.
 """
 
 from __future__ import annotations
@@ -10,8 +12,28 @@ from __future__ import annotations
 import math
 from typing import Sequence
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+
+def interp_matrix(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
+    """(n_out, n_in) float32 linear-interpolation matrix with
+    F.interpolate's source positions (the source index clamps at 0)."""
+    if n_out == n_in:
+        return np.eye(n_in, dtype=np.float32)
+    dst = np.arange(n_out, dtype=np.float64)
+    if align_corners:
+        src = dst * (n_in - 1) / max(n_out - 1, 1) if n_out > 1 else np.zeros_like(dst)
+    else:
+        src = np.maximum((dst + 0.5) * (n_in / n_out) - 0.5, 0.0)
+    i0 = np.clip(np.floor(src).astype(np.int64), 0, n_in - 1)
+    i1 = np.minimum(i0 + 1, n_in - 1)
+    w1 = (src - np.floor(src)).astype(np.float32).astype(np.float64)
+    m = np.zeros((n_out, n_in), dtype=np.float64)
+    m[np.arange(n_out), i0] += 1.0 - w1
+    m[np.arange(n_out), i1] += w1
+    return m.astype(np.float32)
 
 
 def interpolate_trilinear(x: torch.Tensor, size: Sequence[int], align_corners: bool = False) -> torch.Tensor:

@@ -1,0 +1,99 @@
+"""The plain versions of the port's two-way transformer kernels (ops/fused_keys)
+against the JAX package's Pallas kernels run in interpret mode, at the
+tests/test_fused_keys.py scale (C = 128, P = 256, 8 heads of 6 tokens), fp32
+on the CPU. On the CPU the wrappers run the plain versions; the kernels
+themselves are held against them on the card (tests/test_torch_gpu.py)."""
+
+import functools
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from l4p_tpu_torch.ops import fused_keys as FK
+from tests.test_torch_ops import check, rand
+
+torch.set_num_threads(1)
+
+N, P, C, HEADS, Q = 3, 256, 128, 8, 6
+K = HEADS * Q
+
+
+@functools.lru_cache(maxsize=None)
+def operands(seed: int = 0, p: int = P):
+    """keys, st, spe, r, per, v2, ob, lnw, lnb, st2, spe2 as float32 numpy,
+    with the magnitudes the factored prep produces."""
+    return (
+        rand((N, p, C), seed) * 0.5,
+        rand((N, C, K), seed + 1) * 0.1,
+        rand((N, p, K), seed + 2),
+        rand((N, C, K), seed + 3) * 0.1,
+        rand((N, p, K), seed + 4),
+        rand((N, K, C), seed + 5) * 0.3,
+        rand((C,), seed + 6) * 0.1,
+        1.0 + rand((C,), seed + 7) * 0.1,
+        rand((C,), seed + 8) * 0.1,
+        rand((N, C, K), seed + 9) * 0.1,
+        rand((N, p, K), seed + 10),
+    )
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_t2i_flash_plain_matches_pallas_interpret(seed):
+    from l4p_tpu.ops.fused_keys import t2i_flash
+
+    keys, st, spe = operands(seed)[:3]
+    ref = t2i_flash(jnp.asarray(keys), jnp.asarray(st), jnp.asarray(spe), interpret=True)
+    out = FK.t2i_flash(*(torch.from_numpy(a) for a in (keys, st, spe)))
+    assert out.dtype == torch.float32 and out.shape == (N, K, C)
+    # the kernel's online softmax against one softmax over P: measured <= 3.0e-7
+    check(out, ref, 6e-7)
+
+
+@pytest.mark.parametrize("seed", [0, 5])
+def test_i2t_ln_t2i_plain_matches_pallas_interpret(seed):
+    from l4p_tpu.ops.fused_keys import group_sum_matrix, i2t_ln_t2i
+
+    keys, _, _, r, per, v2, ob, lnw, lnb, st2, spe2 = operands(seed)
+    ref_keys, ref_wsum = i2t_ln_t2i(
+        jnp.asarray(keys), jnp.asarray(r), jnp.asarray(per), jnp.asarray(v2), group_sum_matrix(HEADS, Q),
+        jnp.asarray(ob), jnp.asarray(lnw), jnp.asarray(lnb), jnp.asarray(st2), jnp.asarray(spe2),
+        eps=1e-5, interpret=True,
+    )
+    t = [torch.from_numpy(a) for a in (keys, r, per, v2, ob, lnw, lnb, st2, spe2)]
+    out_keys, out_wsum = FK.i2t_ln_t2i(*t, HEADS, 1e-5)
+    assert out_keys.shape == (N, P, C) and out_wsum.shape == (N, K, C)
+    check(out_keys, ref_keys, 1.5e-6, "keys")  # measured <= 7.0e-7
+    check(out_wsum, ref_wsum, 1.5e-6, "wsum")  # measured <= 7.6e-7
+
+
+def test_ragged_p_plain_matches_float64():
+    """P = 200, which no Pallas kernel takes (it needs P % 128 == 0) and the
+    card's kernels mask: the plain version against float64 numpy."""
+    keys, st, spe = operands(2, 200)[:3]
+    lg = np.einsum("npc,nck->npk", keys.astype(np.float64), st) + spe
+    e = np.exp(lg - lg.max(axis=1, keepdims=True))
+    ref = np.einsum("npk,npc->nkc", e / e.sum(axis=1, keepdims=True), keys.astype(np.float64))
+    check(FK.t2i_flash(*(torch.from_numpy(a) for a in (keys, st, spe))), ref, 3e-7)  # measured 1.4e-7
+
+
+def test_cpu_tensors_take_the_plain_version_without_counting():
+    keys, st, spe = (torch.from_numpy(a) for a in operands(0)[:3])
+    before = FK.t2i_flash.launches, FK.i2t_ln_t2i.launches
+    assert torch.equal(FK.t2i_flash(keys, st, spe), FK.t2i_flash_plain(keys, st, spe))
+    args = [torch.from_numpy(a) for a in operands(0)]
+    got = FK.i2t_ln_t2i(args[0], *args[3:], HEADS)
+    want = FK.i2t_ln_t2i_plain(args[0], *args[3:], HEADS)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert (FK.t2i_flash.launches, FK.i2t_ln_t2i.launches) == before
+
+
+def test_wrappers_check_shapes():
+    keys, st, spe = (torch.from_numpy(a) for a in operands(0)[:3])
+    with pytest.raises(ValueError, match="incompatible"):
+        FK.t2i_flash(keys, st[:, :, :40], spe)
+    args = [torch.from_numpy(a) for a in operands(0)]
+    with pytest.raises(ValueError, match="incompatible"):
+        FK.i2t_ln_t2i(args[0], *args[3:], 7)  # 48 tokens do not split into 7 heads

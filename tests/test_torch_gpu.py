@@ -11,6 +11,8 @@ import pytest
 import torch
 
 from l4p_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from l4p_tpu_torch.ops import fused_keys as FK
+from l4p_tpu_torch.ops import fused_upscale as FU
 
 
 @pytest.fixture
@@ -51,35 +53,141 @@ def test_kernel_raises_instead_of_falling_back(cuda):
         flash_attention(qb.contiguous(), qb.contiguous().cpu(), qb.contiguous(), 0.1)  # two devices
 
 
+# bf16 bands of the track-head kernels against their plain versions on the same
+# bf16 inputs: max |kernel - plain| <= BAND * max |plain| (see each kernel's
+# rounding points in its source header)
+KEYS_BAND = 2e-2
+UPSCALE_BAND = 2e-2
+
+
+def keys_operands(n, p, c, k, k2, cuda, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def r(*shape, scale=1.0, dtype=torch.bfloat16):
+        return (torch.randn(shape, generator=g, device=cuda) * scale).to(dtype)
+
+    return dict(keys=r(n, p, c), st=r(n, c, k2, scale=c ** -0.5), spe=r(n, p, k2, dtype=torch.float32),
+                r=r(n, c, k, scale=c ** -0.5), per=r(n, p, k, dtype=torch.float32), v2=r(n, k, c, scale=0.2),
+                ob=r(c, scale=0.1), lnw=1.0 + r(c, scale=0.1), lnb=r(c, scale=0.1))
+
+
+def band_err(out, plain):
+    return (out.float() - plain.float()).abs().max().item() / plain.float().abs().max().item()
+
+
+KEYS_SHAPES = [(4, 2048, 1408, 48, 48), (3, 1000, 128, 48, 32)]  # the giant width; a ragged P
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p,c,k,k2", KEYS_SHAPES)
+def test_t2i_flash_matches_plain_on_card(cuda, n, p, c, k, k2):
+    o = keys_operands(n, p, c, k, k2, cuda)
+    before = FK.t2i_flash.launches
+    out = FK.t2i_flash(o["keys"], o["st"], o["spe"])
+    torch.cuda.synchronize()
+    assert FK.t2i_flash.launches == before + 1
+    err = band_err(out, FK.t2i_flash_plain(o["keys"], o["st"], o["spe"]))
+    print(f"t2i_flash {(n, p, c, k2)}: max|kernel - plain| / max|plain| = {err:.3g}")
+    assert err <= KEYS_BAND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p,c,k,k2", KEYS_SHAPES)
+def test_i2t_ln_t2i_matches_plain_on_card(cuda, n, p, c, k, k2):
+    o = keys_operands(n, p, c, k, k2, cuda, seed=1)
+    args = [o[x] for x in ("keys", "r", "per", "v2", "ob", "lnw", "lnb", "st", "spe")]
+    before = FK.i2t_ln_t2i.launches
+    keys_new, wsum = FK.i2t_ln_t2i(*args, 8)
+    torch.cuda.synchronize()
+    assert FK.i2t_ln_t2i.launches == before + 1
+    ref_keys, ref_wsum = FK.i2t_ln_t2i_plain(*args, 8)
+    errs = band_err(keys_new, ref_keys), band_err(wsum, ref_wsum)
+    print(f"i2t_ln_t2i {(n, p, c, k, k2)}: keys {errs[0]:.3g}, wsum {errs[1]:.3g}")
+    assert max(errs) <= KEYS_BAND
+
+
+def upscale_operands(n, p, c, d1, d2, m, cuda, seed=0):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=cuda) * scale).bfloat16()
+
+    return (r(n, p, c), r(c, d1, 2, 2, 2, scale=c ** -0.5), r(d1, scale=0.1), 1.0 + r(d1, scale=0.1),
+            r(d1, scale=0.1), r(d1, d2, 1, 2, 2, scale=d1 ** -0.5), r(d2, scale=0.1), r(n, m, d2, scale=0.1))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p,c,d1,d2", [(2, 2048, 1408, 352, 176), (3, 200, 64, 24, 12)])
+def test_fused_upscale_matches_plain_on_card(cuda, n, p, c, d1, d2):
+    args = upscale_operands(n, p, c, d1, d2, 3, cuda)
+    before = FU.fused_upscale_hypernet.launches
+    out = FU.fused_upscale_hypernet(*args)
+    torch.cuda.synchronize()
+    assert FU.fused_upscale_hypernet.launches == before + 1
+    err = band_err(out, FU.fused_upscale_hypernet_plain(*args))
+    print(f"fused_upscale_hypernet {(n, p, c, d1, d2)}: max|kernel - plain| / max|plain| = {err:.3g}")
+    assert err <= UPSCALE_BAND
+
+
+@pytest.mark.gpu
+def test_track_kernels_raise_instead_of_falling_back(cuda):
+    o = keys_operands(2, 64, 128, 48, 48, cuda)
+    with pytest.raises(TypeError):
+        FK.t2i_flash(o["keys"].float(), o["st"], o["spe"])  # fp32 keys
+    with pytest.raises(ValueError):
+        FK.t2i_flash(o["keys"].transpose(1, 2).contiguous().transpose(1, 2), o["st"], o["spe"])  # not contiguous
+    args = [o[x] for x in ("keys", "r", "per", "v2", "ob", "lnw", "lnb", "st", "spe")]
+    with pytest.raises(TypeError):
+        FK.i2t_ln_t2i(args[0].float(), *args[1:], 8)
+    with pytest.raises(ValueError):
+        FK.i2t_ln_t2i(args[0].transpose(1, 2).contiguous().transpose(1, 2), *args[1:], 8)
+    up = upscale_operands(2, 64, 64, 24, 12, 3, cuda)
+    with pytest.raises(TypeError):
+        FU.fused_upscale_hypernet(up[0].float(), *up[1:])
+    with pytest.raises(ValueError):
+        FU.fused_upscale_hypernet(up[0].transpose(1, 2).contiguous().transpose(1, 2), *up[1:])
+
+
 def tiny_cfg():
     """The tests' tiny dims (tests/test_l4p_forward.py tiny_cfg), built in code:
     no YAML parser is promised where the card is."""
     import dataclasses
 
-    from l4p_tpu_torch.config import EncoderConfig, L4PConfig, default_dense_heads
+    from l4p_tpu_torch.config import EncoderConfig, L4PConfig, SamConfig, TrackConfig, default_dense_heads
 
     dpt = dict(hooks=(1, 2, 3, 4), layer_dims=(8, 8, 16, 16), feature_dim=8, last_dim=8, dim_tokens=64)
     heads = tuple((n, dataclasses.replace(h, dpt=dataclasses.replace(h.dpt, **dpt)))
                   for n, h in default_dense_heads().items())
     enc = EncoderConfig(img_size=28, patch_size=14, embed_dim=64, depth=4, num_heads=4, all_frames=4)
-    return L4PConfig(encoder=enc, window_size=(4, 28, 28), window_stride_t=2, heads=heads)
+    track = TrackConfig(image_size=(4, 28, 28), max_queries=8,
+                        sam=SamConfig(embed_dim=64, image_embedding_size=(2, 2, 2), input_image_size=(4, 28, 28)))
+    return L4PConfig(encoder=enc, window_size=(4, 28, 28), window_stride_t=2, heads=heads, track=track)
 
 
 @pytest.mark.gpu
-def test_session_on_card_matches_plain_attention(cuda):
-    """The tiny slice in bf16 on the card: 8 tokens per window (a ragged
-    64-row tile), 3 windows in chunks of 2 + 1, 4 blocks each."""
-    from l4p_tpu_torch import L4P, SLICE_TASKS, InferenceSession
+def test_session_on_card_matches_plain_path(cuda):
+    """The tiny model in bf16 on the card: 8 tokens per window (a ragged
+    64-row tile), 3 windows in chunks of 2 + 1, 4 blocks each; 11 queries in
+    chunks of 8, so the padding runs, through 3 windows each."""
+    from l4p_tpu_torch import L4P, PLAIN, SLICE_TASKS, InferenceSession
 
     cfg = tiny_cfg()
     g = torch.Generator(device=cuda).manual_seed(0)
     model = L4P(cfg, device=cuda, dtype=torch.bfloat16).eval()
     model.init_weights(g)
-    data = {"rgb_u8_bthw3": torch.randint(0, 256, (1, 8, 28, 28, 3), generator=g, device=cuda, dtype=torch.uint8)}
-    before = flash_attention.launches
+    n = 11
+    queries = torch.stack([torch.rand(n, generator=g, device=cuda) * 8,
+                           torch.rand(n, generator=g, device=cuda) * 28,
+                           torch.rand(n, generator=g, device=cuda) * 28], -1)[None]
+    data = {"rgb_u8_bthw3": torch.randint(0, 256, (1, 8, 28, 28, 3), generator=g, device=cuda, dtype=torch.uint8),
+            "track_2d_pointquerries_bn3": queries, "track_2d_pointlabels_bn": torch.ones((1, n), device=cuda)}
+    counters = (flash_attention, FK.t2i_flash, FK.i2t_ln_t2i, FU.fused_upscale_hypernet)
+    before = [f.launches for f in counters]
     out = InferenceSession(cfg, SLICE_TASKS, cuda)(model, data)
-    assert flash_attention.launches - before == 4 * 2
-    ref = InferenceSession(cfg, SLICE_TASKS, cuda, attention=flash_attention_plain)(model, data)
+    chunks, nw = 2, 3
+    assert [f.launches - b for f, b in zip(counters, before)] == [4 * 2, nw * chunks, 2 * nw * chunks, nw * chunks]
+    ref = InferenceSession(cfg, SLICE_TASKS, cuda, attention=flash_attention_plain, track_kernels=PLAIN)(model, data)
+    assert set(out) == set(ref)
     for k, r in ref.items():
         assert out[k].shape == r.shape and torch.isfinite(out[k]).all()
         # the band chip_smoke.py holds the giant model to, relative to the output's largest value

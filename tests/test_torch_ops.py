@@ -33,17 +33,24 @@ def check(port, ref, tol: float, what: str = "") -> None:
     assert err <= tol, f"{what}: error {err:.3g} above tolerance {tol:g}"
 
 
-def port_config(jcfg) -> PC.L4PConfig:
-    """The port's config with the JAX config's encoder and dense heads,
-    copied field by field (the port's dataclasses mirror the JAX names)."""
-    def same(cls, obj, **kw):
-        return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls) if f.name not in kw}, **kw)
+def _same(cls, obj, **kw):
+    """`cls` with the fields of `obj` of the same names, `kw` overriding."""
+    return cls(**{f.name: getattr(obj, f.name) for f in dataclasses.fields(cls) if f.name not in kw}, **kw)
 
+
+def port_track_config(jtrack) -> PC.TrackConfig:
+    return _same(PC.TrackConfig, jtrack, sam=_same(PC.SamConfig, jtrack.sam))
+
+
+def port_config(jcfg) -> PC.L4PConfig:
+    """The port's config with the JAX config's encoder, dense heads and track
+    head, copied field by field (the port's dataclasses mirror the JAX names)."""
     heads = tuple(
-        (name, same(PC.DenseHeadConfig, h, dpt=same(PC.DPTConfig, h.dpt)))
+        (name, _same(PC.DenseHeadConfig, h, dpt=_same(PC.DPTConfig, h.dpt)))
         for name, h in jcfg.heads if h.kind in DENSE_KINDS
     )
-    return same(PC.L4PConfig, jcfg, encoder=same(PC.EncoderConfig, jcfg.encoder), heads=heads)
+    track = None if jcfg.track is None else port_track_config(jcfg.track)
+    return _same(PC.L4PConfig, jcfg, encoder=_same(PC.EncoderConfig, jcfg.encoder), heads=heads, track=track)
 
 
 def tiny_port_cfg() -> PC.L4PConfig:
@@ -67,8 +74,8 @@ J = jnp.asarray
 
 def test_defaults_match_released_yaml_field_by_field():
     """The port's dataclass defaults are the released model: they equal what
-    the JAX package reads from configs/model.yaml (track_2d and camray are
-    not in this slice)."""
+    the JAX package reads from configs/model.yaml, the track head included
+    (camray is not ported yet)."""
     from l4p_tpu.config import load_model_config
 
     jcfg, tasks = load_model_config("configs/model.yaml")
@@ -160,6 +167,18 @@ def test_interpolate_trilinear_matches_jax(align_corners):
     # measured <= 3.5e-6: the JAX package builds fp32 interpolation matrices
     # from float64 positions, torch computes the weights in fp32
     check(port, interpolate_trilinear(J(x), size, align_corners=align_corners), 7e-6)
+
+
+@pytest.mark.parametrize("n_in,n_out", [(8, 16), (16, 224), (5, 3), (7, 7), (1, 4)])
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_interp_matrix_matches_jax(n_in, n_out, align_corners):
+    """The copied interpolation matrix (the track head's column means come
+    from it), upsampling, downsampling and identity sizes."""
+    from l4p_tpu.ops.resize import _interp_matrix
+
+    port = PRES.interp_matrix(n_in, n_out, align_corners)
+    assert port.shape == (n_out, n_in) and port.dtype == np.float32
+    np.testing.assert_array_equal(port, np.asarray(_interp_matrix(n_in, n_out, align_corners)))
 
 
 # --- misc --------------------------------------------------------------------

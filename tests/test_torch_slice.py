@@ -1,7 +1,8 @@
-"""The dense-task slice end to end: the port's InferenceSession vs
+"""The port end to end: its InferenceSession vs
 l4p_tpu.inference.InferenceSession at the tiny config (fp32, CPU, T=8:
-three windows), with the weights carried across by params_from_jax; and the
-stitching functions against their JAX counterparts."""
+three windows) on the dense tasks and with track_2d, with the weights
+carried across by params_from_jax; and the stitching functions against their
+JAX counterparts."""
 
 import numpy as np
 import pytest
@@ -10,7 +11,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from l4p_tpu_torch import InferenceSession, params_from_jax
+from l4p_tpu_torch import SLICE_TASKS, InferenceSession, params_from_jax
 from l4p_tpu_torch.models import l4p as PL
 from tests.test_torch_encoder import tiny_models, video_u8
 from tests.test_torch_ops import check, rand
@@ -40,6 +41,25 @@ def test_session_matches_jax_session(source):
         check(out[k], ref[k], 1.5e-6, k)
 
 
+def test_session_with_track_matches_jax_session():
+    """All four tasks of the slice, with make_data's 5 queries over T = 8
+    (three windows): the dense outputs as above and the three track outputs."""
+    from l4p_tpu.inference import InferenceSession as JaxSession
+    from tests.test_l4p_forward import make_data
+
+    jcfg, jparams, pcfg, model = tiny_models()
+    data = {k: np.asarray(v) for k, v in make_data(T=8, N=5, seed=4).items() if k != "intrinsics_b44t"}
+    ref = JaxSession(jcfg, SLICE_TASKS)(jparams, {k: jnp.asarray(v) for k, v in data.items()})
+    out = InferenceSession(pcfg, SLICE_TASKS, "cpu")(model, data)
+    assert set(out) == set(ref) == {"depth_est_b1thw", "dyn_mask_est_b1thw", "flow_2d_backward_est_b2thw",
+                                    "track_2d_traj_est_bn2t", "track_2d_vis_est_bn1t", "track_2d_depth_est_bn1t"}
+    for k in ref:
+        if k.startswith("track_2d"):
+            assert out[k].shape == (1, 5, 2 if "traj" in k else 1, 8)
+        # measured <= 6.0e-7 (depth), 3.8e-7 (traj, in pixels), 6e-8 (vis, track depth)
+        check(out[k], ref[k], 1.5e-6, k)
+
+
 def test_session_takes_a_module_or_its_state_dict():
     _, _, pcfg, model = tiny_models()
     data = {"rgb_u8_bthw3": torch.from_numpy(video_u8(6, seed=4))}
@@ -50,11 +70,20 @@ def test_session_takes_a_module_or_its_state_dict():
         assert torch.equal(a[k], b[k]), k
 
 
-@pytest.mark.parametrize("tasks", [("depth", "track_2d"), ("camray",), ()])
+@pytest.mark.parametrize("tasks", [("depth", "camray"), ("camray",), ()])
 def test_session_refuses_tasks_outside_the_slice(tasks):
     _, _, pcfg, _ = tiny_models()
     with pytest.raises(ValueError):
         InferenceSession(pcfg, tasks, "cpu")
+
+
+def test_session_refuses_bidirectional_tracking():
+    import dataclasses
+
+    _, _, pcfg, _ = tiny_models()
+    cfg = dataclasses.replace(pcfg, track=dataclasses.replace(pcfg.track, estimation_directions=(1, -1)))
+    with pytest.raises(ValueError, match="forward only"):
+        InferenceSession(cfg, SLICE_TASKS, "cpu")
 
 
 def test_session_refuses_other_frame_sizes():
