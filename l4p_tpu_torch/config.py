@@ -19,7 +19,16 @@ DENSE_KINDS = {
     "VideoMAEFlowDPTHead": "flow",
     "VideoMAEDepthDPTHead": "depth",
     "VideoMAEDynMaskDPTHead": "dyn_mask",
+    "VideoMAETraj3DDPTHead": "camray",
 }
+
+# the camray head's DPT variant (reference dense_heads.py:269-270;
+# l4p_tpu/config.py:38-42)
+_CAMRAY_DPT_DEFAULTS = dict(
+    actpost_scale_factors=((1, 0, 0), (1, 0, 0), (0, 0, 0), (-1, -1, -1)),
+    fusion_scale_factors=((1, 1, 1), (1, 1, 1), (2, 1, 1), (2, 2, 2)),
+    output_size=(16, 16, 16),
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -36,6 +45,9 @@ class EncoderConfig:
     tubelet_size: int = 2
     all_frames: int = 16
     ln_eps: float = 1e-6
+    # all blocks on ops/fused_encoder.py's kernels, with every window of a
+    # request in one batch (l4p_tpu/models/encoder.py:91)
+    fused_encoder: bool = False
 
     @property
     def tokens_thw(self) -> Tuple[int, int, int]:
@@ -82,17 +94,21 @@ class DenseHeadConfig:
     applies them; `default_dense_heads` sets what configs/model.yaml sets."""
 
     task_name: str
-    kind: str  # 'flow' | 'depth' | 'dyn_mask'
+    kind: str  # 'flow' | 'depth' | 'dyn_mask' | 'camray'
     out_nchan: int
     dpt: DPTConfig
     depth_fn: str = "linear"
     mask_fn: str = "linear"
     align_pre_inverse: bool = False  # depth aligned in disparity
     align_type: str = "affine"  # 'affine' | 'linear'
+    # camray: poses from the input intrinsics, else K estimated once from
+    # window 0 (fixed) or per frame (variable); l4p_tpu/config.py:106-107
+    use_intrinsics: bool = True
+    fixed_intrinsics: bool = False
 
 
 def default_dense_heads(hooks: Tuple[int, ...] = (14, 21, 28, 36)) -> Dict[str, DenseHeadConfig]:
-    """The released configs/model.yaml flow, depth and dyn_mask heads."""
+    """The released configs/model.yaml flow, depth, dyn_mask and camray heads."""
     return {
         "flow_2d_backward": DenseHeadConfig(
             task_name="flow_2d_backward", kind="flow", out_nchan=2,
@@ -106,6 +122,11 @@ def default_dense_heads(hooks: Tuple[int, ...] = (14, 21, 28, 36)) -> Dict[str, 
         "dyn_mask": DenseHeadConfig(
             task_name="dyn_mask", kind="dyn_mask", out_nchan=1,
             dpt=DPTConfig(num_channels=1, hooks=hooks),
+        ),
+        "camray": DenseHeadConfig(
+            task_name="traj3d", kind="camray", out_nchan=6,
+            dpt=DPTConfig(num_channels=6, hooks=hooks, **_CAMRAY_DPT_DEFAULTS),
+            use_intrinsics=False, fixed_intrinsics=True,
         ),
     }
 
@@ -186,10 +207,13 @@ class L4PConfig:
     encoder: EncoderConfig = GIANT
     window_size: Tuple[int, int, int] = (16, 224, 224)
     window_stride_t: int = 8
+    joint_alignment: bool = True  # depth and camray stitched by one Sim(3) chain
     heads: Tuple[Tuple[str, DenseHeadConfig], ...] = tuple(default_dense_heads().items())
     track: Optional[TrackConfig] = TrackConfig()  # None: no track head
-    enc_window_chunk: int = 2  # windows per encoder call
+    enc_window_chunk: int = 2  # windows per encoder call (all of them with encoder.fused_encoder)
     dense_window_chunk: int = 2  # windows per DPT head call
+    sim3_num_trials: int = 128  # RANSAC hypotheses of the joint alignment
+    sim3_min_samples: int = 10
 
     @property
     def head_dict(self) -> Dict[str, DenseHeadConfig]:
@@ -206,16 +230,26 @@ class L4PConfig:
 
 
 def _dense_head_from_yaml(name: str, cls: str, args: Mapping[str, Any]) -> DenseHeadConfig:
+    """A dense head's init_args with the YAML schema's defaults
+    (l4p_tpu/config.py:76-108): camray has 6 channels, its DPT variant, and
+    use_intrinsics on, fixed_intrinsics off unless the file says otherwise."""
     kind = DENSE_KINDS[cls]
     d = args.get("depth", 40)
     hooks = tuple(args.get("hooks_idx") or (d * 2 // 5, d * 3 // 5, d * 4 // 5, d))
-    out_nchan = args.get("out_nchan", 2 if kind == "flow" else 1)
+    out_nchan = 6 if kind == "camray" else args.get("out_nchan", 2 if kind == "flow" else 1)
     dpt_kw: Dict[str, Any] = dict(num_channels=out_nchan, hooks=hooks)
     if "embed_dim" in args:
         dpt_kw["dim_tokens"] = args["embed_dim"]
     for ext in ("layer_dims", "feature_dim", "last_dim"):
         if ext in args:
             dpt_kw[ext] = tuple(args[ext]) if ext == "layer_dims" else args[ext]
+    if kind == "camray":
+        dpt_kw.update(_CAMRAY_DPT_DEFAULTS)
+        for k in ("actpost_scale_factors", "fusion_scale_factors"):
+            if k in args:
+                dpt_kw[k] = tuple(map(tuple, args[k]))
+        if "output_size" in args:
+            dpt_kw["output_size"] = tuple(args["output_size"])
     return DenseHeadConfig(
         task_name=args.get("task_name", name),
         kind=kind,
@@ -225,6 +259,8 @@ def _dense_head_from_yaml(name: str, cls: str, args: Mapping[str, Any]) -> Dense
         mask_fn=args.get("apply_fn", "linear"),
         align_pre_inverse=args.get("align_window_overlap_fn") == "inverse",
         align_type=args.get("align_type", "affine"),
+        use_intrinsics=args.get("use_intrinsics", True),
+        fixed_intrinsics=args.get("fixed_intrinsics", False),
     )
 
 
@@ -264,10 +300,9 @@ def _track_from_yaml(args: Mapping[str, Any]) -> TrackConfig:
 def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
     """Parse a reference-schema model YAML into (L4PConfig, tasks).
 
-    The flow, depth, dyn_mask and track_2d heads are read; camray is not
-    ported yet and is left out of the config, while `tasks` is returned as
-    written (InferenceSession refuses the tasks it cannot run). A file with
-    no track_2d head gives `track=None`."""
+    The flow, depth, dyn_mask, camray and track_2d heads are read, and
+    `tasks` is returned as written (InferenceSession refuses the tasks it
+    cannot run). A file with no track_2d head gives `track=None`."""
     import yaml
 
     with open(path) as f:
@@ -288,6 +323,7 @@ def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
         encoder=enc,
         window_size=tuple(m.get("window_size", (16, 224, 224))),
         window_stride_t=m.get("window_stride_T", 8),
+        joint_alignment=m.get("joint_alignment", False),
         heads=tuple(heads),
         track=track,
     )

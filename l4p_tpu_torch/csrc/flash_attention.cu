@@ -1,242 +1,31 @@
 // Encoder self-attention for Hopper (sm_90a): o = softmax(q k^T * scale) v.
 //
 // Replaces the Pallas TPU kernel l4p_tpu/ops/flash_attention.py:_attn_kernel.
-// The TPU kernel keeps one head's whole K/V (2048 x 88 bf16, ~720 KB) in
-// VMEM and runs a plain softmax over all keys for a 256-row q block. A Hopper
-// block has at most 227 KB of shared memory, so this kernel streams K/V in
-// 64-key tiles with an online (running max / running sum) softmax instead.
-//
-// What bounds it: tensor-core FLOPs, 4 * N^2 * D per (batch, head)
-// (QK^T and PV, 2 FLOP per multiply-add). At the giant shape (B*H = 32,
-// N = 2048, D = 88) that is 47 GFLOP against ~70 MB of q/k/v/o traffic,
-// far above the card's ~295 FLOP/byte ridge. The design therefore keeps all
-// intermediates on chip (scores and probabilities live in registers only)
-// and feeds the tensor cores with mma.sync m16n8k16 (bf16 in, fp32
-// accumulate) from ldmatrix fragments. K/V tiles are double-buffered with
-// cp.async so the next tile's load overlaps the current tile's math.
-// wgmma/TMA and warp specialisation are left for a later revision.
+// The device code (64-key tiles, online softmax, cp.async double buffering,
+// mma.sync fragments) lives in attention.cuh, whose header says what bounds
+// it and how the design answers that; csrc/fused_encoder.cu runs the same
+// code inside the whole-encoder blocks.
 //
 // Layout: q (BH, Nq, D), k and v (BH, Nk, D), o (BH, Nq, D), all contiguous
-// bf16. D must be a multiple of 8 and at most 128; it is zero-padded in
-// shared memory to DP in {64, 96, 128} (88 -> 96), which is exact: the pad
-// columns contribute 0 to q.k and produce output columns that are never
-// stored. Ragged Nq/Nk tails are masked.
-//
-// Numerics: scores, running max/sum and the output accumulator are fp32.
-// Probabilities are cast to bf16 *unnormalised* before the PV product and
-// the division by the row sum happens at the end; the TPU kernel casts the
-// normalised probabilities instead, so bf16 results differ in low bits.
+// bf16; D a multiple of 8, at most 128.
 
-#include <math.h>
-
-#include "mma_utils.cuh"
-
-namespace {
-
-using namespace l4p;
-
-constexpr int kBlockM = 64;  // query rows per block, 16 per warp
-constexpr int kBlockN = 64;  // keys per K/V tile
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarps * 32;
-
-// Copies rows [row0, row0 + kRows) of a (n, d) bf16 matrix into a shared
-// tile of kRows x DP (row stride DP + 8), zero-filling rows >= n and
-// columns >= d.
-template <int DP, int kRows>
-__device__ __forceinline__ void load_tile(__nv_bfloat16* tile, const __nv_bfloat16* src, int row0, int n,
-                                          int d, int tid) {
-  constexpr int kStride = DP + 8;
-  constexpr int kChunks = DP / 8;  // 16-byte chunks per row
-  for (int c = tid; c < kRows * kChunks; c += kThreads) {
-    const int r = c / kChunks;
-    const int col = (c % kChunks) * 8;
-    const int gr = row0 + r;
-    const bool valid = gr < n && col < d;
-    const __nv_bfloat16* g = valid ? src + static_cast<size_t>(gr) * d + col : src;
-    cp_async_16(smem_addr(tile + r * kStride + col), g, valid ? 16 : 0);
-  }
-}
-
-template <int DP>
-__global__ void __launch_bounds__(kThreads)
-    flash_attention_fwd_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                               const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int nq,
-                               int nk, int d, float scale_log2) {
-  constexpr int kStride = DP + 8;  // +16 B per row: conflict-free ldmatrix
-  constexpr int kSteps = DP / 16;  // k-steps of QK^T
-  constexpr int kTilesS = kBlockN / 8;
-  constexpr int kTilesO = DP / 8;
-
-  extern __shared__ __align__(16) unsigned char smem[];
-  __nv_bfloat16* sQ = reinterpret_cast<__nv_bfloat16*>(smem);
-  __nv_bfloat16* sK = sQ + kBlockM * kStride;      // [2][kBlockN][kStride]
-  __nv_bfloat16* sV = sK + 2 * kBlockN * kStride;  // [2][kBlockN][kStride]
-
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int m0 = blockIdx.x * kBlockM;
-  const size_t bh = blockIdx.y;
-  const __nv_bfloat16* qb = q + bh * nq * d;
-  const __nv_bfloat16* kb = k + bh * nk * d;
-  const __nv_bfloat16* vb = v + bh * nk * d;
-  __nv_bfloat16* ob = o + bh * nq * d;
-
-  load_tile<DP, kBlockM>(sQ, qb, m0, nq, d, tid);
-  load_tile<DP, kBlockN>(sK, kb, 0, nk, d, tid);
-  load_tile<DP, kBlockN>(sV, vb, 0, nk, d, tid);
-  cp_async_commit();
-
-  uint32_t qf[kSteps][4];
-  float acc[kTilesO][4];
-#pragma unroll
-  for (int j = 0; j < kTilesO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  // this thread's two rows: lane/4 and lane/4 + 8 of the warp's 16
-  float row_max[2] = {-INFINITY, -INFINITY};
-  float row_sum[2] = {0.f, 0.f};  // partial over this thread's columns
-
-  const int n_tiles = (nk + kBlockN - 1) / kBlockN;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t & 1;
-    if (t + 1 < n_tiles) {
-      load_tile<DP, kBlockN>(sK + (stage ^ 1) * kBlockN * kStride, kb, (t + 1) * kBlockN, nk, d, tid);
-      load_tile<DP, kBlockN>(sV + (stage ^ 1) * kBlockN * kStride, vb, (t + 1) * kBlockN, nk, d, tid);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-
-    if (t == 0) {
-#pragma unroll
-      for (int ks = 0; ks < kSteps; ++ks)
-        ldmatrix_x4(qf[ks], smem_addr(sQ + (warp * 16 + (lane & 15)) * kStride + ks * 16 + (lane >> 4) * 8));
-    }
-    const __nv_bfloat16* sKt = sK + stage * kBlockN * kStride;
-    const __nv_bfloat16* sVt = sV + stage * kBlockN * kStride;
-
-    // S = Q K^T for the warp's 16 rows x 64 keys
-    float s[kTilesS][4];
-#pragma unroll
-    for (int j = 0; j < kTilesS; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int ks = 0; ks < kSteps; ++ks) {
-#pragma unroll
-      for (int np = 0; np < kTilesS / 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, smem_addr(sKt + (np * 16 + (lane & 7) + (lane >> 4) * 8) * kStride + ks * 16 +
-                                 ((lane >> 3) & 1) * 8));
-        mma_16816(s[2 * np], qf[ks], b[0], b[1]);
-        mma_16816(s[2 * np + 1], qf[ks], b[2], b[3]);
-      }
-    }
-
-    const int key0 = t * kBlockN;
-    if (key0 + kBlockN > nk) {
-#pragma unroll
-      for (int j = 0; j < kTilesS; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (key0 + j * 8 + (lane & 3) * 2 + (e & 1) >= nk) s[j][e] = -INFINITY;
-    }
-
-    // online softmax in base 2 (scale_log2 = scale * log2(e))
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mt = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kTilesS; ++j) mt = fmaxf(mt, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
-      mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
-      const float m_new = fmaxf(row_max[r], mt * scale_log2);
-      const float alpha = exp2f(row_max[r] - m_new);
-      row_max[r] = m_new;
-      row_sum[r] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kTilesO; ++j) {
-        acc[j][2 * r] *= alpha;
-        acc[j][2 * r + 1] *= alpha;
-      }
-#pragma unroll
-      for (int j = 0; j < kTilesS; ++j) {
-        s[j][2 * r] = exp2f(fmaf(s[j][2 * r], scale_log2, -m_new));
-        s[j][2 * r + 1] = exp2f(fmaf(s[j][2 * r + 1], scale_log2, -m_new));
-        row_sum[r] += s[j][2 * r] + s[j][2 * r + 1];
-      }
-    }
-
-    // O += P V; the S accumulators are already laid out as A fragments
-#pragma unroll
-    for (int kk = 0; kk < kBlockN / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16x2(s[2 * kk][0], s[2 * kk][1]), pack_bf16x2(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16x2(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16x2(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int dp = 0; dp < DP / 16; ++dp) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, smem_addr(sVt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kStride + dp * 16 +
-                                       (lane >> 4) * 8));
-        mma_16816(acc[2 * dp], a, b[0], b[1]);
-        mma_16816(acc[2 * dp + 1], a, b[2], b[3]);
-      }
-    }
-    __syncthreads();  // the next iteration's loads overwrite this stage
-  }
-
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    float l = row_sum[r];
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    inv[r] = 1.f / l;
-  }
-  const int row = m0 + warp * 16 + (lane >> 2);
-#pragma unroll
-  for (int j = 0; j < kTilesO; ++j) {
-    const int col = j * 8 + (lane & 3) * 2;
-    if (col < d) {
-      if (row < nq)
-        *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(row) * d + col) =
-            pack_bf16x2(acc[j][0] * inv[0], acc[j][1] * inv[0]);
-      if (row + 8 < nq)
-        *reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(row + 8) * d + col) =
-            pack_bf16x2(acc[j][2] * inv[1], acc[j][3] * inv[1]);
-    }
-  }
-}
-
-template <int DP>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o, int bh, int nq, int nk, int d,
-                   float scale_log2, cudaStream_t stream) {
-  const int smem_bytes = (kBlockM + 4 * kBlockN) * (DP + 8) * static_cast<int>(sizeof(__nv_bfloat16));
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_fwd_kernel<DP>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((nq + kBlockM - 1) / kBlockM, bh);
-  flash_attention_fwd_kernel<DP><<<grid, kThreads, smem_bytes, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o), nq, nk, d, scale_log2);
-  return cudaGetLastError();
-}
-
-}  // namespace
+#include "attention.cuh"
 
 // Returns 0 on success, else the CUDA error code of the refused launch.
 extern "C" int l4p_flash_attention_fwd_bf16(const void* q, const void* k, const void* v, void* o, int bh,
                                             int nq, int nk, int d, float scale, void* stream) {
+  using namespace l4p::attn;
   if (bh <= 0 || bh > 65535 || nq <= 0 || nk <= 0 || d <= 0 || d % 8 != 0 || d > 128)
     return static_cast<int>(cudaErrorInvalidValue);
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const long long per_head = static_cast<long long>(nq) * d;
   cudaError_t err;
   if (d <= 64)
-    err = launch<64>(q, k, v, o, bh, nq, nk, d, scale_log2, s);
+    err = launch_attention<64>(q, k, v, o, bh, nq, nk, d, scale_log2, 1, per_head, 0, d, s);
   else if (d <= 96)
-    err = launch<96>(q, k, v, o, bh, nq, nk, d, scale_log2, s);
+    err = launch_attention<96>(q, k, v, o, bh, nq, nk, d, scale_log2, 1, per_head, 0, d, s);
   else
-    err = launch<128>(q, k, v, o, bh, nq, nk, d, scale_log2, s);
+    err = launch_attention<128>(q, k, v, o, bh, nq, nk, d, scale_log2, 1, per_head, 0, d, s);
   return static_cast<int>(err);
 }

@@ -1,47 +1,69 @@
 """Inference session (counterpart of l4p_tpu/inference.py:25-181).
 
 `InferenceSession(cfg, tasks, device)(model_or_state, data)` returns the same
-keys and layouts as the JAX session for the tasks of the port: the dense
-`flow_2d_backward_est_b2thw`, `depth_est_b1thw`, `dyn_mask_est_b1thw`, each
-(B, C, T, H, W), and for `track_2d` `track_2d_traj_est_bn2t` (B, N, 2, T),
-`track_2d_vis_est_bn1t` and `track_2d_depth_est_bn1t` (B, N, 1, T). `data`
-holds `rgb_u8_bthw3` (uint8, normalised on the device) or `rgb_b3thw`
-(normalised float), and for tracking `track_2d_pointquerries_bn3` (B, N, 3)
-as (t, x, y) in frames and pixels and `track_2d_pointlabels_bn`, as tensors
-or numpy arrays.
+keys and layouts as the JAX session for every task of the JAX session: the
+dense `flow_2d_backward_est_b2thw`, `depth_est_b1thw`, `dyn_mask_est_b1thw`,
+each (B, C, T, H, W); for `camray` the poses `traj3d_est_b16t` and (unless
+the head uses the input intrinsics) `traj3d_intrinsics_est_b16t`, each
+(B, 16, T); for `track_2d` `track_2d_traj_est_bn2t` (B, N, 2, T),
+`track_2d_vis_est_bn1t` and `track_2d_depth_est_bn1t` (B, N, 1, T). With
+`joint_alignment`, depth and camray are stitched together by the Sim(3)
+chain. `data` holds `rgb_u8_bthw3` (uint8, normalised on the device) or
+`rgb_b3thw` (normalised float), `intrinsics_b44t` (B, 4, 4, T) in pixels
+for camray, and for tracking `track_2d_pointquerries_bn3` (B, N, 3) as
+(t, x, y) in frames and pixels and `track_2d_pointlabels_bn`, as tensors or
+numpy arrays. The stages run in the order of l4p_tpu/inference.py:157-181:
+encode, dense heads, camray rays and the camera solve, stitch, track.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence, Union
+from typing import Dict, Mapping, Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
 
 from l4p_tpu_torch.config import L4PConfig
-from l4p_tpu_torch.models.encoder import AttentionFn
-from l4p_tpu_torch.models.l4p import L4P, encode_windows, run_dense_head, run_track_chunked, stitch_dense_outputs
+from l4p_tpu_torch.models.encoder import AttentionFn, EncoderBlocksFn
+from l4p_tpu_torch.models.l4p import (
+    L4P,
+    Draws,
+    RandomDraws,
+    camray_windows_to_cameras,
+    encode_windows,
+    run_dense_head,
+    run_track_chunked,
+    stitch_dense_outputs,
+)
 from l4p_tpu_torch.models.sam import KERNELS, TrackKernels
 from l4p_tpu_torch.ops.flash_attention import flash_attention
+from l4p_tpu_torch.ops.fused_encoder import fused_encoder_blocks
 
-SLICE_TASKS = ("flow_2d_backward", "track_2d", "depth", "dyn_mask")
+ALL_TASKS = ("flow_2d_backward", "track_2d", "depth", "dyn_mask", "camray")  # bench.py's request
+SLICE_TASKS = ("flow_2d_backward", "track_2d", "depth", "dyn_mask")  # the dense tasks and tracks
 DENSE_TASKS = ("flow_2d_backward", "depth", "dyn_mask")
 
 
 class InferenceSession:
-    """`attention` replaces the encoder's attention kernel and
+    """`attention` replaces the encoder's attention kernel, `encoder_blocks`
+    the whole-encoder kernels (with `encoder.fused_encoder`) and
     `track_kernels` the track head's three kernels; tests pass the plain
-    versions (`flash_attention_plain`, `models.sam.PLAIN`) to hold the
-    kernels' path against the plain one. Tracking runs forward in time only
+    versions (`flash_attention_plain`, `fused_encoder_blocks_plain`,
+    `models.sam.PLAIN`) to hold the kernels' path against the plain one.
+    `draws` gives every random number of the camray solve and the joint
+    stitch (`RandomDraws(0)` by default). Tracking runs forward in time only
     (the released `estimation_directions: [1]`)."""
 
     def __init__(self, cfg: L4PConfig, tasks: Sequence[str], device: Union[str, torch.device],
-                 attention: AttentionFn = flash_attention, track_kernels: TrackKernels = KERNELS):
+                 attention: AttentionFn = flash_attention, track_kernels: TrackKernels = KERNELS,
+                 encoder_blocks: EncoderBlocksFn = fused_encoder_blocks, draws: Optional[Draws] = None):
         self.tasks = tuple(tasks)
-        unsupported = [t for t in self.tasks if t not in SLICE_TASKS]
+        unsupported = [t for t in self.tasks if t not in ALL_TASKS]
         if unsupported:
-            raise ValueError(f"tasks {unsupported} are not ported yet; the port serves {SLICE_TASKS}")
-        missing = [t for t in self.tasks if t in DENSE_TASKS and t not in cfg.head_dict]
+            raise ValueError(f"unknown tasks {unsupported}; the port serves {ALL_TASKS}")
+        missing = [t for t in self.tasks if t in (*DENSE_TASKS, "camray") and t not in cfg.head_dict]
+        if "camray" in self.tasks and "camray" not in missing and cfg.head_dict["camray"].kind != "camray":
+            missing.append("camray")
         if "track_2d" in self.tasks and cfg.track is None:
             missing.append("track_2d")
         if not self.tasks or missing:
@@ -53,6 +75,8 @@ class InferenceSession:
         self.device = torch.device(device)
         self.attention = attention
         self.track_kernels = track_kernels
+        self.encoder_blocks = encoder_blocks
+        self.draws = RandomDraws() if draws is None else draws
         self._loaded = None  # (state dict, model built from it)
 
     def model(self, model_or_state: Union[nn.Module, Mapping[str, torch.Tensor]]) -> L4P:
@@ -79,18 +103,28 @@ class InferenceSession:
         if tuple(hw) != tuple(cfg.window_size[1:]):
             raise ValueError(f"frames are {tuple(hw)}, the model takes {tuple(cfg.window_size[1:])} only")
 
-        enc = encode_windows(model.video_encoder, cfg, rgb, rgb_u8, self.attention)
+        intr = data.get("intrinsics_b44t")
+        intr = None if intr is None else torch.as_tensor(intr, device=self.device)
+
+        enc = encode_windows(model.video_encoder, cfg, rgb, rgb_u8, self.attention, self.encoder_blocks)
         hooks, final = enc["hooks"], enc["final"]
         del enc
         img_info = tuple(cfg.window_size)
-        dense_tasks = [t_ for t_ in self.tasks if t_ in DENSE_TASKS]
+        stride = cfg.window_stride_t
         dense = {t_: run_dense_head(model.task_heads[t_], hooks, img_info, cfg.dense_window_chunk)
-                 for t_ in dense_tasks}
-        out = stitch_dense_outputs(cfg, dense_tasks, dense, cfg.window_stride_t, t)
-        del hooks, dense  # the hook pyramid is freed before the track stage, the largest
+                 for t_ in self.tasks if t_ in DENSE_TASKS}
+        pose_w = intr_w = None
+        if "camray" in self.tasks:
+            rays = run_dense_head(model.task_heads["camray"], hooks, img_info, cfg.dense_window_chunk).float()
+            pose_w, intr_w = camray_windows_to_cameras(rays, cfg.head_dict["camray"], img_info, intr, stride,
+                                                       self.draws)
+            del rays
+        del hooks  # the hook pyramid is freed before the track stage, the largest
+        out = stitch_dense_outputs(cfg, self.tasks, dense, stride, t, pose_w, intr_w, self.draws)
+        del dense
         if "track_2d" in self.tasks:
             queries = torch.as_tensor(data["track_2d_pointquerries_bn3"], device=self.device)
             labels = torch.as_tensor(data["track_2d_pointlabels_bn"], device=self.device)
-            out.update(run_track_chunked(model.task_heads["track_2d"], final, queries, labels,
-                                         cfg.window_stride_t, self.track_kernels))
+            out.update(run_track_chunked(model.task_heads["track_2d"], final, queries, labels, stride,
+                                         self.track_kernels))
         return out

@@ -11,7 +11,7 @@ the Hopper kernel (`flash_attention`) by default.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Sequence
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -22,6 +22,8 @@ from l4p_tpu_torch.ops.conv import gelu, layer_norm, linear
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 
 AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, float], torch.Tensor]
+# (blocks, x, cfg, hook_ends) -> (B, len(hook_ends), N, E): fused_encoder_blocks or its plain version
+EncoderBlocksFn = Callable[[Sequence[nn.Module], torch.Tensor, EncoderConfig, Sequence[int]], torch.Tensor]
 
 
 def sinusoid_pos_embed(n_position: int, d_hid: int) -> np.ndarray:
@@ -114,17 +116,27 @@ class VideoEncoder(nn.Module):
         return linear(x, w.flatten(1), self.patch_embed.proj.bias)
 
     def forward(self, tokens_bne: torch.Tensor, hooks: Sequence[int],
-                attention: AttentionFn = flash_attention) -> Dict[str, object]:
+                attention: AttentionFn = flash_attention,
+                encoder_blocks: Optional[EncoderBlocksFn] = None) -> Dict[str, object]:
         """Tokens (B, N, E) without the position table -> {'hooks': [feature
         per hook], 'final': normed output}. Hook index 0 is the embedding,
         index i the output of block i-1, index `depth` the normed output
-        (reference l4p_videomae.py:108-115)."""
+        (reference l4p_videomae.py:108-115). The blocks run in one
+        `encoder_blocks` call when one is given (`fused_encoder_blocks`, as
+        `encode_windows` passes it under `cfg.encoder.fused_encoder`), else
+        one by one with `attention`."""
         x = tokens_bne + self.pos_embed.to(tokens_bne.dtype)
         feats: Dict[int, torch.Tensor] = {0: x}
-        for i, blk in enumerate(self.blocks):
-            x = blk(x, attention)
-            if i + 1 in hooks:
-                feats[i + 1] = x
+        if encoder_blocks is not None:
+            ends = sorted({h for h in hooks if h > 0} | {self.cfg.depth})
+            stack = encoder_blocks(self.blocks, x, self.cfg, ends)
+            feats.update({e: stack[:, i] for i, e in enumerate(ends)})
+            x = feats[self.cfg.depth]
+        else:
+            for i, blk in enumerate(self.blocks):
+                x = blk(x, attention)
+                if i + 1 in hooks:
+                    feats[i + 1] = x
         final = layer_norm(x, self.norm.weight, self.norm.bias, self.cfg.ln_eps)
         feats[self.cfg.depth] = final
         return {"hooks": [feats[h] for h in hooks], "final": final}

@@ -1,0 +1,83 @@
+"""Where the time of one request of the PyTorch/CUDA port goes, on a CUDA card.
+
+    python3 scripts/profile_port.py                     # all five tasks, fused encoder
+    python3 scripts/profile_port.py --default-encoder   # the same request, per-block encoder
+
+Builds the released giant model (configs/model.yaml values) with random bf16
+weights from a seeded generator, serves chip_smoke.py's all-task request (48
+uint8 frames, bench.py's intrinsics, 128 queries, the five tasks) twice to
+warm up, then traces one request with torch.profiler. Prints the request's
+wall time under the profiler, the device's busy time (the kernels' summed device time; the
+port runs on one stream) and idle share, and device time by kernel name.
+Every line names the card and its power limit.
+"""
+
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import sys
+import time
+from pathlib import Path
+
+import torch
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+from chip_smoke import bench_intrinsics, card_line, track_queries  # noqa: E402
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--frames", type=int, default=48)
+    ap.add_argument("--queries", type=int, default=128)
+    ap.add_argument("--default-encoder", action="store_true", help="per-block encoder instead of the fused one")
+    ap.add_argument("--top", type=int, default=25, help="kernel names to print")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_port: needs a CUDA card", file=sys.stderr)
+        return 1
+    import l4p_tpu_torch as P
+
+    card = card_line()
+    dev = torch.device("cuda")
+    cfg = P.L4PConfig()
+    cfg = dataclasses.replace(cfg, track=dataclasses.replace(cfg.track, max_queries=args.queries),
+                              encoder=dataclasses.replace(cfg.encoder, fused_encoder=not args.default_encoder))
+    model = P.L4P(cfg, device=dev, dtype=torch.bfloat16).eval()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    model.init_weights(gen)
+    hw = tuple(cfg.window_size[1:])
+    t, n = args.frames, args.queries
+    request = {"rgb_u8_bthw3": torch.randint(0, 256, (1, t, *hw, 3), generator=gen, device=dev, dtype=torch.uint8),
+               "intrinsics_b44t": bench_intrinsics(t, hw, dev), **track_queries(n, t, hw, gen, dev)}
+    sess = P.InferenceSession(cfg, P.ALL_TASKS, dev)
+    for _ in range(2):
+        sess(model, request)
+    torch.cuda.synchronize()
+
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        sess(model, request)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    rows = []
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0:
+            rows.append((evt.self_device_time_total / 1e3, evt.count, evt.key))
+    if not rows:
+        print("profile_port: the profiler recorded no device time", file=sys.stderr)
+        return 1
+    rows.sort(reverse=True)
+    busy = sum(r[0] for r in rows)
+    encoder = "default" if args.default_encoder else "fused"
+    print(f"[{card}] {t} frames x {n} queries, tasks {P.ALL_TASKS}, {encoder} encoder: wall {wall:.1f} ms under the "
+          f"profiler, kernels busy {busy:.1f} ms, device idle {100 * (1 - busy / wall):.1f}%")
+    for ms, count, name in rows[: args.top]:
+        print(f"[{card}] {ms:9.2f} ms {100 * ms / busy:5.1f}% x{count:<6d} {name[:150]}")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

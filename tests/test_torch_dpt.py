@@ -16,11 +16,13 @@ from tests.test_torch_ops import check, rand
 torch.set_num_threads(1)
 
 
-@pytest.mark.parametrize("task", ["flow_2d_backward", "depth", "dyn_mask"])
+@pytest.mark.parametrize("task", ["flow_2d_backward", "depth", "dyn_mask", "camray"])
 def test_dense_head_matches_jax(task):
     """DPT trunk + activation on the same hook features; the tiny encoder's
     2x2x2 token grid runs every branch of the giant head (deconv up, identity,
-    strided-conv down, fusion upsampling, the path4 crop, the final resize)."""
+    strided-conv down, fusion upsampling, the path4 crop, the final resize),
+    and camray its variant (time-only deconvs, unit fusion scales, the fixed
+    output size)."""
     from l4p_tpu.models.l4p import dense_head_raw
 
     jcfg, jparams, _, model = tiny_models()

@@ -11,7 +11,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
-from l4p_tpu_torch import L4P, SLICE_TASKS, params_from_jax
+from l4p_tpu_torch import ALL_TASKS, L4P, params_from_jax
 from l4p_tpu_torch.models.ingest import ingest_video_tokens
 from l4p_tpu_torch.models.l4p import encode_windows
 from tests.test_torch_ops import check, rand, tiny_port_cfg
@@ -27,7 +27,7 @@ def tiny_models(seed: int = 0):
     from tests.test_l4p_forward import tiny_cfg
 
     jcfg, pcfg = tiny_cfg(), tiny_port_cfg()
-    jparams = init_l4p_params(jcfg, jax.random.PRNGKey(seed), tasks=SLICE_TASKS)
+    jparams = init_l4p_params(jcfg, jax.random.PRNGKey(seed), tasks=ALL_TASKS)
     model = L4P(pcfg)
     model.load_state_dict(params_from_jax(jax.tree.map(np.asarray, jparams), pcfg), strict=True)
     return jcfg, jparams, pcfg, model.eval()
@@ -96,7 +96,7 @@ def test_params_from_jax_loads_strictly_with_the_alias_keys():
     from tests.test_l4p_forward import tiny_cfg
 
     pcfg = tiny_port_cfg()
-    tree = jax.tree.map(np.asarray, init_l4p_params(tiny_cfg(), jax.random.PRNGKey(1), tasks=SLICE_TASKS))
+    tree = jax.tree.map(np.asarray, init_l4p_params(tiny_cfg(), jax.random.PRNGKey(1), tasks=ALL_TASKS))
     sd = params_from_jax(tree, pcfg)
     model = L4P(pcfg)
     assert set(sd) == set(model.state_dict())

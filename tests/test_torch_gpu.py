@@ -148,6 +148,101 @@ def test_track_kernels_raise_instead_of_falling_back(cuda):
         FU.fused_upscale_hypernet(up[0].transpose(1, 2).contiguous().transpose(1, 2), *up[1:])
 
 
+# per hook end: max |kernel - plain| <= band * max |plain hook|. Both paths
+# round q/k/v, probabilities, GELU outputs and every residual add to bf16 but
+# sum in other orders, so a value can land one bf16 step apart and the
+# difference grows through the blocks. An H100 measured 1.65e-2 (hook 14) to
+# 2.52e-2 (hook 36) at the giant shape and 6.1e-3 at the ragged one; the
+# bands are about twice that (chip_smoke.py holds the same ones)
+FUSED_ENCODER_BANDS = {14: 3.5e-2, 21: 4e-2, 28: 4.5e-2, 36: 5e-2, 40: 5e-2}
+RAGGED_ENCODER_BAND = 1.2e-2
+
+
+def random_blocks(cfg, cuda, seed=0):
+    """The encoder's blocks in bf16 with Xavier weights and random biases and
+    LayerNorm affines, so every bias and affine path of the kernels runs."""
+    from l4p_tpu_torch.models.encoder import VideoEncoder
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    enc = VideoEncoder(cfg, device=cuda, dtype=torch.bfloat16).eval()
+    enc.init_weights(g)
+    with torch.no_grad():
+        for name, p in enc.blocks.named_parameters():
+            if name.endswith("bias"):
+                p.copy_(0.02 * torch.randn(p.shape, generator=g, device=cuda))
+            elif "norm" in name:
+                p.copy_(1.0 + 0.1 * torch.randn(p.shape, generator=g, device=cuda))
+    return enc.blocks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("giant", [True, False])
+def test_fused_encoder_blocks_match_plain_on_card(cuda, giant):
+    """The giant width (2 windows of 2048 tokens, 40 blocks, the released
+    hook ends) and a ragged small shape (N = 300 tokens, E = 256, D = 64)."""
+    from l4p_tpu_torch.config import GIANT, EncoderConfig
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    if giant:
+        cfg, (b, n), ends = GIANT, (2, 2048), (14, 21, 28, 36, 40)
+    else:
+        cfg = EncoderConfig(embed_dim=256, num_heads=4, depth=2, mlp_ratio=4.0)
+        (b, n), ends = (2, 300), (1, 2)
+    blocks = random_blocks(cfg, cuda)
+    g = torch.Generator(device=cuda).manual_seed(1)
+    x = torch.randn((b, n, cfg.embed_dim), generator=g, device=cuda).bfloat16()
+    before, inner = FE.fused_encoder_blocks.launches, FE.fused_encoder_blocks.kernel_launches
+    with torch.no_grad():
+        out = FE.fused_encoder_blocks(blocks, x, cfg, ends)
+        torch.cuda.synchronize()
+        assert FE.fused_encoder_blocks.launches == before + 1
+        assert FE.fused_encoder_blocks.kernel_launches == inner + FE.LAUNCHES_PER_BLOCK * ends[-1]
+        ref = FE.fused_encoder_blocks_plain(blocks, x, cfg, ends)
+    assert out.shape == ref.shape == (b, len(ends), n, cfg.embed_dim)
+    for i, e in enumerate(ends):
+        assert torch.isfinite(out[:, i]).all()
+        err = band_err(out[:, i], ref[:, i])
+        print(f"fused_encoder_blocks giant={giant} hook {e}: max|kernel - plain| / max|plain| = {err:.3g}")
+        assert err <= (FUSED_ENCODER_BANDS[e] if giant else RAGGED_ENCODER_BAND), e
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m,n,k", [(10240, 6144, 1408), (300, 264, 72)])
+def test_linear_gelu_matches_plain_on_card(cuda, m, n, k):
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    g = torch.Generator(device=cuda).manual_seed(2)
+    a = torch.randn((m, k), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((n, k), generator=g, device=cuda) * k ** -0.5).bfloat16()
+    bias = (0.1 * torch.randn((n,), generator=g, device=cuda)).bfloat16()
+    before = FE.linear_gelu.launches
+    out = FE.linear_gelu(a, w, bias)
+    torch.cuda.synchronize()
+    assert FE.linear_gelu.launches == before + 1
+    # both round acc + bias and the GELU output to bf16 once; the sums differ in order
+    err = band_err(out, FE.linear_gelu_plain(a, w, bias))
+    print(f"linear_gelu {(m, n, k)}: max|kernel - plain| / max|plain| = {err:.3g}")
+    assert err <= 2e-2
+
+
+@pytest.mark.gpu
+def test_fused_encoder_raises_instead_of_falling_back(cuda):
+    from l4p_tpu_torch.config import EncoderConfig
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    cfg = EncoderConfig(embed_dim=128, num_heads=2, depth=1, mlp_ratio=4.0)
+    blocks = random_blocks(cfg, cuda)
+    x = torch.zeros((1, 64, 128), device=cuda)
+    with pytest.raises(ValueError, match="bf16"):
+        FE.fused_encoder_blocks(blocks.float(), x, cfg, (1,))  # fp32
+    with pytest.raises(ValueError, match="one CUDA device"):
+        FE.fused_encoder_blocks(blocks, x.bfloat16().cpu(), cfg, (1,))  # x on the CPU, weights on the card
+    wide = EncoderConfig(embed_dim=256, num_heads=2, depth=1, mlp_ratio=4.0)  # head_dim 128
+    with pytest.raises(ValueError, match="head_dim"):
+        FE.fused_encoder_blocks(random_blocks(wide, cuda), torch.zeros((1, 64, 256), device=cuda).bfloat16(), wide,
+                                (1,))
+
+
 def tiny_cfg():
     """The tests' tiny dims (tests/test_l4p_forward.py tiny_cfg), built in code:
     no YAML parser is promised where the card is."""
@@ -192,3 +287,48 @@ def test_session_on_card_matches_plain_path(cuda):
         assert out[k].shape == r.shape and torch.isfinite(out[k]).all()
         # the band chip_smoke.py holds the giant model to, relative to the output's largest value
         assert (out[k].float() - r.float()).abs().max().item() <= 3e-2 * r.float().abs().max().item(), k
+
+
+@pytest.mark.gpu
+def test_all_task_session_with_fused_encoder_on_card_matches_plain_path(cuda):
+    """The five tasks on the tiny model with encoder.fused_encoder (MLP width
+    256, camray rays at the window's 4 frames): the 3 windows go through one
+    fused_encoder_blocks call, and the session's outputs hold against its
+    plain path; the RANSAC-chosen poses, K and Sim(3)-stitched depth are
+    finite."""
+    import dataclasses
+
+    from l4p_tpu_torch import ALL_TASKS, L4P, PLAIN, InferenceSession
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    cfg = tiny_cfg()
+    heads = tuple((n, dataclasses.replace(h, dpt=dataclasses.replace(h.dpt, output_size=(4, 8, 8))))
+                  if n == "camray" else (n, h) for n, h in cfg.heads)
+    cfg = dataclasses.replace(cfg, heads=heads, encoder=dataclasses.replace(cfg.encoder, mlp_ratio=4.0,
+                                                                             fused_encoder=True))
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = L4P(cfg, device=cuda, dtype=torch.bfloat16).eval()
+    model.init_weights(g)
+    n, t = 11, 8
+    k = torch.diag(torch.tensor([28.0, 28.0, 1.0, 1.0], device=cuda))
+    k[0, 2] = k[1, 2] = 14.0
+    queries = torch.stack([torch.rand(n, generator=g, device=cuda) * t,
+                           torch.rand(n, generator=g, device=cuda) * 28,
+                           torch.rand(n, generator=g, device=cuda) * 28], -1)[None]
+    data = {"rgb_u8_bthw3": torch.randint(0, 256, (1, t, 28, 28, 3), generator=g, device=cuda, dtype=torch.uint8),
+            "intrinsics_b44t": k[None, :, :, None].expand(1, 4, 4, t).contiguous(),
+            "track_2d_pointquerries_bn3": queries, "track_2d_pointlabels_bn": torch.ones((1, n), device=cuda)}
+    counters = (FE.fused_encoder_blocks, flash_attention, FK.t2i_flash, FK.i2t_ln_t2i, FU.fused_upscale_hypernet)
+    before = [f.launches for f in counters]
+    inner = FE.fused_encoder_blocks.kernel_launches
+    out = InferenceSession(cfg, ALL_TASKS, cuda)(model, data)
+    chunks, nw = 2, 3
+    assert [f.launches - b for f, b in zip(counters, before)] == [1, 0, nw * chunks, 2 * nw * chunks, nw * chunks]
+    assert FE.fused_encoder_blocks.kernel_launches - inner == FE.LAUNCHES_PER_BLOCK * cfg.encoder.depth
+    ref = InferenceSession(cfg, ALL_TASKS, cuda, attention=flash_attention_plain, track_kernels=PLAIN,
+                           encoder_blocks=FE.fused_encoder_blocks_plain)(model, data)
+    assert set(out) == set(ref)
+    for key, r in ref.items():
+        assert out[key].shape == r.shape and torch.isfinite(out[key]).all() and torch.isfinite(r).all(), key
+        if key != "depth_est_b1thw" and not key.startswith("traj3d"):
+            assert (out[key].float() - r.float()).abs().max().item() <= 3e-2 * r.float().abs().max().item(), key

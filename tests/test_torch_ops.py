@@ -22,7 +22,7 @@ from l4p_tpu_torch.ops import resize as PRES
 
 torch.set_num_threads(1)
 
-DENSE_KINDS = ("flow", "depth", "dyn_mask")
+DENSE_KINDS = ("flow", "depth", "dyn_mask", "camray")
 
 
 def check(port, ref, tol: float, what: str = "") -> None:
@@ -74,8 +74,8 @@ J = jnp.asarray
 
 def test_defaults_match_released_yaml_field_by_field():
     """The port's dataclass defaults are the released model: they equal what
-    the JAX package reads from configs/model.yaml, the track head included
-    (camray is not ported yet)."""
+    the JAX package reads from configs/model.yaml, the camray head, the
+    joint alignment and the track head included."""
     from l4p_tpu.config import load_model_config
 
     jcfg, tasks = load_model_config("configs/model.yaml")
@@ -85,8 +85,12 @@ def test_defaults_match_released_yaml_field_by_field():
         if f.name != "heads":
             assert getattr(port, f.name) == getattr(ref, f.name), f.name
     assert port.encoder == PC.GIANT
-    assert [n for n, _ in port.heads] == [n for n, _ in ref.heads] == ["flow_2d_backward", "depth", "dyn_mask"]
-    for (name, ph), (_, rh) in zip(port.heads, ref.heads):
+    assert sorted(n for n, _ in port.heads) == sorted(n for n, _ in ref.heads) == \
+        ["camray", "depth", "dyn_mask", "flow_2d_backward"]
+    assert port.joint_alignment and (port.sim3_num_trials, port.sim3_min_samples) == (128, 10)
+    port_heads, ref_heads = port.head_dict, ref.head_dict
+    for name in port_heads:
+        ph, rh = port_heads[name], ref_heads[name]
         for f in dataclasses.fields(PC.DenseHeadConfig):
             assert getattr(ph, f.name) == getattr(rh, f.name), f"{name}.{f.name}"
 

@@ -205,7 +205,8 @@ def test_whole_model_with_track_head_loads_strictly():
     jcfg = tiny_cfg()
     pcfg = port_config(jcfg)
     tree = jax.tree.map(np.asarray, init_l4p_params(jcfg, jax.random.PRNGKey(2),
-                                                    tasks=("flow_2d_backward", "track_2d", "depth", "dyn_mask")))
+                                                    tasks=("flow_2d_backward", "track_2d", "depth", "dyn_mask",
+                                                           "camray")))
     sd = params_from_jax(tree, pcfg)
     model = L4P(pcfg)
     assert any(k.startswith("task_heads.track_2d.mask_decoder.") for k in sd)
