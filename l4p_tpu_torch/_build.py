@@ -49,12 +49,20 @@ def find_nvcc() -> str:
     return path
 
 
-def nvcc_command(nvcc: str, sources: Sequence[str], out: str) -> list:
-    return [nvcc, *NVCC_FLAGS, "-o", out, *sources]
+def nvcc_flags() -> tuple:
+    """NVCC_FLAGS, plus -DL4P_BARRIER_WATCHDOG under L4P_BARRIER_WATCHDOG=1:
+    a debug build whose mbarrier waits trap after 10 s (csrc/sm90.cuh)
+    instead of hanging. It is named apart from the main build by its flags."""
+    debug = os.environ.get("L4P_BARRIER_WATCHDOG") == "1"
+    return NVCC_FLAGS + (("-DL4P_BARRIER_WATCHDOG",) if debug else ())
+
+
+def nvcc_command(nvcc: str, sources: Sequence[str], out: str, defines: Sequence[str] = ()) -> list:
+    return [nvcc, *nvcc_flags(), *(f"-D{d}" for d in defines), "-o", out, *sources]
 
 
 def library_path(name: str, sources: Sequence[str]) -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256(" ".join(nvcc_flags()).encode())
     for src in [*sources, *sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))]:
         with open(src, "rb") as f:
             h.update(f.read())

@@ -46,7 +46,8 @@
 // the softmax sum at the end (attention.cuh); the TPU kernel normalises the
 // probabilities before P.V, so the two differ in low bits.
 //
-// wgmma, TMA and persistence across depth are left for later revisions.
+// The attention runs on wgmma and TMA (attention.cuh); the GEMM's move to
+// them and persistence across depth are left for later revisions.
 
 #include <math.h>
 
@@ -71,12 +72,19 @@ enum Epilogue { kQKV = 0, kGELU = 1, kRESIDUAL = 2 };
 
 struct EpilogueArgs {
   const bf16* bias;  // (N)
-  bf16* out;         // kQKV: (3, B, H, tokens, D); kGELU: (M, N); kRESIDUAL: the residual stream (M, N)
+  bf16* out;         // kQKV: (3, B, H, tokens, head_pitch); kGELU: (M, N); kRESIDUAL: the residual stream (M, N)
   bf16* copy_out;    // kRESIDUAL: a second destination of the new stream, or null
   int tokens;        // kQKV: rows per batch item
   int heads;
   int head_dim;
+  int head_pitch;    // kQKV: head_row_pitch(head_dim)
 };
+
+// The elements between two q/k/v rows in the QKV epilogue's output: head_dim
+// rounded up to 16, so that every row starts on a 32-byte sector, which the
+// attention's TMA loads need at full rate (PERF.md); the pad is not written
+// and not read. ops/fused_encoder.py allocates the buffer by the same rule.
+int head_row_pitch(int head_dim) { return (head_dim + 15) / 16 * 16; }
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -157,7 +165,7 @@ __device__ __forceinline__ void store_pair(int r, int col, float v0, float v1, i
     const int b = r / ep.tokens;
     const int t = r - b * ep.tokens;
     const int batch = m / ep.tokens;
-    const size_t off = ((((static_cast<size_t>(s) * batch + b) * ep.heads + h) * ep.tokens + t) * ep.head_dim) + d;
+    const size_t off = ((((static_cast<size_t>(s) * batch + b) * ep.heads + h) * ep.tokens + t) * ep.head_pitch) + d;
     *reinterpret_cast<uint32_t*>(ep.out + off) = pack_bf16x2(v0, v1);
   } else if (EPI == kGELU) {
     *reinterpret_cast<uint32_t*>(ep.out + static_cast<size_t>(r) * n + col) = pack_bf16x2(gelu_tanh(v0), gelu_tanh(v1));
@@ -278,7 +286,8 @@ bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 
 }  // namespace
 
 // Each entry point returns 0 on success, else the CUDA error code of the
-// refused launch (cudaErrorInvalidValue for a shape the kernel does not take).
+// refused launch (cudaErrorInvalidValue for a shape the kernel does not take);
+// the attention returns -(CUresult) when a tensor map cannot be encoded.
 
 extern "C" int l4p_ln_rows_bf16(const void* x, const void* w, const void* b, void* y, int m, int e, float eps,
                                 void* stream) {
@@ -290,7 +299,7 @@ extern "C" int l4p_ln_rows_bf16(const void* x, const void* w, const void* b, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// epilogue: 0 QKV (out (3, m / tokens, heads, tokens, head_dim), n == 3 * heads * head_dim),
+// epilogue: 0 QKV (out (3, m / tokens, heads, tokens, head_row_pitch(head_dim)), n == 3 * heads * head_dim),
 // 1 GELU (out (m, n)), 2 RESIDUAL (out (m, n) updated in place, copy_out (m, n) or null).
 extern "C" int l4p_gemm_nt_bf16(const void* a, const void* w, const void* bias, void* out, void* copy_out, int m,
                                 int n, int k, int epilogue, int tokens, int heads, int head_dim, void* stream) {
@@ -301,7 +310,7 @@ extern "C" int l4p_gemm_nt_bf16(const void* a, const void* w, const void* bias, 
                            n != 3 * heads * head_dim))
     return static_cast<int>(cudaErrorInvalidValue);
   EpilogueArgs ep{static_cast<const bf16*>(bias), static_cast<bf16*>(out), static_cast<bf16*>(copy_out), tokens,
-                  heads, head_dim};
+                  heads, head_dim, head_row_pitch(head_dim)};
   const bf16* pa = static_cast<const bf16*>(a);
   const bf16* pw = static_cast<const bf16*>(w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -317,24 +326,23 @@ extern "C" int l4p_gemm_nt_bf16(const void* a, const void* w, const void* bias, 
   return static_cast<int>(err);
 }
 
-// qkv (3, batch, heads, tokens, head_dim) -> o (batch, tokens, heads * head_dim)
+// qkv (3, batch, heads, tokens, head_row_pitch(head_dim)) -> o (batch, tokens, heads * head_dim)
 extern "C" int l4p_encoder_attention_bf16(const void* qkv, void* o, int batch, int heads, int tokens, int head_dim,
                                           float scale, void* stream) {
   using namespace l4p::attn;
   const int bh = batch * heads;
   if (batch <= 0 || heads <= 0 || bh > 65535 || tokens <= 0 || head_dim <= 0 || head_dim % 8 != 0 ||
-      head_dim > 96 || !aligned16(qkv))
+      head_dim > 96 || !aligned16(qkv) || !aligned16(o))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t part = static_cast<size_t>(bh) * tokens * head_dim;
+  const int pitch = head_row_pitch(head_dim);
+  const size_t part = static_cast<size_t>(bh) * tokens * pitch;
   const bf16* q = static_cast<const bf16*>(qkv);
   const int e = heads * head_dim;
   const float scale_log2 = scale * 1.4426950408889634f;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long stride_b = static_cast<long long>(tokens) * e;
-  cudaError_t err = head_dim <= 64
-                        ? launch_attention<64>(q, q + part, q + 2 * part, o, bh, tokens, tokens, head_dim, scale_log2,
-                                               heads, stride_b, head_dim, e, s)
-                        : launch_attention<96>(q, q + part, q + 2 * part, o, bh, tokens, tokens, head_dim, scale_log2,
-                                               heads, stride_b, head_dim, e, s);
-  return static_cast<int>(err);
+  return head_dim <= 64 ? launch_attention<64>(q, q + part, q + 2 * part, o, bh, tokens, tokens, head_dim, pitch,
+                                               scale_log2, heads, stride_b, head_dim, e, s)
+                        : launch_attention<96>(q, q + part, q + 2 * part, o, bh, tokens, tokens, head_dim, pitch,
+                                               scale_log2, heads, stride_b, head_dim, e, s);
 }

@@ -91,7 +91,7 @@ class Block(nn.Module):
         h = layer_norm(x, self.norm1.weight, self.norm1.bias, eps)
         qkv_bias = torch.cat([a.q_bias, torch.zeros_like(a.v_bias), a.v_bias])  # no k bias
         qkv = linear(h, a.qkv.weight, qkv_bias).view(b, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
-        o = attention(qkv[0].contiguous(), qkv[1].contiguous(), qkv[2].contiguous(), hd ** -0.5)
+        o = attention(qkv[0], qkv[1], qkv[2], hd ** -0.5)  # strided views: the kernel's wrapper lays them out
         x = x + linear(o.transpose(1, 2).reshape(b, n, e), a.proj.weight, a.proj.bias)
         h = layer_norm(x, self.norm2.weight, self.norm2.bias, eps)
         h = gelu(linear(h, self.mlp.fc1.weight, self.mlp.fc1.bias))

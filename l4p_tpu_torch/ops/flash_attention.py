@@ -1,10 +1,11 @@
 """Encoder self-attention: the hand-written Hopper kernel and its plain version.
 
 `flash_attention` launches ``csrc/flash_attention.cu``, which replaces the
-Pallas TPU kernel ``l4p_tpu/ops/flash_attention.py:_attn_kernel`` (the
-source's header says what bounds it and how it is built around that). It is
-built by ``nvcc`` at first use (``_build.py``). `flash_attention_plain` is the
-same function in plain PyTorch (== `mha`).
+Pallas TPU kernel ``l4p_tpu/ops/flash_attention.py:_attn_kernel`` with wgmma
+products on tiles that TMA loads (``csrc/attention.cuh``, whose header says
+what bounds it and how it is built around that). It is built by ``nvcc`` at
+first use (``_build.py``). `flash_attention_plain` is the same function in
+plain PyTorch (== `mha`).
 
 For tensors on the CPU the wrapper runs the plain version; for CUDA tensors
 it launches the kernel or raises, never falls back.
@@ -13,6 +14,7 @@ it launches the kernel or raises, never falls back.
 from __future__ import annotations
 
 import ctypes
+from typing import Optional
 
 import torch
 
@@ -28,16 +30,61 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, sca
     return mha(q, k, v, scale)
 
 
+def kernel_row_pitch(d: int) -> int:
+    """The elements between two q/k/v rows that the kernel loads at full rate:
+    d rounded up to 16, so that every row starts on a 32-byte sector. (At
+    D = 88, 176-byte rows ran 1.3x slower than 192-byte ones on an H100,
+    PERF.md.) csrc/fused_encoder.cu pads its q/k/v by the same rule."""
+    return -(-d // 16) * 16
+
+
+def kernel_layout(x: torch.Tensor) -> torch.Tensor:
+    """x (B, H, N, D), any strides -> the same values as a view of a (B, H,
+    N, kernel_row_pitch(D)) buffer: one copy, as `.contiguous()` would make,
+    into the layout the kernel reads fastest. The padding is never read."""
+    b, h, n, d = x.shape
+    out = torch.empty((b, h, n, kernel_row_pitch(d)), device=x.device, dtype=x.dtype)[..., :d]
+    return out.copy_(x)
+
+
+def in_kernel_layout(t: torch.Tensor) -> bool:
+    """Whether (B, H, N, D) `t` lies as `kernel_layout` puts it: rows
+    kernel_row_pitch(D) elements apart, heads and batch entries one after
+    the other, 16-byte aligned (as the fused encoder's q/k/v buffer does)."""
+    b, h, n, d = t.shape
+    p = kernel_row_pitch(d)
+    return t.stride() == (h * n * p, n * p, p, 1) and t.data_ptr() % 16 == 0
+
+
+def kernel_unsupported(bh: int, nq: int, nk: int, d: int) -> Optional[str]:
+    """What the kernel cannot take, or None: its TMA boxes need D a multiple
+    of 8 (16-byte rows) and at most MAX_HEAD_DIM, and B*H is the grid's y."""
+    if d % 8 or d > MAX_HEAD_DIM:
+        return f"head_dim {d} must be a multiple of 8 and at most {MAX_HEAD_DIM}"
+    if min(bh, nq, nk) == 0 or bh > 65535:
+        return f"B*H {bh} must be 1..65535 and Nq {nq}, Nk {nk} positive"
+    return None
+
+
+def launch_error(err: int) -> str:
+    """The text of a non-zero return of the port's attention entry points."""
+    if err < 0:
+        return f"a TMA tensor map could not be encoded (CUresult {-err})"
+    return f"CUDA error {err}"
+
+
 def _kernel():
     fn = _build.load(NAME, SOURCES).l4p_flash_attention_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """q: (B, H, Nq, D), k/v: (B, H, Nk, D) -> (B, H, Nq, D): softmax(q k^T * scale) v
-    with fp32 scores and softmax."""
+    """q: (B, H, Nq, D), k/v: (B, H, Nk, D), any strides -> (B, H, Nq, D)
+    contiguous: softmax(q k^T * scale) v with fp32 scores and softmax. On
+    CUDA an operand that does not lie as `kernel_layout` puts it is copied
+    so first (one copy each, where a caller would make a contiguous one)."""
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or q.shape[:2] != k.shape[:2] \
             or q.shape[3] != k.shape[3]:
         raise ValueError(f"flash_attention: incompatible shapes q{tuple(q.shape)} k{tuple(k.shape)} "
@@ -49,22 +96,20 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         raise ValueError(f"flash_attention: q, k, v must lie on one CUDA device, got {devices}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention: the kernel takes bf16, got {q.dtype}/{k.dtype}/{v.dtype}")
-    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
-        raise ValueError("flash_attention: q, k, v must be contiguous")
     b, h, nq, d = q.shape
     nk = k.shape[2]
-    if d % 8 != 0 or d > MAX_HEAD_DIM or min(b * h, nq, nk) == 0 or b * h > 65535:
-        raise ValueError(f"flash_attention: unsupported shape q{tuple(q.shape)} k{tuple(k.shape)}")
-    if any(t.data_ptr() % 16 for t in (q, k, v)):
-        raise ValueError("flash_attention: q, k, v must be 16-byte aligned")
-    o = torch.empty_like(q)
+    reason = kernel_unsupported(b * h, nq, nk, d)
+    if reason is not None:
+        raise ValueError(f"flash_attention: q{tuple(q.shape)} k{tuple(k.shape)}: {reason}")
+    q, k, v = (t if in_kernel_layout(t) else kernel_layout(t) for t in (q, k, v))
+    o = torch.empty((b, h, nq, d), device=q.device, dtype=q.dtype)
     with torch.cuda.device(q.device):
         err = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, nq, nk, d, float(scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, nq, nk, d, kernel_row_pitch(d),
+            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed with CUDA error {err}")
+        raise RuntimeError(f"flash_attention: kernel launch failed: {launch_error(err)}")
     flash_attention.launches += 1
     return o
 

@@ -27,11 +27,11 @@ import torch
 from l4p_tpu_torch import _build
 from l4p_tpu_torch.config import EncoderConfig
 from l4p_tpu_torch.ops.conv import gelu, linear
-from l4p_tpu_torch.ops.flash_attention import flash_attention_plain
+from l4p_tpu_torch.ops.flash_attention import flash_attention_plain, kernel_row_pitch, launch_error
 
 NAME = "fused_encoder"
 SOURCES = ("fused_encoder.cu",)
-MAX_HEAD_DIM = 96  # attention pads D to 64 or 96 in shared memory
+MAX_HEAD_DIM = 96  # the fused path's attention pads D to 64 or 96 in shared memory
 QKV, GELU, RESIDUAL = 0, 1, 2  # the GEMM epilogues of csrc/fused_encoder.cu
 LAUNCHES_PER_BLOCK = 7
 
@@ -114,7 +114,7 @@ def fused_encoder_blocks(blocks: Sequence[torch.nn.Module], x: torch.Tensor, cfg
     xw = x.contiguous().clone()  # the residual stream, updated in place by the RESIDUAL epilogues
     stack = torch.empty((len(ends), b, n, e), device=x.device, dtype=x.dtype)
     ln_out = torch.empty((b, n, e), device=x.device, dtype=x.dtype)
-    qkv = torch.empty((3, b, heads, n, hd), device=x.device, dtype=x.dtype)
+    qkv = torch.empty((3, b, heads, n, kernel_row_pitch(hd)), device=x.device, dtype=x.dtype)  # the QKV epilogue's rows
     attn_out = torch.empty((b, n, e), device=x.device, dtype=x.dtype)
     mlp_hidden = torch.empty((m, hidden), device=x.device, dtype=x.dtype)  # 126 MB at 5 giant windows
     ln, gemm, attn = _kernels()
@@ -123,7 +123,7 @@ def fused_encoder_blocks(blocks: Sequence[torch.nn.Module], x: torch.Tensor, cfg
 
     def check(err: int, what: str) -> None:
         if err != 0:
-            raise RuntimeError(f"fused_encoder_blocks: {what} launch failed with CUDA error {err}")
+            raise RuntimeError(f"fused_encoder_blocks: {what} launch failed: {launch_error(err)}")
         fused_encoder_blocks.kernel_launches += 1
 
     with torch.cuda.device(x.device):

@@ -6,10 +6,12 @@
 Builds the released giant model (configs/model.yaml values) with random bf16
 weights from a seeded generator, serves chip_smoke.py's all-task request (48
 uint8 frames, bench.py's intrinsics, 128 queries, the five tasks) twice to
-warm up, then traces one request with torch.profiler. Prints the request's
-wall time under the profiler, the device's busy time (the kernels' summed device time; the
-port runs on one stream) and idle share, and device time by kernel name.
-Every line names the card and its power limit.
+warm up, times TIMED requests on the host clock (each ending in a
+synchronise), then traces one request with torch.profiler. Prints the
+requests' times, the traced request's wall time under the profiler, the
+device's busy time (the kernels' summed device time; the port runs on one
+stream) and idle share, and device time by kernel name. Every line names
+the card and its power limit.
 """
 
 from __future__ import annotations
@@ -25,6 +27,8 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import bench_intrinsics, card_line, track_queries  # noqa: E402
+
+TIMED = 3  # requests timed without the profiler, after two warm-ups
 
 
 def main() -> int:
@@ -55,6 +59,12 @@ def main() -> int:
     for _ in range(2):
         sess(model, request)
     torch.cuda.synchronize()
+    times = []
+    for _ in range(TIMED):
+        t0 = time.perf_counter()
+        sess(model, request)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
 
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -72,6 +82,8 @@ def main() -> int:
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
     encoder = "default" if args.default_encoder else "fused"
+    print(f"[{card}] {t} frames x {n} queries, {encoder} encoder: requests {', '.join(f'{x:.1f}' for x in times)} "
+          f"ms, best {min(times):.1f} ms")
     print(f"[{card}] {t} frames x {n} queries, tasks {P.ALL_TASKS}, {encoder} encoder: wall {wall:.1f} ms under the "
           f"profiler, kernels busy {busy:.1f} ms, device idle {100 * (1 - busy / wall):.1f}%")
     for ms, count, name in rows[: args.top]:

@@ -11,7 +11,8 @@ import torch
 import jax.numpy as jnp
 
 from l4p_tpu_torch import _build
-from l4p_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
+from l4p_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_plain, in_kernel_layout,
+                                               kernel_layout, kernel_row_pitch, kernel_unsupported, launch_error)
 from tests.test_flash_attention import _flash_interpret
 from tests.test_torch_ops import check, rand
 
@@ -40,6 +41,42 @@ def test_wrapper_rejects_mismatched_shapes(k_shape):
     kv = torch.zeros(k_shape)
     with pytest.raises(ValueError):
         flash_attention(q, kv, kv, 0.25)
+
+
+@pytest.mark.parametrize("bh,nq,nk,d,why", [(32, 2048, 2048, 88, None), (1, 1, 1, 128, None),
+                                             (32, 2048, 2048, 12, "multiple of 8"), (4, 64, 64, 136, "at most 128"),
+                                             (70000, 64, 64, 64, "B*H"), (4, 0, 64, 64, "positive")])
+def test_kernel_checks_what_tma_cannot_take(bh, nq, nk, d, why):
+    """The checks the wrapper makes on CUDA tensors before the launch: TMA rows
+    of whole 16-byte units, D at most 128, B*H within the grid."""
+    reason = kernel_unsupported(bh, nq, nk, d)
+    assert (reason is None) if why is None else (why in reason)
+
+
+@pytest.mark.parametrize("shape", [(2, 3, 40, 88), (1, 1, 1, 16), (2, 1, 5, 72), (1, 4, 1, 24)])
+def test_kernel_layout_pads_rows_and_keeps_values(shape):
+    """The layout the wrapper hands the kernel: the same values, rows a
+    multiple of 16 elements apart; other layouts it copies into it."""
+    x = torch.from_numpy(rand(shape, 5)).transpose(1, 2).contiguous().transpose(1, 2)  # (B, N, H, D) memory
+    y = kernel_layout(x)
+    assert torch.equal(y, x) and y.shape == x.shape
+    assert in_kernel_layout(y) and y.stride(2) == kernel_row_pitch(shape[3]) and kernel_row_pitch(shape[3]) % 16 == 0
+    # contiguous rows are the kernel's layout only where D is a multiple of 16
+    assert in_kernel_layout(x.contiguous()) == (shape[3] % 16 == 0)
+    assert shape[3] % 16 == 0 or not in_kernel_layout(x)
+
+
+def test_wrapper_runs_plain_version_on_padded_rows_on_cpu():
+    q, k, v = (kernel_layout(torch.from_numpy(rand((2, 3, 40, 24), s))) for s in range(3))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, 0.25)
+    assert torch.equal(out, flash_attention_plain(q.contiguous(), k.contiguous(), v.contiguous(), 0.25))
+    assert flash_attention.launches == before
+
+
+def test_launch_error_names_tensor_map_failures():
+    assert launch_error(1) == "CUDA error 1"
+    assert "tensor map" in launch_error(-1) and "CUresult 1" in launch_error(-1)
 
 
 def test_library_name_follows_source_content(tmp_path):

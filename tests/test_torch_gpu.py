@@ -24,7 +24,11 @@ def cuda():
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape,nk", [((2, 16, 2048, 88), 2048), ((1, 8, 512, 64), 512), ((1, 2, 1000, 88), 1000),
-                                      ((1, 4, 300, 128), 300)])
+                                      ((1, 4, 300, 128), 300),
+                                      # one tile each: a fault of the TMA boxes or the wgmma descriptors
+                                      # shows here first, at D_pad 96 (three swizzle atoms) and 128 (four)
+                                      ((1, 1, 64, 88), 64), ((1, 1, 64, 128), 64),
+                                      ((5, 16, 2048, 88), 2048)])  # bench.py's fused shape: 80 heads
 def test_kernel_matches_plain_on_card(cuda, shape, nk):
     g = torch.Generator(device=cuda).manual_seed(0)
     b, h, nq, d = shape
@@ -37,8 +41,72 @@ def test_kernel_matches_plain_on_card(cuda, shape, nk):
     plain = flash_attention_plain(q, k, v, d ** -0.5)
     # bf16 band: both round the output and the probabilities to bf16, the
     # kernel before normalising, the plain version after; measured <= 3.9e-3
-    # on an H100 for N(0, 1) inputs
+    # on an H100 for N(0, 1) inputs (the wgmma kernel: 3.9e-3 on one tile and
+    # at N=300, 2.0e-3 at N=2048)
     assert (out.float() - plain.float()).abs().max().item() <= 8e-3
+
+
+@pytest.mark.gpu
+def test_encoder_attention_head_major_matches_plain_on_card(cuda):
+    """The fused encoder's entry point: q/k/v head-major in one (3, B, H, N, D)
+    buffer, each head's rows its own tensor-map rows (N = 300 is ragged: a
+    box past a head's last row must read zeros, not the next head), the
+    output written token-major (B, N, H * D)."""
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    from l4p_tpu_torch.ops.flash_attention import kernel_row_pitch
+
+    b, h, n, d = 2, 3, 300, 88
+    g = torch.Generator(device=cuda).manual_seed(3)
+    # the QKV epilogue's layout: rows kernel_row_pitch(d) = 96 apart, the pad never read
+    qkv = torch.full((3, b, h, n, kernel_row_pitch(d)), float("nan"), device=cuda, dtype=torch.bfloat16)
+    qkv[..., :d] = torch.randn((3, b, h, n, d), generator=g, device=cuda).bfloat16()
+    qkv = qkv[..., :d]
+    out = torch.empty((b, n, h * d), device=cuda, dtype=torch.bfloat16)
+    err = FE._kernels()[2](qkv.data_ptr(), out.data_ptr(), b, h, n, d, d ** -0.5,
+                           torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err == 0
+    plain = flash_attention_plain(qkv[0], qkv[1], qkv[2], d ** -0.5).transpose(1, 2).reshape(b, n, h * d)
+    assert (out.float() - plain.float()).abs().max().item() <= 8e-3  # the band above
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 16, 2048, 88), (1, 2, 300, 88), (1, 1, 64, 120)])
+def test_kernel_on_padded_rows_matches_plain_on_card(cuda, shape):
+    """q/k/v as the default encoder hands them over (kernel_layout: rows
+    padded to a multiple of 16 elements, the pad NaN so that a read of it
+    would show)."""
+    from l4p_tpu_torch.ops.flash_attention import kernel_layout, kernel_row_pitch
+
+    g = torch.Generator(device=cuda).manual_seed(4)
+    d = shape[3]
+
+    def padded():
+        x = kernel_layout(torch.randn(shape, generator=g, device=cuda).bfloat16())
+        x.as_strided((*shape[:3], kernel_row_pitch(d)), x.stride())[..., d:] = float("nan")
+        return x
+
+    q, k, v = padded(), padded(), padded()
+    assert q.stride(2) == kernel_row_pitch(d)
+    out = flash_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert (out.float() - flash_attention_plain(q, k, v, d ** -0.5).float()).abs().max().item() <= 8e-3
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,n,h,d", [(2, 2048, 16, 88), (1, 300, 3, 88), (1, 64, 2, 128)])
+def test_kernel_on_strided_views_matches_plain_on_card(cuda, b, n, h, d):
+    """q/k/v as the default encoder's block hands them over: strided views of
+    one (B, N, 3, H, D) projection, which the wrapper copies into padded rows."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    qkv = torch.randn((b, n, 3, h, d), generator=g, device=cuda).bfloat16().permute(2, 0, 3, 1, 4)
+    before = flash_attention.launches
+    out = flash_attention(qkv[0], qkv[1], qkv[2], d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and out.is_contiguous()
+    plain = flash_attention_plain(qkv[0], qkv[1], qkv[2], d ** -0.5)
+    assert (out.float() - plain.float()).abs().max().item() <= 8e-3  # the band of test_kernel_matches_plain_on_card
 
 
 @pytest.mark.gpu
@@ -46,11 +114,12 @@ def test_kernel_raises_instead_of_falling_back(cuda):
     q = torch.zeros(1, 2, 64, 88, device=cuda)
     with pytest.raises(TypeError):
         flash_attention(q, q, q, 0.1)  # fp32
-    qb = torch.zeros(1, 64, 2, 88, device=cuda, dtype=torch.bfloat16).transpose(1, 2)
+    qb = torch.zeros(1, 2, 64, 12, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        flash_attention(qb, qb, qb, 0.1)  # not contiguous
+        flash_attention(qb, qb, qb, 0.1)  # D not a multiple of 8: no TMA row of whole 16-byte units
+    qb = torch.zeros(1, 2, 64, 88, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(ValueError):
-        flash_attention(qb.contiguous(), qb.contiguous().cpu(), qb.contiguous(), 0.1)  # two devices
+        flash_attention(qb, qb.cpu(), qb, 0.1)  # two devices
 
 
 # bf16 bands of the track-head kernels against their plain versions on the same
