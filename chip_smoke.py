@@ -17,10 +17,12 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      N=512, D=64; t2i_flash and i2t_ln_t2i at the track head's N=128 queries,
      P=2048, C=1408, K=48 and at a ragged N=3, P=1000;
      fused_upscale_hypernet at N=128, P=2048, C=1408, d1=352, d2=176, M=3
-     and at N=3, P=1000; fused_encoder_blocks at x (2, 2048, 1408), 40
-     blocks, hook ends (14, 21, 28, 36, 40), and at a ragged E=256, D=64,
-     N=300, 2 blocks, one band per hook; the blocks' GEMM alone at the fc1
-     shape beside torch.matmul; all bf16;
+     and at N=3, P=1000, each also against the plain version on fp32
+     copies of its bf16 operands (the kernel no farther from it than the
+     plain version, UPSCALE_WITNESS_SLACK); fused_encoder_blocks at x (2,
+     2048, 1408), 40 blocks, hook ends (14, 21, 28, 36, 40), and at a ragged
+     E=256, D=64, N=300, 2 blocks, one band per hook; the blocks' GEMM alone
+     at the fc1 shape beside torch.matmul; all bf16;
   3. build the released giant model (ViT-giant encoder, flow/depth/dyn_mask
      and camray DPT heads, the track head, configs/model.yaml values) with
      random bf16 weights from a seeded generator, tracking 128 queries per
@@ -46,21 +48,26 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      holding the kernel path's tracks no farther from their fp32 run than the
      plain path's on average (WITNESS_SLACK) and every request's kernel path
      against its plain path within TRACK_BANDS;
- 10. bench.py's request: 48 frames, intrinsics as bench.py builds them, 128
-     queries, all five tasks, encoder.fused_encoder=True and the joint Sim(3)
-     stitch (a warm-up and 3 timed requests), checking outputs and every
-     kernel's launches: fused_encoder_blocks once (7 launches per block
-     inside), the attention wrapper never, the track kernels as in phase 7;
- 11. its stage times (encode, dense heads, camray rays, camera solve,
-     stitch, track), the encode stage on the default encoder, peak memory;
- 12. that request on the plain path (plain encoder blocks, attention and
+ 10. bench.py's request as bench.py runs it: 48 frames, intrinsics as
+     bench.py builds them, 128 queries, all five tasks and the joint Sim(3)
+     stitch on the config as loaded, whose encoder is the default one (a
+     warm-up and 3 timed requests), checking outputs and every kernel's
+     launches: the attention 40 times per encoded window chunk,
+     fused_encoder_blocks never, the track kernels as in phase 7; then a
+     second, labelled point: the same request with encoder.fused_encoder=True
+     (a warm-up and 3 timed requests): fused_encoder_blocks once (7 launches
+     per block inside), the attention wrapper never;
+ 11. the stage times of bench.py's request (encode, dense heads, camray
+     rays, camera solve, stitch, track), the encode stage on the fused
+     encoder, peak memory;
+ 12. the fused point on the plain path (plain encoder blocks, attention and
      track kernels): the encoder hooks within FUSED_ENCODER_BANDS, flow and
      dyn_mask within SLICE_TOL, the tracks within TRACK_BANDS; the poses, K
      and the jointly stitched depth finite, their difference printed;
- 13. the camera solve and the joint stitch of phase 11's rays and depth,
-     once on the card and once on the CPU with the same draws, held within
-     GEOMETRY_TOL; every RANSAC's chosen hypothesis is compared and the two
-     best inlier counts printed;
+ 13. the camera solve and the joint stitch of the fused point's rays and
+     depth, once on the card and once on the CPU with the same draws, held
+     within GEOMETRY_TOL; every RANSAC's chosen hypothesis is compared and
+     the two best inlier counts printed;
  14. the same on a synthetic trajectory at the request's sizes (5 windows of
      16 frames, 16 x 16 rays, 224 x 224 depth, each window in its own
      Sim(3) frame), where the random weights' rays of phase 13 give the
@@ -69,8 +76,9 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      the stitched depth in window 0's frame.
 Every line with a number names the card and its power limit. The last two
 lines are the kernels' record and {"ok": true, "device": {...}}. A kernel's
-`launches` is its count over the path that runs it: the attention wrapper's
-over phase 7 (the default encoder), the other kernels' over phase 10.
+`launches` is its count over bench.py's request (phase 10's first point,
+the counts set to 0 just before it), fused_encoder_blocks' over the fused
+point, the path that runs it.
 """
 
 from __future__ import annotations
@@ -96,6 +104,11 @@ KERNEL_TOL = 8e-3
 # the largest ratio the card measured
 KEYS_BAND = 2e-2
 UPSCALE_BAND = 2e-2
+# the upscale kernel and its plain version against the plain version on fp32
+# copies of the same bf16 operands: the kernel's mean |error| must stay within
+# this factor of the plain version's. Both round the GELU outputs to bf16 at
+# the same points and differ only in the order of their fp32 sums
+UPSCALE_WITNESS_SLACK = 1.1
 # fused_encoder_blocks, per hook end: max |kernel - plain| <= band * max
 # |plain hook|. Both round q/k/v, GELU outputs and every residual add to bf16
 # but sum in other orders, and the kernel's attention divides by the softmax
@@ -300,6 +313,25 @@ def upscale_operands(n, p, c, d1, d2, m, gen):
 
     return (r(n, p, c), r(c, d1, 2, 2, 2, scale=c ** -0.5), r(d1, scale=0.1), 1.0 + r(d1, scale=0.1),
             r(d1, scale=0.1), r(d1, d2, 1, 2, 2, scale=d1 ** -0.5), r(d2, scale=0.1), r(n, m, d2, scale=0.1))
+
+
+def upscale_witness(FU, args, log, checks) -> None:
+    """The upscale kernel and its plain version against the plain version on
+    fp32 copies of the same bf16 operands (no bf16 rounding anywhere): the
+    kernel must be no farther from it than the plain version, within
+    UPSCALE_WITNESS_SLACK on the mean |error|."""
+    out, plain = FU.fused_upscale_hypernet(*args), FU.fused_upscale_hypernet_plain(*args)
+    exact = FU.fused_upscale_hypernet_plain(*(a.float() for a in args))
+    torch.cuda.synchronize()
+    off = {name: ((x - exact).abs().mean().item(), (x - exact).abs().max().item())
+           for name, x in (("kernel", out), ("plain", plain))}
+    ratio = off["kernel"][0] / off["plain"][0]
+    log(f"fused_upscale_hypernet src{tuple(args[0].shape)} bf16 against fp32 on the same inputs: mean / max |error| "
+        f"kernel {off['kernel'][0]:.3g} / {off['kernel'][1]:.3g}, plain {off['plain'][0]:.3g} / "
+        f"{off['plain'][1]:.3g} (mean ratio {ratio:.3g}, within {UPSCALE_WITNESS_SLACK})")
+    checks.expect(math.isfinite(ratio) and ratio <= UPSCALE_WITNESS_SLACK,
+                  f"fused_upscale_hypernet is farther from fp32 than its plain version at "
+                  f"{tuple(args[0].shape)}: {off}")
 
 
 def encoder_operands(cfg, b, n, gen):
@@ -597,6 +629,7 @@ def main() -> int:
         flop = 2 * n * p * 8 * (c * d1 + 4 * d1 * d2) + 2 * n * m * p * 32 * d2
         r = compare_track_kernel("fused_upscale_hypernet", FU.fused_upscale_hypernet, FU.fused_upscale_hypernet_plain,
                                  args, UPSCALE_BAND, 5 if giant else 20, log, checks, flop=flop)
+        upscale_witness(FU, args, log, checks)
         if giant:
             record["fused_upscale_hypernet"] = r
         del args
@@ -805,53 +838,67 @@ def main() -> int:
         checks.expect(worst[0] <= TRACK_BANDS[key][0] and worst[1] <= TRACK_BANDS[key][1],
                       f"{key}: a witness request's kernel path differs from its plain path by {worst}")
 
-    # 10. bench.py's request: all five tasks on the whole-encoder kernels
+    # 10. bench.py's request as bench.py runs it (the config as loaded: the
+    # default encoder), then the same request on the whole-encoder kernels
     cfg_f = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, fused_encoder=True))
     n_q = TRACK_QUERIES[0]
     intr = bench_intrinsics(TRACK_FRAMES, hw, dev)
     request = {**requests[n_q], "intrinsics_b44t": intr}
-    sess_f = P.InferenceSession(cfg_f, P.ALL_TASKS, dev)
-    t0 = time.perf_counter()
-    sess_f(model, request)
-    torch.cuda.synchronize()
-    log(f"warm-up all-task request ({TRACK_FRAMES} frames, {n_q} queries, fused encoder): "
-        f"{time.perf_counter() - t0:.3f} s")
-    torch.cuda.reset_peak_memory_stats()
-    reset_counts()
-    inner0 = FE.fused_encoder_blocks.kernel_launches
-    times = []
-    for _ in range(REPEATS):
-        before = counts()
+
+    def serve_all_task(c, label: str):
+        """A warm-up, then REPEATS timed all-task requests on config `c` with
+        every count set to 0 just before them, checking outputs and launches;
+        returns (the last output, the counts, the launches inside
+        fused_encoder_blocks)."""
+        sess_a = P.InferenceSession(c, P.ALL_TASKS, dev)
+        fused = c.encoder.fused_encoder
         t0 = time.perf_counter()
-        all_out = sess_f(model, request)
+        sess_a(model, request)
         torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
-        got = {name: c - before[name] for name, c in counts().items()}
-        checks.expect(got == expected(n_q, True), f"kernel launches {got} on the all-task request, "
-                                                  f"expected {expected(n_q, True)}")
-        check_outputs(all_out, {**DENSE_KEYS, **TRACK_KEYS, **CAMRAY_KEYS}, TRACK_FRAMES, hw, checks,
-                      request["track_2d_pointquerries_bn3"])
-    main_counts = counts()
-    inner = FE.fused_encoder_blocks.kernel_launches - inner0
+        log(f"warm-up all-task request ({TRACK_FRAMES} frames, {n_q} queries, {label}): "
+            f"{time.perf_counter() - t0:.3f} s")
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        inner0 = FE.fused_encoder_blocks.kernel_launches
+        times = []
+        for _ in range(REPEATS):
+            before = counts()
+            t0 = time.perf_counter()
+            out = sess_a(model, request)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+            got = {name: c_ - before[name] for name, c_ in counts().items()}
+            checks.expect(got == expected(n_q, fused), f"kernel launches {got} on the all-task request ({label}), "
+                                                       f"expected {expected(n_q, fused)}")
+            check_outputs(out, {**DENSE_KEYS, **TRACK_KEYS, **CAMRAY_KEYS}, TRACK_FRAMES, hw, checks,
+                          request["track_2d_pointquerries_bn3"])
+        got_counts = counts()
+        inner = FE.fused_encoder_blocks.kernel_launches - inner0
+        best = min(times)
+        log(f"all-task request {TRACK_FRAMES} frames x {n_q} queries, tasks {P.ALL_TASKS}, {label}, joint "
+            f"alignment ({nw} windows, launches {expected(n_q, fused)}, {inner // REPEATS} kernel launches inside "
+            f"fused_encoder_blocks): {', '.join(f'{t:.4f}' for t in times)} s; best {best:.4f} s = "
+            f"{TRACK_FRAMES / best:.2f} frames/s, {n_q * TRACK_FRAMES / best:.0f} query-frames/s")
+        log(f"peak device memory over the all-task requests ({label}): "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        return out, got_counts, inner
+
+    _, main_counts, _ = serve_all_task(cfg, "bench.py's path: default encoder")
+    missing = [name for name, c in main_counts.items() if c == 0 and name != "fused_encoder_blocks"]
+    checks.expect(not missing, f"bench.py's request never launched {missing}")
+    all_out, fused_counts, inner = serve_all_task(cfg_f, "second point: fused encoder")
     want_inner = REPEATS * FE.LAUNCHES_PER_BLOCK * cfg.encoder.depth
     checks.expect(inner == want_inner, f"fused_encoder_blocks made {inner} launches inside, expected {want_inner}")
-    missing = [name for name, c in main_counts.items() if c == 0 and name != "flash_attention"]
-    checks.expect(not missing, f"the all-task path never launched {missing}")
-    best = min(times)
-    log(f"all-task request {TRACK_FRAMES} frames x {n_q} queries, tasks {P.ALL_TASKS}, fused encoder, joint "
-        f"alignment ({nw} windows, launches {expected(n_q, True)}, {inner // REPEATS} kernel launches inside the "
-        f"encoder call): {', '.join(f'{t:.4f}' for t in times)} s; best {best:.4f} s = "
-        f"{TRACK_FRAMES / best:.2f} frames/s, {n_q * TRACK_FRAMES / best:.0f} query-frames/s")
-    log(f"peak device memory over the all-task requests: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    checks.expect(fused_counts["fused_encoder_blocks"] > 0, "the fused point never launched fused_encoder_blocks")
 
-    # 11. where the time of the all-task request goes
+    # 11. where the time of bench.py's request goes
     img_info = tuple(cfg.window_size)
     stride = cfg.window_stride_t
-    hcfg = cfg_f.head_dict["camray"]
+    hcfg = cfg.head_dict["camray"]
     with torch.inference_mode():
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        enc = PL.encode_windows(model.video_encoder, cfg_f, rgb_u8_bthw3=video)
+        enc = PL.encode_windows(model.video_encoder, cfg, rgb_u8_bthw3=video)
         torch.cuda.synchronize()
         t1 = time.perf_counter()
         dense = {t: PL.run_dense_head(model.task_heads[t], enc["hooks"], img_info, cfg.dense_window_chunk)
@@ -864,26 +911,28 @@ def main() -> int:
         pose_w, intr_w = PL.camray_windows_to_cameras(rays, hcfg, img_info, intr, stride, P.RandomDraws())
         torch.cuda.synchronize()
         t4 = time.perf_counter()
-        PL.stitch_dense_outputs(cfg_f, P.ALL_TASKS, dense, stride, TRACK_FRAMES, pose_w, intr_w, P.RandomDraws())
+        PL.stitch_dense_outputs(cfg, P.ALL_TASKS, dense, stride, TRACK_FRAMES, pose_w, intr_w, P.RandomDraws())
         torch.cuda.synchronize()
         t5 = time.perf_counter()
         PL.run_track_chunked(model.task_heads["track_2d"], enc["final"], request["track_2d_pointquerries_bn3"],
                              request["track_2d_pointlabels_bn"], stride)
         torch.cuda.synchronize()
         t6 = time.perf_counter()
-        hooks_kernel = enc["hooks"]
         del enc
         torch.cuda.synchronize()
         t7 = time.perf_counter()
-        enc_default = PL.encode_windows(model.video_encoder, cfg, rgb_u8_bthw3=video)
+        hooks_kernel = PL.encode_windows(model.video_encoder, cfg_f, rgb_u8_bthw3=video)["hooks"]
         torch.cuda.synchronize()
         t8 = time.perf_counter()
-        del enc_default
-    log(f"all-task {TRACK_FRAMES}-frame {n_q}-query stages: encode {t1 - t0:.4f} s (fused encoder; the default "
-        f"encoder took {t8 - t7:.4f} s), dense heads {t2 - t1:.4f} s, camray rays {t3 - t2:.4f} s, camera solve "
-        f"{t4 - t3:.4f} s, stitch {t5 - t4:.4f} s, track {t6 - t5:.4f} s")
+        # the fused point's rays and depth, which phase 13 solves on the card and the CPU
+        rays = PL.run_dense_head(model.task_heads["camray"], hooks_kernel, img_info, cfg.dense_window_chunk).float()
+        depth_f = PL.run_dense_head(model.task_heads["depth"], hooks_kernel, img_info, cfg.dense_window_chunk)
+        del dense
+    log(f"all-task {TRACK_FRAMES}-frame {n_q}-query stages (bench.py's path): encode {t1 - t0:.4f} s (default "
+        f"encoder; the fused encoder took {t8 - t7:.4f} s), dense heads {t2 - t1:.4f} s, camray rays {t3 - t2:.4f} s, "
+        f"camera solve {t4 - t3:.4f} s, stitch {t5 - t4:.4f} s, track {t6 - t5:.4f} s")
 
-    # 12. the all-task request on the plain path
+    # 12. the fused point's request on the plain path
     with torch.inference_mode():
         hooks_plain = PL.encode_windows(model.video_encoder, cfg_f, rgb_u8_bthw3=video,
                                         attention=FA.flash_attention_plain,
@@ -891,8 +940,8 @@ def main() -> int:
     for h in sorted(hooks_kernel):
         err, scale = rel_diff(hooks_kernel[h], hooks_plain[h])
         what = "normed output" if h == cfg.encoder.depth else "hook"
-        log(f"all-task encoder {what} {h} ({nw} windows): max|kernel - plain| {err:.4g} = {err / scale:.3g} x "
-            f"max|plain| (band {FUSED_ENCODER_BANDS[h]})")
+        log(f"all-task encoder {what} {h} ({nw} windows, fused point): max|kernel - plain| {err:.4g} = "
+            f"{err / scale:.3g} x max|plain| (band {FUSED_ENCODER_BANDS[h]})")
         checks.expect(math.isfinite(err) and err <= FUSED_ENCODER_BANDS[h] * scale,
                       f"encoder hook {h} of the all-task request differs from the plain path by {err}")
     del hooks_kernel, hooks_plain
@@ -901,18 +950,18 @@ def main() -> int:
     ref = P.InferenceSession(cfg_f, P.ALL_TASKS, dev, attention=FA.flash_attention_plain, track_kernels=P.PLAIN,
                              encoder_blocks=FE.fused_encoder_blocks_plain)(model, request)
     torch.cuda.synchronize()
-    log(f"plain-path all-task request: {time.perf_counter() - t0:.4f} s")
+    log(f"plain-path all-task request (fused point): {time.perf_counter() - t0:.4f} s")
     checks.expect(counts() == before, "the plain-path all-task session launched a kernel")
     for key, r in ref.items():
         if key in ("depth_est_b1thw", *CAMRAY_KEYS):
             # the Sim(3) and homography RANSACs pick among hypotheses by
             # inlier counts, which a bf16 step can change: finite, difference printed
             err, scale = rel_diff(all_out[key], r)
-            log(f"all-task {key} (joint Sim(3) chain): max|kernel path - plain path| {err:.4g} = "
+            log(f"all-task {key} (fused point, joint Sim(3) chain): max|kernel path - plain path| {err:.4g} = "
                 f"{err / scale:.3g} x max|plain|, both finite: {bool(torch.isfinite(r).all())}")
             checks.expect(bool(torch.isfinite(r).all()), f"plain-path {key} is not finite")
         else:
-            hold(key, all_out[key], r, "all-task")
+            hold(key, all_out[key], r, "all-task (fused point)")
     del ref, all_out
 
     # 13. the camera solve and the joint stitch on the card and on the CPU
@@ -945,7 +994,7 @@ def main() -> int:
                           f"{what} {key} on the card differs from the CPU by {err}")
         return results["cpu"]
 
-    card_and_cpu("model's rays:", rays, intr, dense["depth"])
+    card_and_cpu("model's rays:", rays, intr, depth_f)
 
     # 14. the same on a synthetic trajectory, against its truth
     ray_hw = tuple(hcfg.dpt.output_size[1:])
@@ -975,7 +1024,7 @@ def main() -> int:
                 "fused_encoder_blocks": "l4p_tpu/ops/fused_encoder.py:175"}
     sources = {"flash_attention": "flash_attention.cu", "t2i_flash": "fused_keys.cu", "i2t_ln_t2i": "fused_keys.cu",
                "fused_upscale_hypernet": "fused_upscale.cu", "fused_encoder_blocks": "fused_encoder.cu"}
-    launches = {**main_counts, "flash_attention": track_counts["flash_attention"]}
+    launches = {**main_counts, "fused_encoder_blocks": fused_counts["fused_encoder_blocks"]}
     print(json.dumps({"card": card, "kernels": [{
         "name": name,
         "route": "cuda",

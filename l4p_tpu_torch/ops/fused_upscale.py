@@ -30,10 +30,10 @@ NAME = "fused_upscale"
 SOURCES = ("fused_upscale.cu",)
 LN_EPS = 1e-6
 PLAIN_CHUNK = 16  # queries per step of the plain version (bounds its fp32 temporaries)
-
-
-def _round_up(v: int, m: int) -> int:
-    return -(-v // m) * m
+# the kernel's padded widths of d1 and d2 (csrc/fused_upscale.cu kD1P, kD2P):
+# the track head's 352 and 176 at C = 1408, and any narrower head zero-padded
+D1P, D2P = 352, 176
+MAX_M, MAX_OFFSETS = 4, 32  # mask tokens; k1 * k2 logits per (token, mask token)
 
 
 def _dims(w1: torch.Tensor, w2: torch.Tensor):
@@ -74,13 +74,13 @@ def _kernel():
 
 def pack_weights(w1, b1, lnw, lnb, w2, b2):
     """Kernel layout: w1 -> (k1, D1P, C) and w2 -> (k2, D2P, D1P) bf16, one
-    (n, k) row-major matrix per offset (rows are the B fragments' columns),
-    with d1 padded to D1P (a multiple of 32) and d2 to D2P (of 16); vectors
-    fp32. All padding is zero, which is exact: padded deconv1 columns are
-    left out of the LayerNorm and come out of it as 0, GELU(0) = 0, and the
-    padded hypernetwork entries are 0."""
+    (n, k) row-major matrix per offset (the products' K-major B operands,
+    read by TMA), with d1 zero-padded to D1P and d2 to D2P; vectors fp32.
+    All padding is zero, which is exact: padded deconv1 columns are left out
+    of the LayerNorm and come out of it as 0 (their LayerNorm weight and
+    bias are 0), GELU(0) = 0, and the padded hypernetwork entries are 0."""
     c, d1, d2, k1, k2 = _dims(w1, w2)
-    d1p, d2p = _round_up(d1, 32), _round_up(d2, 16)
+    d1p, d2p = D1P, D2P
     dev = w1.device
     w1t = torch.zeros((k1, d1p, c), device=dev, dtype=torch.bfloat16)
     w1t[:, :d1] = w1.flatten(2).permute(2, 1, 0)
@@ -94,6 +94,25 @@ def pack_weights(w1, b1, lnw, lnb, w2, b2):
 
     bf16 = torch.bfloat16
     return w1t, vec(b1, d1p, bf16), vec(lnw, d1p), vec(lnb, d1p), w2t, vec(b2, d2p, bf16)
+
+
+def launch_args(src, w1, b1, lnw, lnb, w2, b2, hyper):
+    """(out, the C entry point's arguments but the stream, the tensors they
+    point into) for operands the wrapper has checked: the packed weights,
+    the zero-padded hypernetwork vectors and the (N, M, P, k1, k2) fp32
+    output to be written. Keep the third item alive until the launch."""
+    n, p, c = src.shape
+    _, d1, _, k1, k2 = _dims(w1, w2)
+    m = hyper.shape[1]
+    packed = pack_weights(w1, b1, lnw, lnb, w2, b2)
+    w1t, b1p, lnwp, lnbp, w2t, b2p = packed
+    d1p, d2p = w1t.shape[1], w2t.shape[1]
+    hyp = torch.zeros((n, m, d2p), device=src.device, dtype=torch.bfloat16)
+    hyp[:, :, : hyper.shape[2]] = hyper
+    out = torch.empty((n, m, p, k1, k2), device=src.device, dtype=torch.float32)
+    args = (src.data_ptr(), w1t.data_ptr(), b1p.data_ptr(), lnwp.data_ptr(), lnbp.data_ptr(), w2t.data_ptr(),
+            b2p.data_ptr(), hyp.data_ptr(), out.data_ptr(), n, p, c, d1, d1p, d2p, k1, k2, m, LN_EPS)
+    return out, args, (*packed, hyp)
 
 
 def fused_upscale_hypernet(src, w1, b1, lnw, lnb, w2, b2, hyper) -> torch.Tensor:
@@ -117,20 +136,14 @@ def fused_upscale_hypernet(src, w1, b1, lnw, lnb, w2, b2, hyper) -> torch.Tensor
         raise ValueError("fused_upscale_hypernet: src must be contiguous")
     if src.data_ptr() % 16:
         raise ValueError("fused_upscale_hypernet: src must be 16-byte aligned")
-    if c % 32 or _round_up(d1, 32) > 384 or _round_up(d2, 16) > 256 or m > 4 or min(n, p) == 0 or n > 65535:
+    if (c % 32 or d1 > D1P or d2 > D2P or m > MAX_M or k1 * k2 > MAX_OFFSETS or min(n, p, m) == 0
+            or n > 65535):
         raise ValueError(f"fused_upscale_hypernet: unsupported shape src{tuple(src.shape)} d1={d1} d2={d2} M={m} "
-                         f"(needs C % 32 == 0, d1 <= 384, d2 <= 256, M <= 4)")
-    w1t, b1p, lnwp, lnbp, w2t, b2p = pack_weights(w1, b1, lnw, lnb, w2, b2)
-    d1p, d2p = w1t.shape[1], w2t.shape[1]
-    hyp = torch.zeros((n, m, d2p), device=src.device, dtype=torch.bfloat16)
-    hyp[:, :, :d2] = hyper
-    out = torch.empty((n, m, p, k1, k2), device=src.device, dtype=torch.float32)
+                         f"k1={k1} k2={k2} (needs C % 32 == 0, d1 <= {D1P}, d2 <= {D2P}, 1 <= M <= {MAX_M}, "
+                         f"k1 * k2 <= {MAX_OFFSETS})")
+    out, args, _keep = launch_args(src, w1, b1, lnw, lnb, w2, b2, hyper)
     with torch.cuda.device(src.device):
-        err = _kernel()(
-            src.data_ptr(), w1t.data_ptr(), b1p.data_ptr(), lnwp.data_ptr(), lnbp.data_ptr(), w2t.data_ptr(),
-            b2p.data_ptr(), hyp.data_ptr(), out.data_ptr(), n, p, c, d1, d1p, d2p, k1, k2, m, LN_EPS,
-            torch.cuda.current_stream(src.device).cuda_stream,
-        )
+        err = _kernel()(*args, torch.cuda.current_stream(src.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_upscale_hypernet: kernel launch failed with CUDA error {err}")
     fused_upscale_hypernet.launches += 1

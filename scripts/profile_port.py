@@ -1,14 +1,16 @@
 """Where the time of one request of the PyTorch/CUDA port goes, on a CUDA card.
 
-    python3 scripts/profile_port.py                     # all five tasks, fused encoder
-    python3 scripts/profile_port.py --default-encoder   # the same request, per-block encoder
+    python3 scripts/profile_port.py                       # bench.py's request: five tasks, default encoder
+    python3 scripts/profile_port.py --fused-encoder       # the same request on the whole-encoder kernels
+    python3 scripts/profile_port.py --frames 192          # bench.py's headline point
 
 Builds the released giant model (configs/model.yaml values) with random bf16
-weights from a seeded generator, serves chip_smoke.py's all-task request (48
-uint8 frames, bench.py's intrinsics, 128 queries, the five tasks) twice to
-warm up, times TIMED requests on the host clock (each ending in a
-synchronise), then traces one request with torch.profiler. Prints the
-requests' times, the traced request's wall time under the profiler, the
+weights from a seeded generator, serves bench.py's all-task request on the
+config as loaded, whose encoder is the default one (48 uint8 frames,
+bench.py's intrinsics, 128 queries, the five tasks), twice to warm up,
+times TIMED requests on the host clock (each ending in a synchronise), then
+traces one request with torch.profiler. Prints the requests' times and peak
+device memory, the traced request's wall time under the profiler, the
 device's busy time (the kernels' summed device time; the port runs on one
 stream) and idle share, and device time by kernel name. Every line names
 the card and its power limit.
@@ -35,7 +37,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--frames", type=int, default=48)
     ap.add_argument("--queries", type=int, default=128)
-    ap.add_argument("--default-encoder", action="store_true", help="per-block encoder instead of the fused one")
+    ap.add_argument("--fused-encoder", action="store_true",
+                    help="the whole-encoder kernels (encoder.fused_encoder) instead of bench.py's default encoder")
     ap.add_argument("--top", type=int, default=25, help="kernel names to print")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -47,7 +50,7 @@ def main() -> int:
     dev = torch.device("cuda")
     cfg = P.L4PConfig()
     cfg = dataclasses.replace(cfg, track=dataclasses.replace(cfg.track, max_queries=args.queries),
-                              encoder=dataclasses.replace(cfg.encoder, fused_encoder=not args.default_encoder))
+                              encoder=dataclasses.replace(cfg.encoder, fused_encoder=args.fused_encoder))
     model = P.L4P(cfg, device=dev, dtype=torch.bfloat16).eval()
     gen = torch.Generator(device=dev).manual_seed(0)
     model.init_weights(gen)
@@ -59,6 +62,7 @@ def main() -> int:
     for _ in range(2):
         sess(model, request)
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     times = []
     for _ in range(TIMED):
         t0 = time.perf_counter()
@@ -81,9 +85,9 @@ def main() -> int:
         return 1
     rows.sort(reverse=True)
     busy = sum(r[0] for r in rows)
-    encoder = "default" if args.default_encoder else "fused"
+    encoder = "fused" if args.fused_encoder else "default"
     print(f"[{card}] {t} frames x {n} queries, {encoder} encoder: requests {', '.join(f'{x:.1f}' for x in times)} "
-          f"ms, best {min(times):.1f} ms")
+          f"ms, best {min(times):.1f} ms; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     print(f"[{card}] {t} frames x {n} queries, tasks {P.ALL_TASKS}, {encoder} encoder: wall {wall:.1f} ms under the "
           f"profiler, kernels busy {busy:.1f} ms, device idle {100 * (1 - busy / wall):.1f}%")
     for ms, count, name in rows[: args.top]:

@@ -199,6 +199,26 @@ def test_fused_upscale_matches_plain_on_card(cuda, n, p, c, d1, d2):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("n,p,c,d1,d2,m", [
+    (128, 2048, 1408, 352, 176, 3),  # the track head's chunk of 128 queries
+    (1, 2048, 1408, 352, 176, 3),  # one query
+    (2, 1000, 1408, 352, 176, 3), (2, 129, 256, 352, 176, 3), (3, 127, 64, 24, 12, 3),  # P off the 128-row tile
+    (2, 300, 128, 352, 176, 1), (2, 300, 128, 352, 176, 4), (3, 200, 64, 24, 12, 4),  # M = 1 and 4
+    (2, 96, 64, 20, 10, 1), (1, 64, 32, 20, 10, 3),  # d1, d2 off the kernel's padding
+])
+def test_fused_upscale_matches_plain_on_card_at_edges(cuda, n, p, c, d1, d2, m):
+    args = upscale_operands(n, p, c, d1, d2, m, cuda, seed=n + p + m)
+    before = FU.fused_upscale_hypernet.launches
+    out = FU.fused_upscale_hypernet(*args)
+    torch.cuda.synchronize()
+    assert FU.fused_upscale_hypernet.launches == before + 1
+    assert out.shape == (n, m, p, 8, 4) and bool(torch.isfinite(out).all())
+    err = band_err(out, FU.fused_upscale_hypernet_plain(*args))
+    print(f"fused_upscale_hypernet {(n, p, c, d1, d2, m)}: max|kernel - plain| / max|plain| = {err:.3g}")
+    assert err <= UPSCALE_BAND
+
+
+@pytest.mark.gpu
 def test_track_kernels_raise_instead_of_falling_back(cuda):
     o = keys_operands(2, 64, 128, 48, 48, cuda)
     with pytest.raises(TypeError):
@@ -215,6 +235,9 @@ def test_track_kernels_raise_instead_of_falling_back(cuda):
         FU.fused_upscale_hypernet(up[0].float(), *up[1:])
     with pytest.raises(ValueError):
         FU.fused_upscale_hypernet(up[0].transpose(1, 2).contiguous().transpose(1, 2), *up[1:])
+    wide = upscale_operands(2, 64, 64, 360, 12, 3, cuda)  # d1 above the kernel's 352
+    with pytest.raises(ValueError, match="unsupported"):
+        FU.fused_upscale_hypernet(*wide)
 
 
 # per hook end: max |kernel - plain| <= band * max |plain hook|. Both paths

@@ -105,6 +105,41 @@ def test_load_model_config_matches_jax(path):
     assert pcfg == port_config(jcfg)
 
 
+def yaml_with_head_class(tmp_path, cls: str) -> str:
+    """configs/model_tiny.yaml with its depth head's class replaced by `cls`."""
+    import yaml
+
+    with open("configs/model_tiny.yaml") as f:
+        tree = yaml.safe_load(f)
+    heads = tree["init_args"]["l4p_model"]["init_args"]["task_heads"]["init_args"]["modules"]
+    heads["depth"]["class_path"] = f"l4p.models.task_heads.dense_heads.{cls}"
+    path = tmp_path / "model.yaml"
+    path.write_text(yaml.safe_dump(tree))
+    return str(path)
+
+
+def test_unknown_head_class_raises_in_both_readers(tmp_path):
+    from l4p_tpu.config import load_model_config
+
+    path = yaml_with_head_class(tmp_path, "VideoMAEMysteryDPTHead")
+    with pytest.raises(ValueError, match="unknown head class VideoMAEMysteryDPTHead"):
+        load_model_config(path)
+    with pytest.raises(ValueError, match="unknown head class VideoMAEMysteryDPTHead"):
+        PC.load_model_config(path)
+
+
+def test_camera_dpt_head_is_refused_as_not_ported(tmp_path):
+    """The JAX reader reads VideoMAECameraDPTHead as a `camera_rays` head; the
+    port names it as not ported instead of dropping it."""
+    from l4p_tpu.config import load_model_config
+
+    path = yaml_with_head_class(tmp_path, "VideoMAECameraDPTHead")
+    jcfg, _ = load_model_config(path)
+    assert dict((n, h.kind) for n, h in jcfg.heads)["depth"] == "camera_rays"
+    with pytest.raises(NotImplementedError, match="VideoMAECameraDPTHead.*camera_rays.*not ported"):
+        PC.load_model_config(path)
+
+
 # --- conv / norm / activation ----------------------------------------------
 
 def test_layer_norm_matches_jax():
