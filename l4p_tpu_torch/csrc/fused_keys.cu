@@ -6,356 +6,755 @@
 // embedding `keys` (N, P, C) = (128, 2048, 1408) bf16, ~738 MB per window,
 // against ~48 token columns (K = 8 heads x 6 tokens), so their products are
 // rank-48: ~35 GFLOP per keys pass against 738 MB, ~48 FLOP/byte, well
-// below the card's ~295 FLOP/byte ridge. What bounds them is device-memory
+// below the card's ~295 FLOP/byte ridge. Their bound is device-memory
 // bandwidth: the passes over `keys`.
 //
 // The TPU kernels keep a (K, C) = (48, 1408) fp32 accumulator (270 KB of
 // VMEM) across a sequential grid over P, and the i2t LayerNorm needs whole
-// 1408-wide rows. A Hopper block has at most 227 KB of shared memory and
-// blocks run in no order, so the work is split by what each step needs:
-//
-//   row kernels (16 keys rows x all C per block, 8 warps): the logits
-//     keys . B (B = the (K, C) token operand, fragments read from L2) with
-//     mma.sync, split over C across warps and summed in shared memory. For
-//     i2t_ln_t2i the same block then takes each head's softmax over its
-//     tokens directly (no group-sum matmul: the TPU's lane-layout detour),
-//     multiplies by v2 on the tensor cores, adds the out bias and the
-//     residual in fp32, takes a two-pass LayerNorm over the whole row,
-//     writes the new keys and computes the next layer's t2i logits on them
-//     while they are still in shared memory;
-//   t2i_acc (flash-decoding over P): a block owns 128 columns of C and
-//     P_SPLIT rows of P, takes the column max of its logits, and adds
-//     exp(logit - max) (cast to bf16, as the TPU kernel casts e) times its
-//     keys tile into a (K, 128) fp32 accumulator in registers with
-//     mma.sync (E^T from shared memory, keys through ldmatrix.trans),
-//     cp.async double-buffered; it writes (max, sum, acc) partials;
-//   t2i_combine rescales and adds the partials: wsum = sum acc / sum l.
+// 1408-wide rows. Here that accumulator is spread over a thread-block
+// cluster: one cluster of S blocks per (query, split of P), each block
+// owning W = C / S columns (S = 8, W = 176 at C = 1408; 16 blocks where
+// C / 8 is wider than the kernel's registers take):
+//   - resident in each block for its whole life: its columns of the token
+//     operands (rT, v2, sT, and ob, lnw, lnb), loaded once;
+//   - its columns of 128-row keys tiles stream through a 2-stage TMA ring
+//     (boxes of 16 columns, 32-byte swizzle), each tile's load issued while
+//     the previous tiles are computed, so loads run across the cluster
+//     barriers below;
+//   - per tile (8 warps, 16 rows each, mma.sync): the partial i2t logits
+//     keys . rT over the block's columns; a reduce-scatter of the
+//     (128 x K) fp32 partials through distributed shared memory (each block
+//     sums 128 / S rows over the cluster), after which the owner takes each
+//     head's softmax over its tokens (fp32, normalised, cast to bf16) and
+//     writes the probabilities into every block; y = keys + attn . v2 + ob
+//     in fp32 registers; the LayerNorm's moments over C, two-pass within a
+//     block and combined across the cluster with Chan's formula in one
+//     exchange; the new keys written over the tile in shared memory and
+//     stored by TMA; the partial next t2i logits keys_new . sT, reduced the
+//     same way; then every block takes the tile's column maxima, and with
+//     a running max m and sum l per token (fp32) adds exp(logit - m) (as a
+//     bf16 hi + lo pair, below) times the tile into its (K2 x W) fp32
+//     accumulator in registers, as _t2i_update does;
+//   - t2i_flash is the same kernel without the i2t front and the store;
+//     with two stages it runs the previous tile's softmax and accumulation
+//     between arriving at and waiting on the cluster barrier after a tile's
+//     logits, so the two overlap.
+//   A cluster writes wsum = acc / l for its columns, or, where P is split
+//   over clusters to fill the card (few queries), (m, l, acc) partials that
+//   t2i_combine rescales and adds.
 //
 // Passes over keys (each 738 MB at the giant shape): t2i_flash reads it
-// twice (logits, weighted sum), i2t_ln_t2i reads it once, writes the new
-// keys once and reads them once more for the weighted sum: 2 + 3 + 3 = 8
-// per window against the TPU kernels' 5. The logits (N, P, K) f32 (50 MB)
-// and the partials (N, P/P_SPLIT, K, C) f32 are the price of fitting the
-// accumulator into a block.
+// once; i2t_ln_t2i reads it once and writes the new keys once, which are
+// never read back: 1 + 2 + 2 = 5 per window, the TPU kernels' count. The
+// logits never leave the cluster.
+//
+// What bounds them on the card (scripts/keys_bounds.py, PERF.md): not the
+// bytes. The keys stream alone runs near the memory rate, but each 128-row
+// tile is a chain of dependent steps (products, 5 cluster barriers for
+// i2t_ln_t2i and 2 for t2i_flash, owner reductions, the softmaxes) run by
+// the 8 warps of the one block an SM holds (shared memory: the ring and the
+// resident token operands), so a tile takes ~63,000 cycles of i2t_ln_t2i
+// and ~20,000 of t2i_flash (keys_bounds.py --clocks), ~10x and ~7x what
+// its keys traffic takes at the memory rate. Spreading a block over 16
+// warps (the columns split in halves) spilled at 128 registers and ran
+// slower.
+//
+// Build-time hooks for scripts/keys_bounds.py only (each -D gives a build
+// whose times mean something and whose results do not; each stops
+// i2t_ln_t2i's tile after one more part):
+//   L4P_KEYS_LOADS_ONLY      the keys tiles stream through the ring;
+//   L4P_KEYS_NO_V2           ... and the i2t logits and their reduction;
+//   L4P_KEYS_NO_LN           ... and y = keys + attn . v2 + ob;
+//   L4P_KEYS_NO_NEXT_LOGITS  ... and the LayerNorm and the new keys' store;
+//   L4P_KEYS_NO_ACC          ... and the next t2i logits and their reduction;
+//   L4P_KEYS_NO_COMBINE      t2i_combine left out (P split over clusters);
+//   L4P_KEYS_CLOCKS          thread 0 of each block counts each part's cycles
+//                            (clock64) and query 0's first cluster writes
+//                            them over its wsum.
 //
 // Numerics: logits, softmax statistics, accumulators, residual and
 // LayerNorm are fp32; the i2t probabilities are normalised then cast to
-// bf16, the t2i exponentials cast to bf16 unnormalised (the TPU kernel's
-// points). Requires C % 16 == 0 and K, K2 multiples of 16 up to 64; ragged
-// P is masked.
+// bf16 (the TPU kernel's point). The t2i exponentials (unnormalised, as the
+// TPU kernel takes them) enter the weighted-sum product as a bf16 pair, hi
+// = bf16(e) and lo = bf16(e - hi), with l the fp32 sum of the pairs: ~16
+// significant bits where the TPU kernel and the plain version round to
+// bf16's 8, one product more per tile. (With one bf16 each the kernel path's
+// tracks moved farther from an fp32 attention than the plain path's on
+// chip_smoke's witness requests; PERF.md.) Requires C % 16 == 0 and
+// K, K2 multiples of 16 up to 64; ragged P is masked.
 
 #include <math.h>
 
-#include "mma_utils.cuh"
+#include "sm90.cuh"
 
 namespace {
 
 using namespace l4p;
+using namespace l4p::sm90;
 using bf16 = __nv_bfloat16;
 
 constexpr int kMaxK = 64;
-constexpr int kRowTile = 16;  // keys rows per row-kernel block (one m16 tile)
-constexpr int kRowWarps = 8;
-constexpr int kRowThreads = kRowWarps * 32;
-constexpr int kLgStride = kMaxK;      // f32 logits tile row stride
-constexpr int kAttnStride = kMaxK + 8;  // bf16 probabilities tile row stride
-constexpr int kRedFloats = kRowWarps * kRowTile * kMaxK;
+constexpr int kRows = 128;  // keys rows per tile: 8 warps x 16
+constexpr int kWarps = 8;
+constexpr int kThreads = kWarps * 32;
+constexpr int kBoxCols = 16;                      // a TMA box: 16 columns (32 bytes) x 128 rows
+constexpr int kBoxBytes = kRows * kBoxCols * 2;  // 4096
+constexpr int kPortableCluster = 8;
+constexpr int kMaxCluster = 16;
+constexpr int kKS = 11;      // k16 column steps a block takes: W <= 176
+constexpr int kKSWide = 24;  // t2i_flash beyond that: W <= 384 (16 blocks, C <= 6144)
+constexpr int kMaxSmem = 232448;
+constexpr int kClockParts = 11;  // the parts L4P_KEYS_CLOCKS times (scripts/keys_bounds.py --clocks)
+constexpr int kStop =  // the part after which the hooks stop i2t_ln_t2i's tile (6: none)
+#if defined(L4P_KEYS_LOADS_ONLY)
+    1;
+#elif defined(L4P_KEYS_NO_V2)
+    2;
+#elif defined(L4P_KEYS_NO_LN)
+    3;
+#elif defined(L4P_KEYS_NO_NEXT_LOGITS)
+    4;
+#elif defined(L4P_KEYS_NO_ACC)
+    5;
+#else
+    6;
+#endif
 
-constexpr int kAccCols = 128;  // C columns per t2i_acc block, 32 per warp
-constexpr int kAccRows = 64;   // keys rows per t2i_acc tile
-constexpr int kAccThreads = 128;
-constexpr int kKStride = kAccCols + 8;
-constexpr int kEStride = kAccRows + 8;
+// One launch's cluster and shared-memory layout (byte offsets from a
+// 1024-aligned base); the same on the host and in every block.
+struct Plan {
+  int s;       // blocks per cluster
+  int ks;      // k16 column steps per block (the last block may own fewer)
+  int w;       // columns per block, 16 * ks
+  int rpo;     // tile rows each block reduces: ceil(128 / s) up to a multiple of 4
+  int ldr;     // the reduce buffer's row stride in floats: max(K, K2) + 2, so rows fall on other banks
+  int stages;  // ring stages
+  int ring, rt, v2, st, vec, pre, red, xbuf, et, mom, stat, bar, total;
+};
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+// The kernel's other operands. rT, sT: (N, K|K2, C); v2T: (N, C, K);
+// per, spe: (N, P, K|K2) fp32; ob, lnw, lnb: (C) fp32; wsum (N, K2, C) or,
+// with P split, partials acc_ws (N, splits, K2, C), m_ws and l_ws (N,
+// splits, K2), all fp32.
+struct Args {
+  const bf16* rT;
+  const float* per;
+  const bf16* v2T;
+  const float* ob;
+  const float* lnw;
+  const float* lnb;
+  const bf16* sT;
+  const float* spe;
+  float* wsum;
+  float* acc_ws;
+  float* m_ws;
+  float* l_ws;
+  int p, c, k, k2, q, split;
+  float eps;
+};
+
+Plan make_plan(bool i2t, int c, int k, int k2, int stages) {
+  Plan q{};
+  const int cw = c / 16;
+  q.ks = (cw + kPortableCluster - 1) / kPortableCluster;
+  if (q.ks > kKS) q.ks = (cw + kMaxCluster - 1) / kMaxCluster;
+  q.s = (cw + q.ks - 1) / q.ks;
+  q.w = 16 * q.ks;
+  q.rpo = ((kRows + q.s - 1) / q.s + 3) / 4 * 4;
+  q.ldr = (i2t && k > k2 ? k : k2) + 2;
+  q.stages = stages;
+  int off = 0;
+  auto take = [&](int bytes, int align) {
+    off = (off + align - 1) / align * align;
+    const int at = off;
+    off += bytes;
+    return at;
+  };
+  q.ring = take(stages * q.ks * kBoxBytes, 1024);
+  q.rt = i2t ? take(k * (q.w + 8) * 2, 16) : 0;
+  q.v2 = i2t ? take(q.w * (k + 8) * 2, 16) : 0;
+  q.st = take(k2 * (q.w + 8) * 2, 16);
+  q.vec = i2t ? take(3 * q.w * 4, 16) : 0;
+  q.pre = take(q.rpo * ((i2t ? k + 4 : 0) + k2 + 4) * 4, 16);
+  q.red = take(q.s * q.rpo * q.ldr * 4, 16);
+  // the i2t probabilities (128, K + 8) bf16, then the next logits token-major
+  // (K2, 132) fp32; their exponentials as bf16 hi and lo parts, 2 x (K2, 136)
+  const int attn_bytes = i2t ? kRows * (k + 8) * 2 : 0, lg_bytes = k2 * (kRows + 4) * 4;
+  const int et_bytes = 2 * k2 * (kRows + 8) * 2;  // the exponentials' bf16 hi and lo parts
+  q.xbuf = take(max(max(lg_bytes, attn_bytes), i2t || stages == 1 ? et_bytes : 0), 16);
+  // without the window (i2t_ln_t2i, or one stage) the exponentials take xbuf's place
+  q.et = !i2t && stages == 2 ? take(et_bytes, 16) : q.xbuf;
+  q.mom = i2t ? take(q.s * kRows * 8, 16) : 0;
+  q.stat = take(3 * kMaxK * 4, 16);
+  q.bar = take(stages * 8, 8);
+  q.total = off + 1024;  // and the slack to align the base
+  return q;
 }
 
-// Copies rows [row0, row0 + 16) of a (p, c) bf16 matrix into a 16 x (c + 8)
-// shared tile, zero rows >= p, and waits for it.
-__device__ void load_rows(bf16* tile, const bf16* src, int row0, int p, int c) {
-  const int chunks = c / 8;
-  for (int i = threadIdx.x; i < kRowTile * chunks; i += kRowThreads) {
-    const int r = i / chunks, col = (i % chunks) * 8;
-    const bool valid = row0 + r < p;
-    const bf16* g = valid ? src + static_cast<size_t>(row0 + r) * c + col : src;
-    cp_async_16(smem_addr(tile + r * (c + 8) + col), g, valid ? 16 : 0);
+// Byte offset of 16-byte half h of row r in a box of 32-byte rows with
+// 32-byte swizzle (the box 256-byte aligned).
+__device__ __forceinline__ uint32_t sw32(int r, int h) { return r * 32 + ((h ^ (r >> 2)) & 1) * 16; }
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+// Copies `rows` rows of columns [c0, c0 + nv) of a (rows, c) bf16 matrix
+// into a (rows, ld) shared matrix (cp.async; the caller waits).
+__device__ void load_cols(bf16* dst, const bf16* src, int rows, int c, int c0, int nv, int ld) {
+  const int chunks = nv / 8;
+  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
+    const int r = i / chunks, cc = (i % chunks) * 8;
+    cp_async_16(smem_addr(dst + r * ld + cc), src + static_cast<size_t>(r) * c + c0 + cc, 16);
   }
-  cp_async_commit();
-  cp_async_wait<0>();
-  __syncthreads();
 }
 
-// lg[r][j] = sum_c tile[r][c] * bT[j][c] for the 16 tile rows and j < k.
-// Warps take every 8th 16-column step of C; `red` holds their partials.
-__device__ void rowtile_logits(const bf16* tile, int c, const bf16* __restrict__ bT, int k, float* red,
-                               float* lg) {
+// Copies `items` 16-byte chunks of this block's shared memory, chunk i at
+// byte offset off(i) from `base`, to the same place in the cluster's other
+// s - 1 blocks.
+template <class Off>
+__device__ __forceinline__ void copy_out(const unsigned char* base, int items, Off off, int s, uint32_t rank) {
+  for (int i = threadIdx.x; i < items; i += kThreads) {
+    const int o = off(i);
+    const uint4 v = *reinterpret_cast<const uint4*>(base + o);
+    for (int d = 1; d < s; ++d) {
+      const int dst = static_cast<int>(rank) + d < s ? static_cast<int>(rank) + d : static_cast<int>(rank) + d - s;
+      st_cluster_v4(map_shared(base, dst) + o, v);
+    }
+  }
+}
+
+// acc[j] = this block's part of the tile's logits for its warp's 16 rows:
+// rows 16 warp + g (+ 8), tokens 8j + 2t (+ 1); the tile's kv column boxes
+// against bT (tokens x columns, row stride ldb) in shared memory.
+template <int KS>
+__device__ __forceinline__ void tile_logits(float (&acc)[kMaxK / 8][4], const unsigned char* tile, const bf16* bT,
+                                            int ldb, int tokens, int kv) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float acc[kMaxK / 8][4];
 #pragma unroll
   for (int j = 0; j < kMaxK / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  for (int ks = warp; ks < c / 16; ks += kRowWarps) {
-    uint32_t a[4];
-    ldmatrix_x4(a, smem_addr(tile + (lane & 15) * (c + 8) + ks * 16 + (lane >> 4) * 8));
-    const int kc = ks * 16 + (lane & 3) * 2;
 #pragma unroll
-    for (int j = 0; j < kMaxK / 8; ++j) {
-      if (j * 8 < k) {
-        const bf16* b = bT + static_cast<size_t>(j * 8 + (lane >> 2)) * c + kc;
-        mma_16816(acc[j], a, ldg_u32(b), ldg_u32(b + 8));
+  for (int s = 0; s < KS; ++s) {
+    if (s >= kv) break;
+    uint32_t a[4];
+    ldmatrix_x4(a, smem_addr(tile + s * kBoxBytes + sw32(warp * 16 + (lane & 15), lane >> 4)));
+#pragma unroll
+    for (int j = 0; j < kMaxK / 8; j += 2) {
+      if (j * 8 < tokens) {
+        uint32_t b[4];
+        ldmatrix_x4(b, smem_addr(bT + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * ldb + s * 16 +
+                                 ((lane >> 3) & 1) * 8));
+        mma_16816(acc[j], a, b[0], b[1]);
+        mma_16816(acc[j + 1], a, b[2], b[3]);
       }
     }
   }
-  float* mine = red + warp * kRowTile * kMaxK;
-  const int g = lane >> 2, t2 = (lane & 3) * 2;
+}
+
+// Writes the warp's partial logits into the reduce buffer of each row's
+// owner block: red[rank][row - owner * rpo][token] there (row stride ldr).
+__device__ __forceinline__ void send_partials(const float (&acc)[kMaxK / 8][4], const float* red, int tokens,
+                                              int rpo, int ldr, uint32_t rank) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
-  for (int j = 0; j < kMaxK / 8; ++j) {
-    if (j * 8 < k) {
-      mine[g * kMaxK + j * 8 + t2] = acc[j][0];
-      mine[g * kMaxK + j * 8 + t2 + 1] = acc[j][1];
-      mine[(g + 8) * kMaxK + j * 8 + t2] = acc[j][2];
-      mine[(g + 8) * kMaxK + j * 8 + t2 + 1] = acc[j][3];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < kRowTile * k; i += kRowThreads) {
-    const int r = i / k, j = i % k;
-    float s = 0.f;
+  for (int h = 0; h < 2; ++h) {
+    const int row = warp * 16 + g + 8 * h, owner = row / rpo;
+    const uint32_t base = map_shared(red, owner) + ((rank * rpo + row - owner * rpo) * ldr + 2 * t) * 4;
 #pragma unroll
-    for (int w = 0; w < kRowWarps; ++w) s += red[(w * kRowTile + r) * kMaxK + j];
-    lg[r * kLgStride + j] = s;
-  }
-  __syncthreads();
-}
-
-// out[row][j] = lg[r][j] + add[row][j] for the tile's rows < p.
-__device__ void store_logits(const float* lg, const float* __restrict__ add, float* out, int row0, int p, int k) {
-  for (int i = threadIdx.x; i < kRowTile * k; i += kRowThreads) {
-    const int r = i / k, j = i % k;
-    if (row0 + r < p) {
-      const size_t idx = static_cast<size_t>(row0 + r) * k + j;
-      out[idx] = lg[r * kLgStride + j] + add[idx];
-    }
+    for (int j = 0; j < kMaxK / 8; ++j)
+      if (j * 8 < tokens) st_cluster_f32x2(base + j * 32, acc[j][2 * h], acc[j][2 * h + 1]);
   }
 }
 
-size_t logits_smem(int c) {
-  return static_cast<size_t>(kRowTile) * (c + 8) * sizeof(bf16) + (kRedFloats + kRowTile * kLgStride) * sizeof(float);
-}
-
-// logits = keys . sT^T + spe, 16 rows per block; grid (ceil(p / 16), n).
-__global__ void __launch_bounds__(kRowThreads)
-    t2i_logits_kernel(const bf16* __restrict__ keys, const bf16* __restrict__ sT, const float* __restrict__ spe,
-                      float* __restrict__ logits, int p, int c, int k) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* tile = reinterpret_cast<bf16*>(smem);
-  float* red = reinterpret_cast<float*>(tile + kRowTile * (c + 8));
-  float* lg = red + kRedFloats;
-  const size_t n = blockIdx.y;
-  const int row0 = blockIdx.x * kRowTile;
-  load_rows(tile, keys + n * p * c, row0, p, c);
-  rowtile_logits(tile, c, sT + n * k * c, k, red, lg);
-  store_logits(lg, spe + n * p * k, logits + n * p * k, row0, p, k);
-}
-
-size_t i2t_smem(int c) {
-  const size_t scratch = static_cast<size_t>(kRowTile) * c > kRedFloats ? static_cast<size_t>(kRowTile) * c
-                                                                        : static_cast<size_t>(kRedFloats);
-  return static_cast<size_t>(kRowTile) * (c + 8) * sizeof(bf16) + (scratch + kRowTile * kLgStride) * sizeof(float) +
-         kRowTile * kAttnStride * sizeof(bf16);
-}
-
-// i2t attention + residual + LayerNorm + next t2i logits, 16 rows per
-// block; grid (ceil(p / 16), n). `q` = tokens per head (k / heads).
-__global__ void __launch_bounds__(kRowThreads)
-    i2t_ln_kernel(const bf16* __restrict__ keys, const bf16* __restrict__ rT, const float* __restrict__ per,
-                  const bf16* __restrict__ v2T, const float* __restrict__ ob, const float* __restrict__ lnw,
-                  const float* __restrict__ lnb, const bf16* __restrict__ sT, const float* __restrict__ spe,
-                  bf16* __restrict__ keys_new, float* __restrict__ logits2, int p, int c, int k, int k2, int q,
-                  float eps) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  const int stride = c + 8;
-  bf16* tile = reinterpret_cast<bf16*>(smem);
-  float* scratch = reinterpret_cast<float*>(tile + kRowTile * stride);  // logit partials, then y
-  const int scratch_floats = kRowTile * c > kRedFloats ? kRowTile * c : kRedFloats;
-  float* lg = scratch + scratch_floats;
-  bf16* attn = reinterpret_cast<bf16*>(lg + kRowTile * kLgStride);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const size_t n = blockIdx.y;
-  const int row0 = blockIdx.x * kRowTile;
-
-  load_rows(tile, keys + n * p * c, row0, p, c);
-  rowtile_logits(tile, c, rT + n * k * c, k, scratch, lg);
-
-  // softmax of each head over its q tokens, normalised, cast to bf16
-  const int heads = k / q;
-  for (int i = threadIdx.x; i < kRowTile * heads; i += kRowThreads) {
-    const int r = i / heads, h0 = (i % heads) * q;
-    float* x = lg + r * kLgStride + h0;
-    const float* add = per + (n * p + (row0 + r < p ? row0 + r : 0)) * k + h0;
-    float m = -INFINITY;
-    for (int t = 0; t < q; ++t) {
-      x[t] += add[t];
-      m = fmaxf(m, x[t]);
-    }
-    float s = 0.f;
-    for (int t = 0; t < q; ++t) {
-      x[t] = expf(x[t] - m);
-      s += x[t];
-    }
-    for (int t = 0; t < q; ++t) attn[r * kAttnStride + h0 + t] = __float2bfloat16(x[t] / s);
+// One cluster per (query n, split sp of P); grid (s, splits, n), 256
+// threads. kI2T: i2t_ln_t2i (else t2i_flash); KS: the k16 column steps a
+// block's registers hold (y, the accumulator); MT2: the m16 tiles of K2
+// the accumulator holds (K2 <= 16 MT2).
+template <bool kI2T, int KS, int MT2>
+__global__ void __launch_bounds__(kThreads, 1)
+    keys_cluster_kernel(const __grid_constant__ CUtensorMap tm_keys, const __grid_constant__ CUtensorMap tm_new,
+                        const Plan q, const Args a) {
+  constexpr int kChunks = (2 * KS + kWarps - 1) / kWarps;  // n8 accumulator column chunks per warp
+  constexpr int kStopAt = kI2T ? kStop : (kStop == 1 ? 1 : kStop >= 5 ? kStop : 6);
+  // t2i_flash with two stages runs the previous tile's accumulation (and the
+  // next tile's load into its stage) inside the cluster barrier after a
+  // tile's logits ("the window"); i2t_ln_t2i loads the next tile after its
+  // i2t reduction (by then the previous tile's store has read the stage).
+  constexpr bool kWindow = !kI2T && kStopAt >= 5;
+  const bool windowed = kWindow && q.stages == 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const uint32_t rank = cluster_rank();
+  const int n = blockIdx.z, sp = blockIdx.y, splits = gridDim.y;
+  const int c = a.c, k = a.k, k2 = a.k2;
+  const int c0 = rank * q.w;
+  const int nv = min(q.w, c - c0);  // this block's columns, a multiple of 16
+  const int kv = nv / 16;
+  const int p_lo = sp * a.split, p_hi = min(a.p, p_lo + a.split);
+  const int tiles = (p_hi - p_lo + kRows - 1) / kRows;
+  const int ldw = q.w + 8, ldk = k + 8, ldl = kRows + 4, lde = kRows + 8, ldp = k + 4, lds = k2 + 4;
+  unsigned char* ring = smem + q.ring;
+  bf16* rT_s = reinterpret_cast<bf16*>(smem + q.rt);
+  bf16* v2_s = reinterpret_cast<bf16*>(smem + q.v2);
+  bf16* sT_s = reinterpret_cast<bf16*>(smem + q.st);
+  float* vec_s = reinterpret_cast<float*>(smem + q.vec);  // ob, lnw, lnb
+  float* per_s = reinterpret_cast<float*>(smem + q.pre);  // this block's reduced rows of per, then spe
+  float* spe_s = per_s + (kI2T ? q.rpo * ldp : 0);
+  float* red = reinterpret_cast<float*>(smem + q.red);
+  bf16* attn = reinterpret_cast<bf16*>(smem + q.xbuf);   // i2t probabilities (kRows, ldk)
+  float* lg2T = reinterpret_cast<float*>(smem + q.xbuf);  // next logits (k2, ldl), after attn's use
+  bf16* eT = reinterpret_cast<bf16*>(smem + q.et);        // their exponentials (k2, lde)
+  float2* mom = reinterpret_cast<float2*>(smem + q.mom);
+  float* m_run = reinterpret_cast<float*>(smem + q.stat);
+  float* l_run = m_run + kMaxK;
+  float* alpha = l_run + kMaxK;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + q.bar);
+  const int my_rows = rank * q.rpo;  // the tile rows this block reduces
+  const int own = min(q.rpo, kRows - my_rows);
+#ifdef L4P_KEYS_CLOCKS
+  long long ticks[kClockParts] = {}, tick_last = clock64();
+#define L4P_TICK(i)                  \
+  if (tid == 0) {                    \
+    const long long now = clock64(); \
+    ticks[i] += now - tick_last;     \
+    tick_last = now;                 \
   }
-  __syncthreads();
+#else
+#define L4P_TICK(i)
+#endif
 
-  // y = keys + attn . v2 + ob (fp32), one 8-column tile of C at a time
-  uint32_t af[kMaxK / 16][4];
-#pragma unroll
-  for (int s = 0; s < kMaxK / 16; ++s)
-    if (s * 16 < k) ldmatrix_x4(af[s], smem_addr(attn + (lane & 15) * kAttnStride + s * 16 + (lane >> 4) * 8));
-  const bf16* v2n = v2T + n * c * k;
-  float* y = scratch;
-  const int g = lane >> 2;
-  for (int j = warp; j < c / 8; j += kRowWarps) {
-    float acc[4] = {0.f, 0.f, 0.f, 0.f};
-    const bf16* b = v2n + static_cast<size_t>(j * 8 + g) * k + (lane & 3) * 2;
-#pragma unroll
-    for (int s = 0; s < kMaxK / 16; ++s)
-      if (s * 16 < k) mma_16816(acc, af[s], ldg_u32(b + s * 16), ldg_u32(b + s * 16 + 8));
-    const int col = j * 8 + (lane & 3) * 2;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int r = g + (e >> 1) * 8, cc = col + (e & 1);
-      y[r * c + cc] = acc[e] + __bfloat162float(tile[r * stride + cc]) + ob[cc];
-    }
+  if (tid == 0) {
+    prefetch_tensor_map(&tm_keys);
+    if (kI2T) prefetch_tensor_map(&tm_new);
+    for (int s = 0; s < q.stages; ++s) mbar_init(&full[s], 1);
+    fence_barrier_init();
   }
-  __syncthreads();
-
-  // LayerNorm over each whole row (two-pass moments); new keys to global and to the tile
-  bf16* out = keys_new + n * p * c;
-  for (int r = warp; r < kRowTile; r += kRowWarps) {
-    const float* yr = y + r * c;
-    float s = 0.f;
-    for (int i = lane; i < c; i += 32) s += yr[i];
-    const float mean = warp_sum(s) / c;
-    float v = 0.f;
-    for (int i = lane; i < c; i += 32) {
-      const float d = yr[i] - mean;
-      v += d * d;
-    }
-    const float rstd = rsqrtf(warp_sum(v) / c + eps);
-    const bool valid = row0 + r < p;
-    for (int i = lane; i < c; i += 32) {
-      const bf16 o = __float2bfloat16((yr[i] - mean) * rstd * lnw[i] + lnb[i]);
-      tile[r * stride + i] = o;
-      if (valid) out[static_cast<size_t>(row0 + r) * c + i] = o;
-    }
-  }
-  __syncthreads();
-
-  rowtile_logits(tile, c, sT + n * k2 * c, k2, scratch, lg);
-  store_logits(lg, spe + n * p * k2, logits2 + n * p * k2, row0, p, k2);
-}
-
-// Weighted-sum partials of one (128-column, P-split) cell of one query;
-// grid (ceil(c / 128), splits, n). MT = m16 tiles of K.
-template <int MT>
-__global__ void __launch_bounds__(kAccThreads)
-    t2i_acc_kernel(const bf16* __restrict__ keys, const float* __restrict__ logits, float* __restrict__ acc_ws,
-                   float* __restrict__ m_ws, float* __restrict__ l_ws, int p, int c, int k, int split) {
-  __shared__ __align__(16) bf16 sK[2][kAccRows * kKStride];
-  __shared__ __align__(16) bf16 sE[16 * MT * kEStride];
-  __shared__ float sM[16 * MT];
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int c0 = blockIdx.x * kAccCols;
-  const int s = blockIdx.y, splits = gridDim.y;
-  const size_t n = blockIdx.z;
-  const int p0 = s * split;
-  const int p1 = min(p, p0 + split);
-  const float* L = logits + n * p * k;
-  const bf16* kb = keys + n * p * c;
-
-  auto load_keys = [&](bf16* dst, int r0) {
-    for (int i = tid; i < kAccRows * (kAccCols / 8); i += kAccThreads) {
-      const int r = i / (kAccCols / 8), col = (i % (kAccCols / 8)) * 8;
-      const bool valid = r0 + r < p1 && c0 + col < c;
-      const bf16* src = valid ? kb + static_cast<size_t>(r0 + r) * c + c0 + col : kb;
-      cp_async_16(smem_addr(dst + r * kKStride + col), src, valid ? 16 : 0);
+  // this block's reduced rows of per and spe for tile tt (zero past P), by cp.async
+  auto prefetch_rows = [&](int tt) {
+    const int kc = kI2T ? k / 4 : 0, kc2 = k2 / 4;  // 16-byte chunks per row
+    const int row0 = p_lo + tt * kRows + my_rows;
+    for (int i = tid; i < own * (kc + kc2); i += kThreads) {
+      const int slot = i / (kc + kc2), ch = i % (kc + kc2), prow = row0 + slot;
+      const bool valid = prow < p_hi;
+      const size_t row = static_cast<size_t>(n) * a.p + (valid ? prow : 0);
+      if (ch < kc)
+        cp_async_16(smem_addr(per_s + slot * ldp + ch * 4), a.per + row * k + ch * 4, valid ? 16 : 0);
+      else
+        cp_async_16(smem_addr(spe_s + slot * lds + (ch - kc) * 4), a.spe + row * k2 + (ch - kc) * 4, valid ? 16 : 0);
     }
     cp_async_commit();
   };
-
-  load_keys(sK[0], p0);
-  if (tid < k) {  // column max of this split's logits
-    float m = -INFINITY;
-#pragma unroll 8
-    for (int r = p0; r < p1; ++r) m = fmaxf(m, L[static_cast<size_t>(r) * k + tid]);
-    sM[tid] = m;
-  }
-  __syncthreads();
-
-  float acc[MT][4][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[mt][j][0] = acc[mt][j][1] = acc[mt][j][2] = acc[mt][j][3] = 0.f;
-  float l_part = 0.f;  // thread tid < k: sum of its E row
-
-  const int n_tiles = (p1 - p0 + kAccRows - 1) / kAccRows;
-  for (int t = 0; t < n_tiles; ++t) {
-    const int r0 = p0 + t * kAccRows;
-    if (t + 1 < n_tiles) load_keys(sK[(t + 1) & 1], r0 + kAccRows);
-    for (int i = tid; i < kAccRows * 16 * MT; i += kAccThreads) {
-      const int r = i / (16 * MT), j = i % (16 * MT);
-      float e = 0.f;
-      if (j < k && r0 + r < p1) e = expf(L[static_cast<size_t>(r0 + r) * k + j] - sM[j]);
-      sE[j * kEStride + r] = __float2bfloat16(e);
+  load_cols(sT_s, a.sT + static_cast<size_t>(n) * k2 * c, k2, c, c0, nv, ldw);
+  if (kI2T) {
+    load_cols(rT_s, a.rT + static_cast<size_t>(n) * k * c, k, c, c0, nv, ldw);
+    const int chunks = k / 8;
+    for (int i = tid; i < nv * chunks; i += kThreads) {
+      const int cc = i / chunks, kc = (i % chunks) * 8;
+      cp_async_16(smem_addr(v2_s + cc * ldk + kc), a.v2T + (static_cast<size_t>(n) * c + c0 + cc) * k + kc, 16);
     }
-    if (t + 1 < n_tiles)
-      cp_async_wait<1>();
-    else
+    for (int i = tid; i < nv; i += kThreads) {
+      vec_s[i] = a.ob[c0 + i];
+      vec_s[q.w + i] = a.lnw[c0 + i];
+      vec_s[2 * q.w + i] = a.lnb[c0 + i];
+    }
+  }
+  if (tid < kMaxK) {
+    m_run[tid] = -INFINITY;
+    l_run[tid] = 0.f;
+  }
+  prefetch_rows(0);
+  cluster_sync();  // residents' copies issued, barriers ready; every block of the cluster running
+
+  auto issue = [&](int tt) {  // thread 0: tile tt's boxes into its stage
+    const int s = tt % q.stages;
+    unsigned char* st = ring + s * q.ks * kBoxBytes;
+    mbar_arrive_expect_tx(&full[s], kv * kBoxBytes);
+    for (int b = 0; b < kv; ++b) tma_load_3d(st + b * kBoxBytes, &tm_keys, &full[s], c0 + b * 16, p_lo + tt * kRows, n);
+  };
+  // With two stages, tile tt + 1 is loaded during tile tt, once tile tt - 1
+  // (whose stage it takes) is accumulated and, for i2t_ln_t2i, its store has
+  // read the stage; with one, after tile tt.
+  auto issue_next = [&](int tt) {
+    if (tid == 0 && tt + 1 < tiles && tt + 1 >= q.stages) {
+      if (kI2T) bulk_wait_read();
+      fence_proxy_async();
+      issue(tt + 1);
+    }
+  };
+  if (tid == 0)
+    for (int tt = 0; tt < min(q.stages, tiles); ++tt) issue(tt);
+
+  float acc[kChunks][MT2][4];
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i)
+#pragma unroll
+    for (int mt = 0; mt < MT2; ++mt) acc[i][mt][0] = acc[i][mt][1] = acc[i][mt][2] = acc[i][mt][3] = 0.f;
+  float lg[kMaxK / 8][4];
+  // online softmax over P per token from the logits in x: a half-warp per
+  // token (of pairs warp, warp + 8, ...), 8 rows a lane; e = exp(logit - m)
+  // in bf16 into eT; then acc (K2 x the warp's column chunks) = acc * alpha
+  // + e^T . the tile in `stage`
+  constexpr int kPairs = (8 * MT2 + kWarps - 1) / kWarps;
+  const int o = lane & 15;
+  float x[kPairs][8];
+  auto softmax_acc = [&](const unsigned char* stage) {
+#pragma unroll
+      for (int pi = 0; pi < kPairs; ++pi) {
+        const int p = warp + kWarps * pi;
+        if (p < k2 / 2) {
+          const int j = 2 * p + (lane >> 4);
+          float mx = x[pi][0];
+#pragma unroll
+          for (int u = 1; u < 8; ++u) mx = fmaxf(mx, x[pi][u]);
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+          const float m_old = m_run[j], m_new = fmaxf(m_old, mx);
+          uint32_t hi[4], lo[4];
+          float sum = 0.f;
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            const float e0 = expf(x[pi][2 * u] - m_new), e1 = expf(x[pi][2 * u + 1] - m_new);
+            const float h0 = bf16_round(e0), h1 = bf16_round(e1);
+            const float l0 = bf16_round(e0 - h0), l1 = bf16_round(e1 - h1);
+            hi[u] = pack_bf16x2(h0, h1);
+            lo[u] = pack_bf16x2(l0, l1);
+            sum += (h0 + l0) + (h1 + l1);
+          }
+          *reinterpret_cast<uint4*>(eT + j * lde + 8 * o) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
+          *reinterpret_cast<uint4*>(eT + (k2 + j) * lde + 8 * o) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+#pragma unroll
+          for (int off = 1; off < 16; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+          if (o == 0) {
+            const float al = expf(m_old - m_new);
+            alpha[j] = al;
+            m_run[j] = m_new;
+            l_run[j] = l_run[j] * al + sum;
+          }
+        }
+      }
+      __syncthreads();
+      // acc (K2 x the warp's column chunks) = acc * alpha + e^T . tile
+#pragma unroll
+      for (int mt = 0; mt < MT2; ++mt) {
+        if (mt * 16 < k2) {
+          const float al0 = alpha[mt * 16 + g], al1 = alpha[mt * 16 + g + 8];
+#pragma unroll
+          for (int i = 0; i < kChunks; ++i) {
+            acc[i][mt][0] *= al0;
+            acc[i][mt][1] *= al0;
+            acc[i][mt][2] *= al1;
+            acc[i][mt][3] *= al1;
+          }
+        }
+      }
+#pragma unroll
+      for (int kk = 0; kk < kRows / 16; kk += 2) {
+        uint32_t b[kChunks][4];
+#pragma unroll
+        for (int part = 0; part < 2; ++part) {  // the exponentials' hi, then lo parts
+          uint32_t ea[MT2][2][4];
+#pragma unroll
+          for (int mt = 0; mt < MT2; ++mt)
+            if (mt * 16 < k2)
+#pragma unroll
+              for (int u = 0; u < 2; ++u)
+                ldmatrix_x4(ea[mt][u], smem_addr(eT + (part * k2 + mt * 16 + (lane & 15)) * lde + (kk + u) * 16 +
+                                                 (lane >> 4) * 8));
+#pragma unroll
+          for (int i = 0; i < kChunks; ++i) {
+            const int jc = warp + kWarps * i;
+            if (jc < 2 * kv) {
+              if (part == 0) {
+                const int row = (kk + (lane >> 4)) * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
+                ldmatrix_x4_trans(b[i], smem_addr(stage + (jc >> 1) * kBoxBytes + sw32(row, jc & 1)));
+              }
+#pragma unroll
+              for (int mt = 0; mt < MT2; ++mt) {
+                if (mt * 16 < k2) {
+                  mma_16816(acc[i][mt], ea[mt][0], b[i][0], b[i][1]);
+                  mma_16816(acc[i][mt], ea[mt][1], b[i][2], b[i][3]);
+                }
+              }
+            }
+          }
+        }
+      }
+  };
+
+  for (int tt = 0; tt < tiles; ++tt) {
+    const int s = tt % q.stages;
+    unsigned char* st = ring + s * q.ks * kBoxBytes;
+    const int row0 = p_lo + tt * kRows;
+    L4P_TICK(0);
+    mbar_wait(&full[s], (tt / q.stages) & 1);
+    L4P_TICK(1);
+    if ((kI2T ? kStopAt < 2 : !kWindow) && q.stages == 2) issue_next(tt);
+    // the window: the previous tile's accumulation, then the next tile's load into its stage
+    auto window = [&]() {
+      if (q.stages == 2) {
+        if (kStopAt >= 6 && tt > 0) {
+          softmax_acc(ring + ((tt - 1) % 2) * q.ks * kBoxBytes);
+          __syncthreads();  // every warp is done with that stage
+        }
+        issue_next(tt);
+      }
+    };
+
+    if constexpr (kI2T && kStopAt >= 2) {
+      // i2t logits, reduced over the cluster; each owner's softmax per head into every block
+      tile_logits<KS>(lg, st, rT_s, ldw, k, kv);
+      send_partials(lg, red, k, q.rpo, q.ldr, rank);
       cp_async_wait<0>();
-    __syncthreads();
-    if (tid < k)
-      for (int r = 0; r < kAccRows; ++r) l_part += __bfloat162float(sE[tid * kEStride + r]);
-    const bf16* kt = sK[t & 1];
+      cluster_sync();
+      L4P_TICK(2);
+      // the owner's rows: sums over the cluster (+ per) with every thread, then each head's softmax
+      for (int i = tid; i < own * k; i += kThreads) {
+        const int slot = i / k, j = i - slot * k;
+        float v = per_s[slot * ldp + j];
+        for (int src = 0; src < q.s; ++src) v += red[(src * q.rpo + slot) * q.ldr + j];
+        red[slot * q.ldr + j] = v;
+      }
+      __syncthreads();
+      const int heads = k / a.q;
+      for (int i = tid; i < own * heads; i += kThreads) {
+        const int slot = i / heads, h0 = (i - slot * heads) * a.q;
+        const float* x = red + slot * q.ldr + h0;
+        float m = -INFINITY;
+        for (int j = 0; j < a.q; ++j) m = fmaxf(m, x[j]);
+        float sum = 0.f;
+        for (int j = 0; j < a.q; ++j) sum += expf(x[j] - m);
+        const float inv = 1.f / sum;
+        bf16* out = attn + (my_rows + slot) * ldk + h0;
+        for (int j = 0; j < a.q; ++j) out[j] = __float2bfloat16(expf(x[j] - m) * inv);
+      }
+      __syncthreads();
+      {
+        const int kc = k / 8;  // 16-byte chunks of a row of probabilities
+        copy_out(reinterpret_cast<const unsigned char*>(attn), own * kc,
+                 [&](int i) { return ((my_rows + i / kc) * ldk + (i % kc) * 8) * 2; }, q.s, rank);
+      }
+      cluster_sync();
+      if (q.stages == 2) issue_next(tt);
+      L4P_TICK(3);
+    }
+    if constexpr (kI2T && kStopAt >= 3) {
+      // y = keys + attn . v2 + ob for the warp's 16 rows and the block's columns, fp32 in registers
+      float y[2 * KS][4];
+      uint32_t af[kMaxK / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < kAccRows / 16; ++kk) {
-      uint32_t b[2][4];
+      for (int kk = 0; kk < kMaxK / 16; ++kk)
+        if (kk * 16 < k) ldmatrix_x4(af[kk], smem_addr(attn + (warp * 16 + (lane & 15)) * ldk + kk * 16 + (lane >> 4) * 8));
 #pragma unroll
-      for (int dp = 0; dp < 2; ++dp)
-        ldmatrix_x4_trans(b[dp], smem_addr(kt + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kKStride +
-                                           warp * 32 + dp * 16 + (lane >> 4) * 8));
+      for (int jc = 0; jc < 2 * KS; jc += 2) {
+        if (jc < 2 * kv) {
+          y[jc][0] = y[jc][1] = y[jc][2] = y[jc][3] = 0.f;
+          y[jc + 1][0] = y[jc + 1][1] = y[jc + 1][2] = y[jc + 1][3] = 0.f;
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt) {
-        uint32_t a[4];
-        ldmatrix_x4(a, smem_addr(sE + (mt * 16 + (lane & 15)) * kEStride + kk * 16 + (lane >> 4) * 8));
-        mma_16816(acc[mt][0], a, b[0][0], b[0][1]);
-        mma_16816(acc[mt][1], a, b[0][2], b[0][3]);
-        mma_16816(acc[mt][2], a, b[1][0], b[1][1]);
-        mma_16816(acc[mt][3], a, b[1][2], b[1][3]);
+          for (int kk = 0; kk < kMaxK / 16; ++kk) {
+            if (kk * 16 < k) {
+              uint32_t b[4];
+              ldmatrix_x4(b, smem_addr(v2_s + (jc * 8 + (lane & 7) + ((lane >> 4) << 3)) * ldk + kk * 16 +
+                                       ((lane >> 3) & 1) * 8));
+              mma_16816(y[jc], af[kk], b[0], b[1]);
+              mma_16816(y[jc + 1], af[kk], b[2], b[3]);
+            }
+          }
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int cj = jc + e, col = 8 * cj + 2 * t;
+            const float2 ob = *reinterpret_cast<const float2*>(vec_s + col);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = warp * 16 + g + 8 * h;
+              const float2 kf = __bfloat1622float2(
+                  *reinterpret_cast<const __nv_bfloat162*>(st + (cj >> 1) * kBoxBytes + sw32(r, cj & 1) + 4 * t));
+              y[cj][2 * h] += kf.x + ob.x;
+              y[cj][2 * h + 1] += kf.y + ob.y;
+            }
+          }
+        }
+      }
+      L4P_TICK(4);
+      if constexpr (kStopAt == 3) {
+        if (y[0][0] == -1.2345e-30f) a.wsum[0] = y[2 * KS - 1][3];  // keeps y
+      }
+      if constexpr (kStopAt >= 4) {
+        // LayerNorm: each row's (mean, M2) over this block's columns, two-pass,
+        // into every block; combined over the cluster (Chan et al.)
+        float mean[2], m2[2] = {0.f, 0.f};
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float sum = 0.f;
+#pragma unroll
+          for (int jc = 0; jc < 2 * KS; ++jc)
+            if (jc < 2 * kv) sum += y[jc][2 * h] + y[jc][2 * h + 1];
+          mean[h] = quad_sum(sum) / nv;
+#pragma unroll
+          for (int jc = 0; jc < 2 * KS; ++jc) {
+            if (jc < 2 * kv) {
+              const float d0 = y[jc][2 * h] - mean[h], d1 = y[jc][2 * h + 1] - mean[h];
+              m2[h] += d0 * d0 + d1 * d1;
+            }
+          }
+          m2[h] = quad_sum(m2[h]);
+        }
+        if (t == 0) {
+          for (int d = 0; d < q.s; ++d) {
+            const uint32_t base = map_shared(mom, d) + (rank * kRows + warp * 16 + g) * 8;
+            st_cluster_f32x2(base, mean[0], m2[0]);
+            st_cluster_f32x2(base + 64, mean[1], m2[1]);
+          }
+        }
+        cluster_sync();
+        L4P_TICK(5);
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = warp * 16 + g + 8 * h;
+          float mu = 0.f;
+          for (int src = 0; src < q.s; ++src) mu += mom[src * kRows + r].x * min(q.w, c - src * q.w);
+          mu /= c;
+          float var = 0.f;
+          for (int src = 0; src < q.s; ++src) {
+            const float2 v = mom[src * kRows + r];
+            const float d = v.x - mu;
+            var += v.y + d * d * min(q.w, c - src * q.w);
+          }
+          mean[h] = mu;
+          m2[h] = rsqrtf(var / c + a.eps);
+        }
+        // the new keys over the tile (the store and the next logits read them there)
+#pragma unroll
+        for (int jc = 0; jc < 2 * KS; ++jc) {
+          if (jc < 2 * kv) {
+            const int col = 8 * jc + 2 * t;
+            const float2 w = *reinterpret_cast<const float2*>(vec_s + q.w + col);
+            const float2 b = *reinterpret_cast<const float2*>(vec_s + 2 * q.w + col);
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int r = warp * 16 + g + 8 * h;
+              *reinterpret_cast<uint32_t*>(st + (jc >> 1) * kBoxBytes + sw32(r, jc & 1) + 4 * t) =
+                  pack_bf16x2((y[jc][2 * h] - mean[h]) * m2[h] * w.x + b.x,
+                              (y[jc][2 * h + 1] - mean[h]) * m2[h] * w.y + b.y);
+            }
+          }
+        }
+        fence_proxy_async();
+        __syncthreads();
+        if (tid == 0) {
+          for (int b = 0; b < kv; ++b) tma_store_3d(&tm_new, st + b * kBoxBytes, c0 + b * 16, row0, n);
+          bulk_commit();
+        }
+        L4P_TICK(6);
       }
     }
-    __syncthreads();  // the next iteration's loads overwrite this stage
+    if constexpr (kStopAt >= 5) {
+      // next t2i logits + spe, reduced over the cluster into every block (-inf past P), with
+      // each owner's column maxima
+      tile_logits<KS>(lg, st, sT_s, ldw, k2, kv);
+      send_partials(lg, red, k2, q.rpo, q.ldr, rank);
+      cp_async_wait<0>();
+      cluster_arrive();
+      if (!kI2T) window();
+      cluster_wait();
+      L4P_TICK(7);
+      for (int i = tid; i < own * k2; i += kThreads) {
+        const int j = i / own, slot = i - j * own;  // rows fastest: lg2T's stores on distinct banks
+        float v = -INFINITY;
+        if (row0 + my_rows + slot < p_hi) {
+          v = spe_s[slot * lds + j];
+          for (int src = 0; src < q.s; ++src) v += red[(src * q.rpo + slot) * q.ldr + j];
+        }
+        lg2T[j * ldl + my_rows + slot] = v;
+      }
+      __syncthreads();
+      if (tt + 1 < tiles) prefetch_rows(tt + 1);  // per and spe are read for this tile
+      {
+        const int oc = own / 4;  // 16-byte chunks of a token's rows
+        copy_out(reinterpret_cast<const unsigned char*>(lg2T), k2 * oc,
+                 [&](int i) { return ((i / oc) * ldl + my_rows + (i % oc) * 4) * 4; }, q.s, rank);
+      }
+      cluster_sync();
+      L4P_TICK(8);
+    }
+    if constexpr (kStopAt >= 6) {
+      // this tile's next logits into registers, before other blocks may reuse
+      // xbuf; their softmax and accumulation follow at once, or in the next
+      // tile's window
+#pragma unroll
+      for (int pi = 0; pi < kPairs; ++pi) {
+        const int p = warp + kWarps * pi;
+        if (p < k2 / 2) {
+          const float* src = lg2T + (2 * p + (lane >> 4)) * ldl + 8 * o;
+          const float4 v0 = *reinterpret_cast<const float4*>(src), v1 = *reinterpret_cast<const float4*>(src + 4);
+          x[pi][0] = v0.x, x[pi][1] = v0.y, x[pi][2] = v0.z, x[pi][3] = v0.w;
+          x[pi][4] = v1.x, x[pi][5] = v1.y, x[pi][6] = v1.z, x[pi][7] = v1.w;
+        }
+      }
+      if (!windowed) {
+        __syncthreads();
+        softmax_acc(st);
+      }
+      L4P_TICK(9);
+    } else if constexpr (kStopAt < 5) {
+      if (tt + 1 < tiles) prefetch_rows(tt + 1);
+    }
+    // every warp is done with the stage (and, with one stage, its store has read it)
+    cp_async_wait<0>();
+    __syncthreads();
+    if (q.stages == 1) issue_next(tt);
+    L4P_TICK(10);
+  }
+  if (kStopAt >= 6 && windowed && tiles > 0) {
+    __syncthreads();
+    softmax_acc(ring + ((tiles - 1) % 2) * q.ks * kBoxBytes);
   }
 
-  const size_t cell = n * splits + s;
-  float* out = acc_ws + cell * k * c;
+  // this block's columns of wsum = acc / l, or the split's partials
+  const size_t cell = static_cast<size_t>(n) * splits + sp;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int i = 0; i < kChunks; ++i) {
+    const int jc = warp + kWarps * i;
+    if (jc < 2 * kv) {
+      const int col = c0 + 8 * jc + 2 * t;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+      for (int mt = 0; mt < MT2; ++mt) {
+        if (mt * 16 < k2) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = mt * 16 + (lane >> 2) + (e >> 1) * 8;
-        const int col = c0 + warp * 32 + j * 8 + (lane & 3) * 2 + (e & 1);
-        if (row < k && col < c) out[static_cast<size_t>(row) * c + col] = acc[mt][j][e];
+          for (int h = 0; h < 2; ++h) {
+            const int j = mt * 16 + g + 8 * h;
+            float2 v = make_float2(acc[i][mt][2 * h], acc[i][mt][2 * h + 1]);
+            if (splits == 1) {
+              const float inv = 1.f / l_run[j];
+              v.x *= inv;
+              v.y *= inv;
+              *reinterpret_cast<float2*>(a.wsum + (static_cast<size_t>(n) * k2 + j) * c + col) = v;
+            } else {
+              *reinterpret_cast<float2*>(a.acc_ws + (cell * k2 + j) * c + col) = v;
+            }
+          }
+        }
       }
-  if (tid < k) {
-    m_ws[cell * k + tid] = sM[tid];
-    l_ws[cell * k + tid] = l_part;
+    }
   }
+  if (splits > 1 && rank == 0 && tid < k2) {
+    a.m_ws[cell * k2 + tid] = m_run[tid];
+    a.l_ws[cell * k2 + tid] = l_run[tid];
+  }
+  if (kI2T && tid == 0) bulk_wait();
+#ifdef L4P_KEYS_CLOCKS
+  // each part's cycles per tile, thread 0 of every block of query 0's first
+  // cluster, over wsum[0][0][16 rank ..] (the build's outputs mean nothing)
+  if (tid == 0 && n == 0 && sp == 0)
+    for (int i = 0; i < kClockParts; ++i) a.wsum[rank * 16 + i] = static_cast<float>(ticks[i]) / tiles;
+#endif
+  cluster_sync();  // no block leaves while another may still address its shared memory
 }
 
 // wsum[n][j][c] = sum_s exp(m_s - m) acc_s / sum_s exp(m_s - m) l_s.
@@ -380,80 +779,136 @@ __global__ void t2i_combine_kernel(const float* __restrict__ acc_ws, const float
   wsum[idx] = num / den;
 }
 
-cudaError_t weighted_sum(const bf16* keys, const float* logits, float* wsum, float* acc_ws, float* m_ws, float* l_ws,
-                         int n, int p, int c, int k, int split, cudaStream_t stream) {
-  const int splits = (p + split - 1) / split;
-  const dim3 grid((c + kAccCols - 1) / kAccCols, splits, n);
-  switch ((k + 15) / 16) {
-    case 1:
-      t2i_acc_kernel<1><<<grid, kAccThreads, 0, stream>>>(keys, logits, acc_ws, m_ws, l_ws, p, c, k, split);
-      break;
-    case 2:
-      t2i_acc_kernel<2><<<grid, kAccThreads, 0, stream>>>(keys, logits, acc_ws, m_ws, l_ws, p, c, k, split);
-      break;
-    case 3:
-      t2i_acc_kernel<3><<<grid, kAccThreads, 0, stream>>>(keys, logits, acc_ws, m_ws, l_ws, p, c, k, split);
-      break;
-    default:
-      t2i_acc_kernel<4><<<grid, kAccThreads, 0, stream>>>(keys, logits, acc_ws, m_ws, l_ws, p, c, k, split);
-  }
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  const size_t total = static_cast<size_t>(n) * k * c;
-  t2i_combine_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(acc_ws, m_ws, l_ws, wsum, total,
-                                                                                    splits, k, c);
-  return cudaGetLastError();
-}
-
 bool bad_shape(int n, int p, int c, int k, int split) {
   return n <= 0 || n > 65535 || p <= 0 || c <= 0 || c % 16 != 0 || k <= 0 || k > kMaxK || k % 16 != 0 ||
-         split <= 0 || (p + split - 1) / split > 65535;
+         split <= 0 || split % kRows != 0 || (p + split - 1) / split > 65535;
+}
+
+// The plan with a 2-stage ring where it fits in shared memory, else 1 stage;
+// s = 0 where no plan fits the kernel (too wide for its registers or
+// shared memory).
+Plan plan_for(bool i2t, int c, int k, int k2) {
+  Plan q = make_plan(i2t, c, k, k2, 2);
+  if (q.total > kMaxSmem) q = make_plan(i2t, c, k, k2, 1);
+  if (q.total > kMaxSmem || q.ks > (i2t ? kKS : kKSWide)) q.s = 0;
+  return q;
+}
+
+// Launches one cluster per (query, split) and, with P split, the combine.
+// Returns 0, a CUDA error code, or a negative sm90::tensor_map_error.
+template <bool kI2T, int KS, int MT2>
+int launch(const Plan& q, const void* keys, void* keys_new, const Args& a, int n, cudaStream_t stream) {
+  CUtensorMap tk, tn;
+  int e = encode_bf16_3d(&tk, keys, a.c, a.c, a.p, n, kBoxCols, kRows, CU_TENSOR_MAP_SWIZZLE_32B);
+  if (e == 0) e = encode_bf16_3d(&tn, kI2T ? keys_new : keys, a.c, a.c, a.p, n, kBoxCols, kRows,
+                                 CU_TENSOR_MAP_SWIZZLE_32B);
+  if (e != 0) return e;
+  auto kernel = keys_cluster_kernel<kI2T, KS, MT2>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, q.total);
+  if (err == cudaSuccess && q.s > kPortableCluster)
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int splits = (a.p + a.split - 1) / a.split;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(q.s, splits, n);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = q.total;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = q.s;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  // a cluster the card cannot place at all is refused here, not left to hang
+  int clusters = 0;
+  err = cudaOccupancyMaxActiveClusters(&clusters, kernel, &cfg);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (clusters == 0) return static_cast<int>(cudaErrorLaunchOutOfResources);
+  err = cudaLaunchKernelEx(&cfg, kernel, tk, tn, q, a);
+  if (err == cudaSuccess) err = cudaGetLastError();
+#ifdef L4P_KEYS_NO_COMBINE
+  return static_cast<int>(err);
+#endif
+  if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
+  const size_t total = static_cast<size_t>(n) * a.k2 * a.c;
+  t2i_combine_kernel<<<static_cast<unsigned>((total + 255) / 256), 256, 0, stream>>>(a.acc_ws, a.m_ws, a.l_ws,
+                                                                                    a.wsum, total, splits, a.k2, a.c);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// launch<kI2T, KS, MT2> for MT2 = K2 / 16.
+template <bool kI2T, int KS>
+int launch_k2(const Plan& q, const void* keys, void* keys_new, const Args& a, int n, cudaStream_t stream) {
+  switch (a.k2 / 16) {
+    case 1:
+      return launch<kI2T, KS, 1>(q, keys, keys_new, a, n, stream);
+    case 2:
+      return launch<kI2T, KS, 2>(q, keys, keys_new, a, n, stream);
+    case 3:
+      return launch<kI2T, KS, 3>(q, keys, keys_new, a, n, stream);
+    default:
+      return launch<kI2T, KS, 4>(q, keys, keys_new, a, n, stream);
+  }
 }
 
 }  // namespace
 
-// Each returns 0 on success, else the CUDA error code of the refused launch.
+// Each returns 0 on success, else the CUDA error code of the refused launch
+// (or a negative tensor-map error). `split` (a multiple of 128) is the keys
+// rows per cluster; with more than one split per query, acc_ws (N, splits,
+// K2, C), m_ws and l_ws (N, splits, K2) take the partials.
 
-extern "C" int l4p_t2i_flash_bf16(const void* keys, const void* sT, const void* spe, void* wsum, void* logits,
-                                  void* acc_ws, void* m_ws, void* l_ws, int n, int p, int c, int k, int split,
-                                  void* stream) {
+extern "C" int l4p_t2i_flash_bf16(const void* keys, const void* sT, const void* spe, void* wsum, void* acc_ws,
+                                  void* m_ws, void* l_ws, int n, int p, int c, int k, int split, void* stream) {
   if (bad_shape(n, p, c, k, split)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = logits_smem(c);
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan q = plan_for(false, c, 0, k);
+  if (q.s == 0) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.sT = static_cast<const bf16*>(sT);
+  a.spe = static_cast<const float*>(spe);
+  a.wsum = static_cast<float*>(wsum);
+  a.acc_ws = static_cast<float*>(acc_ws);
+  a.m_ws = static_cast<float*>(m_ws);
+  a.l_ws = static_cast<float*>(l_ws);
+  a.p = p;
+  a.c = c;
+  a.k2 = k;
+  a.split = split;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = cudaFuncSetAttribute(t2i_logits_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  t2i_logits_kernel<<<dim3((p + kRowTile - 1) / kRowTile, n), kRowThreads, smem, s>>>(
-      static_cast<const bf16*>(keys), static_cast<const bf16*>(sT), static_cast<const float*>(spe),
-      static_cast<float*>(logits), p, c, k);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(weighted_sum(static_cast<const bf16*>(keys), static_cast<const float*>(logits),
-                                       static_cast<float*>(wsum), static_cast<float*>(acc_ws),
-                                       static_cast<float*>(m_ws), static_cast<float*>(l_ws), n, p, c, k, split, s));
+  // the widest blocks (C > 2816, rare) take one build: K2 <= 64 guarded at run time
+  return q.ks <= kKS ? launch_k2<false, kKS>(q, keys, nullptr, a, n, s)
+                     : launch<false, kKSWide, 4>(q, keys, nullptr, a, n, s);
 }
 
 extern "C" int l4p_i2t_ln_t2i_bf16(const void* keys, const void* rT, const void* per, const void* v2T, const void* ob,
                                    const void* lnw, const void* lnb, const void* sT, const void* spe, void* keys_new,
-                                   void* wsum, void* logits2, void* acc_ws, void* m_ws, void* l_ws, int n, int p,
-                                   int c, int k, int k2, int heads, int split, float eps, void* stream) {
+                                   void* wsum, void* acc_ws, void* m_ws, void* l_ws, int n, int p, int c, int k,
+                                   int k2, int heads, int split, float eps, void* stream) {
   if (bad_shape(n, p, c, k, split) || bad_shape(n, p, c, k2, split) || heads <= 0 || k % heads != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = i2t_smem(c);
-  if (smem > 232448) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err =
-      cudaFuncSetAttribute(i2t_ln_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  i2t_ln_kernel<<<dim3((p + kRowTile - 1) / kRowTile, n), kRowThreads, smem, s>>>(
-      static_cast<const bf16*>(keys), static_cast<const bf16*>(rT), static_cast<const float*>(per),
-      static_cast<const bf16*>(v2T), static_cast<const float*>(ob), static_cast<const float*>(lnw),
-      static_cast<const float*>(lnb), static_cast<const bf16*>(sT), static_cast<const float*>(spe),
-      static_cast<bf16*>(keys_new), static_cast<float*>(logits2), p, c, k, k2, k / heads, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(weighted_sum(static_cast<const bf16*>(keys_new), static_cast<const float*>(logits2),
-                                       static_cast<float*>(wsum), static_cast<float*>(acc_ws),
-                                       static_cast<float*>(m_ws), static_cast<float*>(l_ws), n, p, c, k2, split, s));
+  const Plan q = plan_for(true, c, k, k2);
+  if (q.s == 0) return static_cast<int>(cudaErrorInvalidValue);
+  Args a{};
+  a.rT = static_cast<const bf16*>(rT);
+  a.per = static_cast<const float*>(per);
+  a.v2T = static_cast<const bf16*>(v2T);
+  a.ob = static_cast<const float*>(ob);
+  a.lnw = static_cast<const float*>(lnw);
+  a.lnb = static_cast<const float*>(lnb);
+  a.sT = static_cast<const bf16*>(sT);
+  a.spe = static_cast<const float*>(spe);
+  a.wsum = static_cast<float*>(wsum);
+  a.acc_ws = static_cast<float*>(acc_ws);
+  a.m_ws = static_cast<float*>(m_ws);
+  a.l_ws = static_cast<float*>(l_ws);
+  a.p = p;
+  a.c = c;
+  a.k = k;
+  a.k2 = k2;
+  a.q = k / heads;
+  a.split = split;
+  a.eps = eps;
+  return launch_k2<true, kKS>(q, keys, keys_new, a, n, static_cast<cudaStream_t>(stream));
 }

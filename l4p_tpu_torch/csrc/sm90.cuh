@@ -1,7 +1,8 @@
 // Hopper (sm_90a) primitives shared by the port's kernels: mbarriers, TMA
-// tensor-map loads, warpgroup register reallocation (setmaxnreg), shared-
-// memory matrix descriptors and the wgmma products the kernels issue, plus
-// the host-side tensor-map encoder. Raw PTX through inline asm, written from
+// tensor-map loads and stores, warpgroup register reallocation
+// (setmaxnreg), shared-memory matrix descriptors and the wgmma products the
+// kernels issue, cluster barriers and distributed shared memory, plus the
+// host-side tensor-map encoder. Raw PTX through inline asm, written from
 // the PTX ISA (wgmma, cp.async.bulk.tensor, mbarrier, setmaxnreg), so a
 // library that includes it builds in seconds.
 //
@@ -71,9 +72,13 @@ inline int tensor_map_error(CUresult r) { return -static_cast<int>(r); }
 // (inner, rows, batch) read in boxes of (box_inner, box_rows, 1) with 64-byte
 // swizzle; elements outside the tensor (columns >= inner, rows >= rows) are
 // read as zeros, so a box never reaches into a row's padding or the next
-// batch entry. Returns 0 or a tensor_map_error.
+// batch entry; a store of a box writes only its elements inside the tensor.
+// `swizzle` 32B takes boxes of 16 bf16 columns (a 32-byte row: the 16-byte
+// half h of row r lies at r * 32 + (h ^ ((r >> 2) & 1)) * 16 in a buffer
+// aligned to 256 bytes). Returns 0 or a tensor_map_error.
 inline int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t inner, uint64_t pitch, uint64_t rows,
-                          uint64_t batch, uint32_t box_inner, uint32_t box_rows) {
+                          uint64_t batch, uint32_t box_inner, uint32_t box_rows,
+                          CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_64B) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return tensor_map_error(CUDA_ERROR_NOT_FOUND);
   const cuuint64_t dims[3] = {inner, rows, batch};
@@ -81,7 +86,7 @@ inline int encode_bf16_3d(CUtensorMap* map, const void* base, uint64_t inner, ui
   const cuuint32_t box[3] = {box_inner, box_rows, 1};
   const cuuint32_t elem_strides[3] = {1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides, box,
-                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_64B,
+                        elem_strides, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : tensor_map_error(r);
 }
@@ -159,6 +164,65 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
 
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// Box (c0, c1, c2) of a 3-D tensor map from shared memory to global memory,
+// in the calling thread's bulk group. Generic-proxy writes of the box must
+// be made visible to the async proxy first (fence_proxy_async by every
+// writing thread, then a barrier).
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, const void* src, int c0, int c1, int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n" ::"l"(
+          reinterpret_cast<uint64_t>(map)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Waits until the calling thread's bulk stores have read their shared
+// memory (the buffer may be overwritten), or, without `read`, have completed.
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
+
+__device__ __forceinline__ void fence_proxy_async() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// ---- device: thread-block clusters and distributed shared memory -----------
+
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every block of the cluster arrives and waits: the shared-
+// memory writes (local and remote) before the arrival are visible to every
+// thread after the wait; work between the two overlaps the barrier. The blocks of a cluster run together, so remote shared memory is
+// valid from the first cluster_sync to the last.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void cluster_sync() {
+  cluster_arrive();
+  cluster_wait();
+}
+
+// The address of the shared variable `p` in block `rank` of the cluster.
+__device__ __forceinline__ uint32_t map_shared(const void* p, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(smem_addr(p)), "r"(rank));
+  return r;
+}
+
+__device__ __forceinline__ void st_cluster_f32x2(uint32_t addr, float a, float b) {
+  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+}
+
+__device__ __forceinline__ void st_cluster_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z),
+               "r"(v.w)
+               : "memory");
 }
 
 // ---- device: warpgroup registers -------------------------------------------

@@ -26,8 +26,11 @@ from l4p_tpu_torch import _build
 
 NAME = "fused_keys"
 SOURCES = ("fused_keys.cu",)
-SPLIT_P = 512  # keys rows per block of the weighted-sum pass (csrc/fused_keys.cu)
 MAX_K = 64
+TILE_ROWS = 128  # keys rows per tile of the kernels (csrc/fused_keys.cu)
+# clusters (one per query and split of P) that fill the card about twice: 16
+# clusters of 8 blocks run at once on an H100's 132 SMs
+MIN_CLUSTERS = 32
 
 
 def t2i_flash_plain(keys: torch.Tensor, st: torch.Tensor, spe: torch.Tensor) -> torch.Tensor:
@@ -56,15 +59,20 @@ def i2t_ln_t2i_plain(keys, r, per, v2, ob, lnw, lnb, st, spe, num_heads: int,
     return keys_new, t2i_flash_plain(keys_new, st, spe)
 
 
+def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Sets the two C entry points' argument and result types."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.l4p_t2i_flash_bf16.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+    lib.l4p_t2i_flash_bf16.restype = i32
+    lib.l4p_i2t_ln_t2i_bf16.argtypes = [ptr] * 14 + [i32] * 7 + [ctypes.c_float, ptr]
+    lib.l4p_i2t_ln_t2i_bf16.restype = i32
+    return lib
+
+
 def _lib():
     lib = _build.load(NAME, SOURCES)
     if not getattr(lib, "_typed", False):
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.l4p_t2i_flash_bf16.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
-        lib.l4p_t2i_flash_bf16.restype = i32
-        lib.l4p_i2t_ln_t2i_bf16.argtypes = [ptr] * 15 + [i32] * 7 + [ctypes.c_float, ptr]
-        lib.l4p_i2t_ln_t2i_bf16.restype = i32
-        lib._typed = True
+        typed(lib)._typed = True
     return lib
 
 
@@ -95,18 +103,65 @@ def _check_cuda(name: str, keys, bf16, f32, k: int) -> None:
                          f"(needs C % 16 == 0, K % 16 == 0, K <= {MAX_K})")
 
 
-def _workspace(keys: torch.Tensor, k: int):
-    """Logits (N, P, K) and the per-split partials of the weighted sum."""
+def split_rows(n: int, p: int) -> int:
+    """Keys rows per cluster: all of P, unless fewer than MIN_CLUSTERS
+    clusters would run, then P split in multiples of TILE_ROWS."""
+    tiles = -(-p // TILE_ROWS)
+    splits = min(tiles, max(1, -(-MIN_CLUSTERS // n)))
+    return -(-tiles // splits) * TILE_ROWS
+
+
+def _workspace(keys: torch.Tensor, k: int, split: int):
+    """The per-split partials of the weighted sum (acc, m, l), empty where
+    P is not split."""
     n, p, c = keys.shape
-    splits = -(-p // SPLIT_P)
+    splits = -(-p // split)
+    if splits == 1:
+        n = c = 0
     f32 = dict(device=keys.device, dtype=torch.float32)
-    return (torch.empty((n, p, k), **f32), torch.empty((n, splits, k, c), **f32),
-            torch.empty((n, splits, k), **f32), torch.empty((n, splits, k), **f32))
+    return (torch.empty((n, splits, k, c), **f32), torch.empty((n, splits, k), **f32),
+            torch.empty((n, splits, k), **f32))
 
 
 def _raise_on(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+
+
+def t2i_launch_args(keys, st, spe, split: int):
+    """(wsum, the C entry point's arguments but the stream, the tensors they
+    point into) for checked CUDA operands; `split` keys rows per cluster
+    (split_rows). Keep the third item alive until the launch."""
+    n, p, c = keys.shape
+    k = st.shape[-1]
+    s_t = st.transpose(1, 2).contiguous()  # (N, K, C): rows of the kernel's B operand
+    _check_cuda("t2i_flash", keys, (s_t,), (spe,), k)
+    wsum = torch.empty((n, k, c), device=keys.device, dtype=torch.float32)
+    ws = _workspace(keys, k, split)
+    args = (keys.data_ptr(), s_t.data_ptr(), spe.data_ptr(), wsum.data_ptr(), *(w.data_ptr() for w in ws),
+            n, p, c, k, split)
+    return wsum, args, (s_t, *ws)
+
+
+def i2t_launch_args(keys, r, per, v2, ob, lnw, lnb, st, spe, num_heads: int, eps: float, split: int):
+    """((keys_new, wsum), the C entry point's arguments but the stream, the
+    tensors they point into), as `t2i_launch_args`."""
+    n, p, c = keys.shape
+    k, k2 = r.shape[-1], st.shape[-1]
+    r_t = r.transpose(1, 2).contiguous()  # (N, K, C)
+    v2_t = v2.transpose(1, 2).contiguous()  # (N, C, K)
+    s_t = st.transpose(1, 2).contiguous()  # (N, K2, C)
+    vecs = [v.float().contiguous() for v in (ob, lnw, lnb)]
+    _check_cuda("i2t_ln_t2i", keys, (r_t, v2_t, s_t), (per, spe, *vecs), k)
+    if k2 % 16 or not 0 < k2 <= MAX_K:
+        raise ValueError(f"i2t_ln_t2i: unsupported K2={k2} (needs K2 % 16 == 0, K2 <= {MAX_K})")
+    keys_new = torch.empty_like(keys)
+    wsum = torch.empty((n, k2, c), device=keys.device, dtype=torch.float32)
+    ws = _workspace(keys, k2, split)
+    args = (keys.data_ptr(), r_t.data_ptr(), per.data_ptr(), v2_t.data_ptr(), *(v.data_ptr() for v in vecs),
+            s_t.data_ptr(), spe.data_ptr(), keys_new.data_ptr(), wsum.data_ptr(), *(w.data_ptr() for w in ws),
+            n, p, c, k, k2, num_heads, split, float(eps))
+    return (keys_new, wsum), args, (r_t, v2_t, s_t, *vecs, *ws)
 
 
 def t2i_flash(keys: torch.Tensor, st: torch.Tensor, spe: torch.Tensor) -> torch.Tensor:
@@ -118,15 +173,9 @@ def t2i_flash(keys: torch.Tensor, st: torch.Tensor, spe: torch.Tensor) -> torch.
                          f"spe{tuple(spe.shape)}")
     if _on_cpu(keys, st, spe):
         return t2i_flash_plain(keys, st, spe)
-    s_t = st.transpose(1, 2).contiguous()  # (N, K, C): rows of the kernel's B operand
-    _check_cuda("t2i_flash", keys, (s_t,), (spe,), k)
-    wsum = torch.empty((n, k, c), device=keys.device, dtype=torch.float32)
-    ws = _workspace(keys, k)
+    wsum, args, _keep = t2i_launch_args(keys, st, spe, split_rows(n, p))
     with torch.cuda.device(keys.device):
-        err = _lib().l4p_t2i_flash_bf16(
-            keys.data_ptr(), s_t.data_ptr(), spe.data_ptr(), wsum.data_ptr(), *(w.data_ptr() for w in ws),
-            n, p, c, k, SPLIT_P, torch.cuda.current_stream(keys.device).cuda_stream,
-        )
+        err = _lib().l4p_t2i_flash_bf16(*args, torch.cuda.current_stream(keys.device).cuda_stream)
     _raise_on("t2i_flash", err)
     t2i_flash.launches += 1
     return wsum
@@ -146,25 +195,12 @@ def i2t_ln_t2i(keys, r, per, v2, ob, lnw, lnb, st, spe, num_heads: int,
                          f"heads {num_heads}")
     if _on_cpu(keys, r, per, v2, ob, lnw, lnb, st, spe):
         return i2t_ln_t2i_plain(keys, r, per, v2, ob, lnw, lnb, st, spe, num_heads, eps)
-    r_t = r.transpose(1, 2).contiguous()  # (N, K, C)
-    v2_t = v2.transpose(1, 2).contiguous()  # (N, C, K)
-    s_t = st.transpose(1, 2).contiguous()  # (N, K2, C)
-    vecs = [v.float().contiguous() for v in (ob, lnw, lnb)]
-    _check_cuda("i2t_ln_t2i", keys, (r_t, v2_t, s_t), (per, spe, *vecs), k)
-    if k2 % 16 or not 0 < k2 <= MAX_K:
-        raise ValueError(f"i2t_ln_t2i: unsupported K2={k2} (needs K2 % 16 == 0, K2 <= {MAX_K})")
-    keys_new = torch.empty_like(keys)
-    wsum = torch.empty((n, k2, c), device=keys.device, dtype=torch.float32)
-    ws = _workspace(keys, k2)
+    outs, args, _keep = i2t_launch_args(keys, r, per, v2, ob, lnw, lnb, st, spe, num_heads, eps, split_rows(n, p))
     with torch.cuda.device(keys.device):
-        err = _lib().l4p_i2t_ln_t2i_bf16(
-            keys.data_ptr(), r_t.data_ptr(), per.data_ptr(), v2_t.data_ptr(), *(v.data_ptr() for v in vecs),
-            s_t.data_ptr(), spe.data_ptr(), keys_new.data_ptr(), wsum.data_ptr(), *(w.data_ptr() for w in ws),
-            n, p, c, k, k2, num_heads, SPLIT_P, float(eps), torch.cuda.current_stream(keys.device).cuda_stream,
-        )
+        err = _lib().l4p_i2t_ln_t2i_bf16(*args, torch.cuda.current_stream(keys.device).cuda_stream)
     _raise_on("i2t_ln_t2i", err)
     i2t_ln_t2i.launches += 1
-    return keys_new, wsum
+    return outs
 
 
 t2i_flash.launches = 0  # kernel launches since the last reset

@@ -97,3 +97,27 @@ def test_wrappers_check_shapes():
     args = [torch.from_numpy(a) for a in operands(0)]
     with pytest.raises(ValueError, match="incompatible"):
         FK.i2t_ln_t2i(args[0], *args[3:], 7)  # 48 tokens do not split into 7 heads
+
+
+def test_i2t_ln_t2i_ragged_p_plain_matches_float64():
+    """P = 200 with K2 = 32 != K = 48 (the case the card's kernels mask and
+    reduce over separate token widths): the plain version against float64
+    numpy, i2t softmax per head, residual LayerNorm and the next t2i."""
+    keys, _, _, r, per, v2, ob, lnw, lnb = operands(3, 200)[:9]
+    k2 = 32
+    st2, spe2 = rand((N, C, k2), 20) * 0.1, rand((N, 200, k2), 21)
+    f = [a.astype(np.float64) for a in (keys, r, per, v2, ob, lnw, lnb, st2, spe2)]
+    lg = (np.einsum("npc,nck->npk", f[0], f[1]) + f[2]).reshape(N, 200, HEADS, Q)
+    e = np.exp(lg - lg.max(axis=-1, keepdims=True))
+    attn = (e / e.sum(axis=-1, keepdims=True)).reshape(N, 200, K)
+    y = f[0] + np.einsum("npk,nkc->npc", attn, f[3]) + f[4]
+    mu = y.mean(axis=-1, keepdims=True)
+    ref_keys = (y - mu) / np.sqrt(((y - mu) ** 2).mean(axis=-1, keepdims=True) + 1e-5) * f[5] + f[6]
+    lg2 = np.einsum("npc,nck->npk", ref_keys, f[7]) + f[8]
+    e2 = np.exp(lg2 - lg2.max(axis=1, keepdims=True))
+    ref_wsum = np.einsum("npk,npc->nkc", e2 / e2.sum(axis=1, keepdims=True), ref_keys)
+    out_keys, out_wsum = FK.i2t_ln_t2i(*(torch.from_numpy(a) for a in (keys, r, per, v2, ob, lnw, lnb, st2, spe2)),
+                                       HEADS, 1e-5)
+    assert out_keys.shape == (N, 200, C) and out_wsum.shape == (N, k2, C)
+    check(out_keys, ref_keys, 2e-6, "keys")  # measured 6.4e-7
+    check(out_wsum, ref_wsum, 2e-6, "wsum")  # measured 5.8e-7

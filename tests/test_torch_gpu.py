@@ -144,35 +144,71 @@ def band_err(out, plain):
     return (out.float() - plain.float()).abs().max().item() / plain.float().abs().max().item()
 
 
-KEYS_SHAPES = [(4, 2048, 1408, 48, 48), (3, 1000, 128, 48, 32)]  # the giant width; a ragged P
+# (N, P, C, K, K2, heads): the giant width; a ragged P at C = 128; one query;
+# P off the 128-row tile (127, 129, 1000); K = 16 and 64; K2 != K; 4 heads;
+# C = 2816, where a cluster takes 16 blocks
+KEYS_SHAPES = [(4, 2048, 1408, 48, 48, 8), (3, 1000, 128, 48, 32, 8), (1, 2048, 1408, 48, 48, 8),
+               (2, 127, 1408, 48, 48, 8), (2, 129, 256, 64, 16, 4), (1, 1000, 1408, 16, 64, 4),
+               (2, 300, 2816, 48, 32, 8)]
+# the kernels and their plain versions against the plain version on fp32
+# copies of the same bf16 operands: the kernel's mean |error| within this
+# factor of the plain version's (chip_smoke.py's KEYS_WITNESS_SLACK)
+KEYS_WITNESS_SLACK = 1.1
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,p,c,k,k2", KEYS_SHAPES)
-def test_t2i_flash_matches_plain_on_card(cuda, n, p, c, k, k2):
+@pytest.mark.parametrize("n,p,c,k,k2,heads", KEYS_SHAPES)
+def test_t2i_flash_matches_plain_on_card(cuda, n, p, c, k, k2, heads):
     o = keys_operands(n, p, c, k, k2, cuda)
     before = FK.t2i_flash.launches
     out = FK.t2i_flash(o["keys"], o["st"], o["spe"])
     torch.cuda.synchronize()
     assert FK.t2i_flash.launches == before + 1
+    assert out.shape == (n, k2, c) and bool(torch.isfinite(out).all())
     err = band_err(out, FK.t2i_flash_plain(o["keys"], o["st"], o["spe"]))
     print(f"t2i_flash {(n, p, c, k2)}: max|kernel - plain| / max|plain| = {err:.3g}")
     assert err <= KEYS_BAND
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,p,c,k,k2", KEYS_SHAPES)
-def test_i2t_ln_t2i_matches_plain_on_card(cuda, n, p, c, k, k2):
+def test_t2i_flash_at_its_widest_matches_plain_on_card(cuda):
+    """C = 4096: 16 blocks of 256 columns, wider than i2t_ln_t2i's blocks."""
+    o = keys_operands(2, 300, 4096, 48, 48, cuda)
+    err = band_err(FK.t2i_flash(o["keys"], o["st"], o["spe"]), FK.t2i_flash_plain(o["keys"], o["st"], o["spe"]))
+    print(f"t2i_flash (2, 300, 4096, 48): max|kernel - plain| / max|plain| = {err:.3g}")
+    assert err <= KEYS_BAND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p,c,k,k2,heads", KEYS_SHAPES)
+def test_i2t_ln_t2i_matches_plain_on_card(cuda, n, p, c, k, k2, heads):
     o = keys_operands(n, p, c, k, k2, cuda, seed=1)
     args = [o[x] for x in ("keys", "r", "per", "v2", "ob", "lnw", "lnb", "st", "spe")]
     before = FK.i2t_ln_t2i.launches
-    keys_new, wsum = FK.i2t_ln_t2i(*args, 8)
+    keys_new, wsum = FK.i2t_ln_t2i(*args, heads)
     torch.cuda.synchronize()
     assert FK.i2t_ln_t2i.launches == before + 1
-    ref_keys, ref_wsum = FK.i2t_ln_t2i_plain(*args, 8)
+    assert bool(torch.isfinite(keys_new).all()) and bool(torch.isfinite(wsum).all())
+    ref_keys, ref_wsum = FK.i2t_ln_t2i_plain(*args, heads)
     errs = band_err(keys_new, ref_keys), band_err(wsum, ref_wsum)
-    print(f"i2t_ln_t2i {(n, p, c, k, k2)}: keys {errs[0]:.3g}, wsum {errs[1]:.3g}")
+    print(f"i2t_ln_t2i {(n, p, c, k, k2, heads)}: keys {errs[0]:.3g}, wsum {errs[1]:.3g}")
     assert max(errs) <= KEYS_BAND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,p,c", [(4, 2048, 1408), (3, 1000, 128)])
+def test_keys_kernels_no_farther_from_fp32_than_plain(cuda, n, p, c):
+    o = keys_operands(n, p, c, 48, 48, cuda, seed=2)
+    args = [o[x] for x in ("keys", "r", "per", "v2", "ob", "lnw", "lnb", "st", "spe")]
+    f32 = [a.float() for a in args]
+    pairs = {"t2i_flash": (FK.t2i_flash(o["keys"], o["st"], o["spe"]), FK.t2i_flash_plain(o["keys"], o["st"], o["spe"]),
+                           FK.t2i_flash_plain(*f32[:1], *f32[7:]))}
+    kernel, plain, exact = FK.i2t_ln_t2i(*args, 8), FK.i2t_ln_t2i_plain(*args, 8), FK.i2t_ln_t2i_plain(*f32, 8)
+    pairs.update({"i2t_ln_t2i keys": (kernel[0], plain[0], exact[0]), "i2t_ln_t2i wsum": (kernel[1], plain[1], exact[1])})
+    for name, (out, ref, ex) in pairs.items():
+        off_k, off_p = ((x.float() - ex).abs().mean().item() for x in (out, ref))
+        print(f"{name} {(n, p, c)} against fp32: mean |error| kernel {off_k:.3g}, plain {off_p:.3g}")
+        assert off_k <= KEYS_WITNESS_SLACK * off_p
 
 
 def upscale_operands(n, p, c, d1, d2, m, cuda, seed=0):
@@ -230,6 +266,15 @@ def test_track_kernels_raise_instead_of_falling_back(cuda):
         FK.i2t_ln_t2i(args[0].float(), *args[1:], 8)
     with pytest.raises(ValueError):
         FK.i2t_ln_t2i(args[0].transpose(1, 2).contiguous().transpose(1, 2), *args[1:], 8)
+    # shapes the cluster launcher refuses (a block's columns beyond its
+    # registers: C > 2816 for i2t_ln_t2i, C > 6144 for t2i_flash) raise, as
+    # the row kernels before them refused C > 2352 and C > 6104
+    wide = keys_operands(1, 128, 2832, 48, 48, cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FK.i2t_ln_t2i(*(wide[x] for x in ("keys", "r", "per", "v2", "ob", "lnw", "lnb", "st", "spe")), 8)
+    wider = keys_operands(1, 128, 6160, 16, 16, cuda)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FK.t2i_flash(wider["keys"], wider["st"], wider["spe"])
     up = upscale_operands(2, 64, 64, 24, 12, 3, cuda)
     with pytest.raises(TypeError):
         FU.fused_upscale_hypernet(up[0].float(), *up[1:])
