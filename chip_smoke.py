@@ -23,8 +23,12 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      copies of its bf16 operands (the kernel no farther from it than the
      plain version, UPSCALE_WITNESS_SLACK); fused_encoder_blocks at x (2,
      2048, 1408), 40 blocks, hook ends (14, 21, 28, 36, 40), and at a ragged
-     E=256, D=64, N=300, 2 blocks, one band per hook; the blocks' GEMM alone
-     at the fc1 shape beside torch.matmul; all bf16;
+     E=256, D=64, N=300, 2 blocks, one band per hook, the giant one also
+     against the plain version on fp32 copies of its bf16 blocks and tokens
+     (per hook, the kernel path no farther from it than the plain path,
+     ENCODER_WITNESS_SLACK); the blocks' GEMM alone at each of a giant
+     block's four products (qkv, proj, fc1, fc2) at M = 4096 and 10240,
+     against its plain version (GEMM_BAND) and beside torch.matmul; all bf16;
   3. build the released giant model (ViT-giant encoder, flow/depth/dyn_mask
      and camray DPT heads, the track head, configs/model.yaml values) with
      random bf16 weights from a seeded generator, tracking 128 queries per
@@ -80,7 +84,8 @@ Every line with a number names the card and its power limit. The last two
 lines are the kernels' record and {"ok": true, "device": {...}}. A kernel's
 `launches` is its count over bench.py's request (phase 10's first point,
 the counts set to 0 just before it), fused_encoder_blocks' over the fused
-point, the path that runs it.
+point, the path that runs it; fused_encoder_blocks' entry also holds
+`products`, each block product's kernel ms beside torch.matmul's.
 """
 
 from __future__ import annotations
@@ -127,6 +132,16 @@ UPSCALE_WITNESS_SLACK = 1.1
 # and 6.1e-3, 5.2e-3 at the ragged one; the bands are about twice that
 FUSED_ENCODER_BANDS = {14: 3.5e-2, 21: 4e-2, 28: 4.5e-2, 36: 5e-2, 40: 5e-2}
 RAGGED_ENCODER_BAND = 1.2e-2
+# fused_encoder_blocks and its plain version against the plain version on
+# fp32 copies of the same bf16 blocks and tokens (no bf16 rounding anywhere,
+# TF32 off): per hook, the kernel path's mean |error| must stay within this
+# factor of the plain path's. Both round the same points to bf16 and differ
+# in the order of their fp32 sums and where the attention normalises
+ENCODER_WITNESS_SLACK = 1.1
+# the blocks' GEMM (gemm_nt) against its plain version on the same bf16
+# operands: max |kernel - plain| <= GEMM_BAND * max |plain|; both round
+# acc + bias once and sum K in other orders
+GEMM_BAND = 2e-2
 # per output: max |kernel path - plain path| <= SLICE_TOL * max |plain|. The
 # two paths differ only in the kernels' bf16 rounding; through 40 blocks
 # and the DPT heads that gave 0.7-1.5% of each output's largest value (a few
@@ -389,7 +404,27 @@ def encoder_flop(cfg, b: int, n: int, depth: int) -> float:
     return depth * b * (2 * n * e * 3 * e + 2 * n * e * e + 4 * n * e * hidden + 4 * n * n * e)
 
 
-def compare_fused_encoder(FE, cfg, b, n, ends, bands, gen, iters, log, checks) -> dict:
+def encoder_witness(FE, blocks, x, cfg, ends, out, ref, log, checks) -> None:
+    """The kernel path's hooks `out` and the bf16 plain path's `ref` against
+    fused_encoder_blocks_plain on fp32 copies of the same bf16 blocks and
+    tokens: per hook, the kernel's mean |error| within ENCODER_WITNESS_SLACK
+    of the plain path's."""
+    import copy
+
+    exact = FE.fused_encoder_blocks_plain(copy.deepcopy(blocks[: ends[-1]]).float(), x.float(), cfg, ends)
+    for i, e in enumerate(ends):
+        off = {name: (t[:, i].float() - exact[:, i]).abs() for name, t in (("kernel", out), ("plain", ref))}
+        mean = {name: d.mean().item() for name, d in off.items()}
+        top = {name: d.max().item() for name, d in off.items()}
+        ratio, top_ratio = mean["kernel"] / mean["plain"], top["kernel"] / top["plain"]
+        log(f"fused_encoder_blocks hook {e} against fp32 on the same inputs: mean / max |error| kernel "
+            f"{mean['kernel']:.4g} / {top['kernel']:.4g}, plain {mean['plain']:.4g} / {top['plain']:.4g}; ratio "
+            f"mean {ratio:.3g}, max {top_ratio:.3g} (mean within {ENCODER_WITNESS_SLACK})")
+        checks.expect(math.isfinite(ratio) and ratio <= ENCODER_WITNESS_SLACK,
+                      f"fused_encoder_blocks hook {e} is farther from fp32 than its plain version: {mean}")
+
+
+def compare_fused_encoder(FE, cfg, b, n, ends, bands, gen, iters, log, checks, witness: bool = False) -> dict:
     blocks, x = encoder_operands(cfg, b, n, gen)
     with torch.no_grad():
         before = FE.fused_encoder_blocks.kernel_launches
@@ -403,6 +438,8 @@ def compare_fused_encoder(FE, cfg, b, n, ends, bands, gen, iters, log, checks) -
             ratios.append((out[:, i].float() - ref[:, i].float()).abs().max().item()
                           / ref[:, i].float().abs().max().item())
         err = (out.float() - ref.float()).abs().max().item()
+        if witness:
+            encoder_witness(FE, blocks, x, cfg, ends, out, ref, log, checks)
         del ref
         ms, plain_ms = alternate(lambda: FE.fused_encoder_blocks(blocks, x, cfg, ends),
                                  lambda: FE.fused_encoder_blocks_plain(blocks, x, cfg, ends), iters)
@@ -420,23 +457,54 @@ def compare_fused_encoder(FE, cfg, b, n, ends, bands, gen, iters, log, checks) -
     return rec
 
 
-def compare_fc1_gemm(FE, gen, log, checks) -> None:
-    """The blocks' GEMM with its GELU epilogue alone at the fc1 shape of the
-    all-task request (5 windows of 2048 tokens), beside one torch.matmul of
-    the same operands (a yardstick the port never calls)."""
-    m, k, n = 5 * 2048, 1408, 6144
-    a = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
-    w = (torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5).bfloat16()
-    bias = (0.1 * torch.randn((n,), generator=gen, device="cuda")).bfloat16()
-    out, ref = FE.linear_gelu(a, w, bias), FE.linear_gelu_plain(a, w, bias)
-    torch.cuda.synchronize()
-    ratio = (out.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
-    ms, mm_ms = alternate(lambda: FE.linear_gelu(a, w, bias), lambda: torch.matmul(a, w.t()), 20)
-    flop = 2 * m * n * k
-    log(f"gemm_nt<GELU> ({m} x {k}) . ({n} x {k})^T bf16: max|kernel-plain| / max|plain| {ratio:.3g} (band 2e-2); "
-        f"kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), torch.matmul {mm_ms:.4f} ms "
-        f"({flop / mm_ms / 1e9:.1f} TFLOP/s); bound {flop / PEAK_FLOPS * 1e3:.4f} ms by operations")
-    checks.expect(math.isfinite(ratio) and ratio <= 2e-2, f"gemm_nt<GELU> disagrees with its plain version: {ratio}")
+# (name, epilogue, N, K) of a giant block's four products (E = 1408, MLP 6144)
+BLOCK_PRODUCTS = (("qkv", "QKV", 4224, 1408), ("proj", "RESIDUAL", 1408, 1408), ("fc1", "GELU", 6144, 1408),
+                  ("fc2", "RESIDUAL", 1408, 6144))
+
+
+def compare_block_products(FE, gen, log, checks) -> dict:
+    """The blocks' GEMM (gemm_nt) alone at each product of a giant block, at
+    M = 4096 (2 windows of 2048 tokens) and M = 10240 (the all-task request's
+    5 windows), against its plain version and timed beside one torch.matmul
+    of the same operands (a yardstick the port never calls); fc1 is the
+    GELU epilogue of linear_gelu. Returns {"name M": {"ms", "matmul_ms"}}."""
+    from l4p_tpu_torch.ops.flash_attention import kernel_row_pitch
+
+    out_rec = {}
+    for m in (4096, 10240):
+        for name, epi_name, n, k in BLOCK_PRODUCTS:
+            epilogue = getattr(FE, epi_name)
+            a = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+            w = (torch.randn((n, k), generator=gen, device="cuda") * k ** -0.5).bfloat16()
+            bias = (0.1 * torch.randn((n,), generator=gen, device="cuda")).bfloat16()
+            qkv = dict(tokens=2048, heads=16, head_dim=88) if epi_name == "QKV" else {}
+            if qkv:
+                out = torch.zeros((3, m // 2048, 16, 2048, kernel_row_pitch(88)), device="cuda", dtype=torch.bfloat16)
+            else:
+                out = torch.randn((m, n), generator=gen, device="cuda").bfloat16()
+            ref = FE.gemm_nt_plain(a, w, bias, epilogue, out.clone(), **qkv)
+            if epi_name == "GELU":
+                got = FE.linear_gelu(a, w, bias)
+                run = lambda: FE.linear_gelu(a, w, bias)  # noqa: E731
+            else:
+                got = FE.gemm_nt(a, w, bias, epilogue, out.clone(), **qkv)
+                run = lambda: FE.gemm_nt(a, w, bias, epilogue, out, **qkv)  # noqa: E731
+            torch.cuda.synchronize()
+            if qkv:
+                got, ref = got[..., :88], ref[..., :88]
+            ratio = (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
+            del got, ref
+            ms, mm_ms = alternate(run, lambda: torch.matmul(a, w.t()), 20)
+            flop = 2 * m * n * k
+            log(f"gemm_nt {name} ({m} x {k}) . ({n} x {k})^T {epi_name} bf16: max|kernel-plain| / max|plain| "
+                f"{ratio:.3g} (band {GEMM_BAND}); kernel {ms:.4f} ms ({flop / ms / 1e9:.1f} TFLOP/s), torch.matmul "
+                f"{mm_ms:.4f} ms ({flop / mm_ms / 1e9:.1f} TFLOP/s, kernel / matmul {ms / mm_ms:.3g}); bound "
+                f"{flop / PEAK_FLOPS * 1e3:.4f} ms by operations")
+            checks.expect(math.isfinite(ratio) and ratio <= GEMM_BAND,
+                          f"gemm_nt {name} at M={m} disagrees with its plain version: {ratio}")
+            out_rec[f"{name} M={m}"] = {"ms": ms, "matmul_ms": mm_ms}
+            del a, w, bias, out
+    return out_rec
 
 
 def check_outputs(out: dict, want: dict, frames: int, hw, checks, queries=None) -> None:
@@ -668,11 +736,11 @@ def main() -> int:
             record["fused_upscale_hypernet"] = r
         del args
     record["fused_encoder_blocks"] = compare_fused_encoder(
-        FE, P.GIANT, 2, 2048, (14, 21, 28, 36, 40), FUSED_ENCODER_BANDS, gen, 5, log, checks)
+        FE, P.GIANT, 2, 2048, (14, 21, 28, 36, 40), FUSED_ENCODER_BANDS, gen, 5, log, checks, witness=True)
     small = P.EncoderConfig(embed_dim=256, num_heads=4, depth=2, mlp_ratio=4.0)
     compare_fused_encoder(FE, small, 2, 300, (1, 2), {1: RAGGED_ENCODER_BAND, 2: RAGGED_ENCODER_BAND}, gen, 20,
                           log, checks)
-    compare_fc1_gemm(FE, gen, log, checks)
+    record["fused_encoder_blocks"]["products"] = compare_block_products(FE, gen, log, checks)
     torch.cuda.empty_cache()
 
     # 3. the released giant model, random bf16 weights

@@ -17,26 +17,57 @@
 // E = 1408, MLP 6144: qkv 24.4, proj 8.1, fc1 35.4, fc2 35.4 and attention
 // 23.6 GFLOP, 5.08 TFLOP per window over 40 blocks, against 2.0 GB of
 // weights (read once per call) and a few hundred MB of activations per
-// window: far above the ~295 FLOP/byte ridge. The design keeps the GEMMs
-// on the tensor cores and puts every elementwise step of the block into a
-// GEMM epilogue, so the only activations that go through device memory are
-// the GEMM operands themselves (LN output, q/k/v, attention output, the MLP
-// hidden) and the residual stream.
+// window: far above the ~295 FLOP/byte ridge. The four GEMMs carry ~80% of
+// the time, so the design puts them on wgmma and keeps every elementwise
+// step of the block in a GEMM epilogue: the only activations that go
+// through device memory are the GEMM operands themselves (LN output, q/k/v,
+// attention output, the MLP hidden) and the residual stream.
 //
 // gemm_nt: C (M, N) = A (M, K) . W (N, K)^T in bf16 with fp32 accumulators,
-// W in nn.Linear's (out, in) layout, so no weight is repacked. A 128 x 128
-// block tile of 8 warps (2 x 4, 64 x 32 each), 32-deep K chunks and a
-// 3-stage cp.async ring; mma.sync m16n8k16 from ldmatrix fragments
-// (mma_utils.cuh). Ragged M, N and K edges are zero-filled on load and
-// masked on store. Epilogues (the bias is the bf16 parameter, added in fp32):
+// W in nn.Linear's (out, in) layout, so no weight is repacked: both operands
+// are K-major as they lie, which is SS wgmma's layout without a transpose.
+// - A block has a producer warpgroup, whose first thread issues every TMA
+//   load, and two consumer warpgroups, each owning 64 rows of a 128 x BN
+//   output tile (384 threads; setmaxnreg 24 / 240, as attention.cuh: a
+//   lone producer warp cannot free what setmaxnreg.inc waits for).
+// - K goes in steps of 64: one 128-byte row per operand row, loaded by TMA
+//   with 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_128B; the descriptor
+//   layout in sm90.cuh) into a ring of 4-5 stages (as many as 227 KB hold:
+//   4 at BN = 256, 5 at 176 and 192), each with a full barrier (the
+//   producer's expect_tx and the TMA bytes) and an empty barrier (an
+//   arrival from each consumer thread). A stage is 4 wgmma m64nBNk16 per
+//   warpgroup, the next stage's products in flight while the previous
+//   stage is released (wgmma.wait_group 1).
+// - One block per output tile (stage 1 of the design); the kernel already
+//   walks tiles (tile, tile + gridDim.x, ...) with the ring running on
+//   across them, which L4P_GEMM_PERSISTENT launches one block per SM for.
+//   Tiles run across N under one 128-row panel of A: each panel of A is
+//   read from device memory once and reused from L2 by the N / BN tiles
+//   after it, and every W of the block (at most 6144 x 1408 bf16, 17.3 MB)
+//   stays in the 50 MB L2.
+// - BN, the tile width, is chosen per product by
+//   ops/fused_encoder.py:gemm_tile_width, from 176, 192 and 256: the widest
+//   that divides N, else the one with the least padding. At the giant
+//   widths: qkv N = 4224 -> 192 (22 tiles across), proj and fc2 N = 1408
+//   -> 176 (8; at M = 4096, 256 tiles, 1.94 waves on 132 SMs, where 256
+//   would leave half of its 192 tiles half empty), fc1 N = 6144 -> 256 (24).
+//   The widest tile reads the least operand traffic per FLOP; 176 and 192
+//   divide the widths 256 does not.
+// - Ragged M, N and K edges come from the tensor maps' zero fill on load
+//   and from masks on store. The epilogue runs from the accumulators
+//   (the wgmma D fragment) with 32-bit stores; the bias is the bf16
+//   parameter, added in fp32:
 //   QKV      bf16(acc + (q_bias, 0, v_bias)) written head-major as
-//            (3, B, H, N, D), so attention reads q, k and v without copies;
+//            (3, B, H, N, head_row_pitch(D)), so attention reads q, k and v
+//            without copies; each pair of columns lies in one head;
 //   GELU     bf16(gelu_tanh(bf16(acc + bias))), the bf16 lane of
 //            ops/conv.py:gelu;
 //   RESIDUAL x <- bf16(x + bf16(acc + bias)) in place on the residual
 //            stream (the JAX package is immutable and writes a new x; the
 //            port updates it in place to save a copy per product), and
 //            optionally the same value into a second tensor (a hook slot).
+//            Tiles are disjoint and each element is read and written by one
+//            thread, so the in-place update needs no ordering across tiles.
 // ln_rows: LayerNorm of (M, E) bf16 rows with two-pass fp32 moments, one
 // warp per row, bf16 out.
 //
@@ -46,25 +77,56 @@
 // the softmax sum at the end (attention.cuh); the TPU kernel normalises the
 // probabilities before P.V, so the two differ in low bits.
 //
-// The attention runs on wgmma and TMA (attention.cuh); the GEMM's move to
-// them and persistence across depth are left for later revisions.
+// Build-time hooks for scripts/encoder_bounds.py only (L4P_GEMM_LOADS_ONLY
+// and L4P_GEMM_NO_EPILOGUE give kernels whose times mean something and
+// whose results do not; the others stay exact):
+//   L4P_GEMM_LOADS_ONLY          the ring and its TMA loads alone: no
+//                                products, no epilogue;
+//   L4P_GEMM_NO_EPILOGUE         the products without the epilogue;
+//   L4P_GEMM_PERSISTENT          one block per SM walks the tiles;
+//   L4P_GEMM_RASTER_M            the walk runs down M under one panel of W;
+//   L4P_GEMM_STAGES_MAX=n        at most n ring stages (default 8).
 
 #include <math.h>
 
 #include "attention.cuh"
 
+#ifndef L4P_GEMM_STAGES_MAX
+#define L4P_GEMM_STAGES_MAX 8
+#endif
+
 namespace {
 
 using namespace l4p;
+using namespace l4p::sm90;
 using bf16 = __nv_bfloat16;
 
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kStages = 3;
-constexpr int kSK = kBK + 8;  // +16 B per row: conflict-free ldmatrix
-constexpr int kGemmThreads = 256;
-constexpr int kGemmSmem = kStages * (kBM + kBN) * kSK * static_cast<int>(sizeof(bf16));
+constexpr int kBM = 128;  // rows per output tile: two consumer warpgroups of 64
+constexpr int kBK = 64;   // K per ring stage: one 128-byte swizzle row of bf16
+constexpr int kATileBytes = kBM * kBK * 2;
+constexpr int kConsumers = 2;  // consumer warpgroups
+constexpr int kConsumerThreads = kConsumers * 128;
+constexpr int kGemmThreads = kConsumerThreads + 128;  // and the producer warpgroup
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 240;
+constexpr int kMaxSmem = 232448;  // dynamic shared memory a block may use on sm_90
+
+template <int BN>
+__host__ __device__ constexpr int gemm_stage_bytes() {
+  return kATileBytes + BN * kBK * 2;
+}
+// as many stages as fit beside the barriers and the 1024-byte alignment
+// slack, at most L4P_GEMM_STAGES_MAX: 4 at BN = 256, 5 at 176 and 192
+template <int BN>
+__host__ __device__ constexpr int gemm_stages() {
+  return (kMaxSmem - 1024 - 256) / gemm_stage_bytes<BN>() < L4P_GEMM_STAGES_MAX
+             ? (kMaxSmem - 1024 - 256) / gemm_stage_bytes<BN>()
+             : L4P_GEMM_STAGES_MAX;
+}
+template <int BN>
+__host__ __device__ constexpr int gemm_smem_bytes() {
+  return gemm_stages<BN>() * (gemm_stage_bytes<BN>() + 16) + 1024;
+}
 
 constexpr int kLnWarps = 8;
 
@@ -147,138 +209,237 @@ __global__ void __launch_bounds__(kLnWarps * 32)
   }
 }
 
-// Two neighbouring output columns (col, col + 1) of row r; col is even and
-// N % 8 == 0, so both are in range together.
+// The QKV epilogue's destination offset of (row, col) is row_part(row) +
+// col_part(col): (((s * batch + b) * heads + h) * tokens + t) * pitch + d
+// with row = b * tokens + t and col = s * E + h * head_dim + d.
+__device__ __forceinline__ size_t qkv_row_part(int r, const EpilogueArgs& ep) {
+  const int b = r / ep.tokens;
+  return (static_cast<size_t>(b) * ep.heads * ep.tokens + (r - b * ep.tokens)) * ep.head_pitch;
+}
+
+__device__ __forceinline__ size_t qkv_col_part(int col, int m, const EpilogueArgs& ep) {
+  const int e = ep.heads * ep.head_dim;
+  const int s = col / e;
+  const int f = col - s * e;
+  const int h = f / ep.head_dim;
+  const size_t head = static_cast<size_t>(ep.tokens) * ep.head_pitch;
+  return static_cast<size_t>(s) * (m / ep.tokens) * ep.heads * head + h * head + (f - h * ep.head_dim);
+}
+
+// Two neighbouring output columns (col, col + 1) of row r, their bias fb and,
+// for RESIDUAL, the stream's bf16 pair x there; col is even and N % 8 == 0,
+// so both columns are in range together; `qkv_off` is the QKV epilogue's
+// offset of (r, col).
 template <int EPI>
-__device__ __forceinline__ void store_pair(int r, int col, float v0, float v1, int n, int m,
-                                           const EpilogueArgs& ep) {
-  const __nv_bfloat162 bias = *reinterpret_cast<const __nv_bfloat162*>(ep.bias + col);
-  const float2 fb = __bfloat1622float2(bias);
+__device__ __forceinline__ void store_pair(int r, int col, float v0, float v1, float2 fb, uint32_t x, int n,
+                                           size_t qkv_off, const EpilogueArgs& ep) {
   v0 = bf16_round(v0 + fb.x);
   v1 = bf16_round(v1 + fb.y);
   if (EPI == kQKV) {
-    const int e = ep.heads * ep.head_dim;
-    const int s = col / e;
-    const int f = col - s * e;
-    const int h = f / ep.head_dim;
-    const int d = f - h * ep.head_dim;
-    const int b = r / ep.tokens;
-    const int t = r - b * ep.tokens;
-    const int batch = m / ep.tokens;
-    const size_t off = ((((static_cast<size_t>(s) * batch + b) * ep.heads + h) * ep.tokens + t) * ep.head_pitch) + d;
-    *reinterpret_cast<uint32_t*>(ep.out + off) = pack_bf16x2(v0, v1);
+    *reinterpret_cast<uint32_t*>(ep.out + qkv_off) = pack_bf16x2(v0, v1);
   } else if (EPI == kGELU) {
     *reinterpret_cast<uint32_t*>(ep.out + static_cast<size_t>(r) * n + col) = pack_bf16x2(gelu_tanh(v0), gelu_tanh(v1));
   } else {
-    uint32_t* p = reinterpret_cast<uint32_t*>(ep.out + static_cast<size_t>(r) * n + col);
-    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
-    const uint32_t packed = pack_bf16x2(x.x + v0, x.y + v1);
-    *p = packed;
+    const float2 xf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&x));
+    const uint32_t packed = pack_bf16x2(xf.x + v0, xf.y + v1);
+    *reinterpret_cast<uint32_t*>(ep.out + static_cast<size_t>(r) * n + col) = packed;
     if (ep.copy_out != nullptr)
       *reinterpret_cast<uint32_t*>(ep.copy_out + static_cast<size_t>(r) * n + col) = packed;
   }
 }
 
-template <int EPI>
-__global__ void __launch_bounds__(kGemmThreads, 2)
-    gemm_nt_kernel(const bf16* __restrict__ a, const bf16* __restrict__ w, int m, int n, int k, EpilogueArgs ep) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* sA = reinterpret_cast<bf16*>(smem);  // [kStages][kBM][kSK]
-  bf16* sB = sA + kStages * kBM * kSK;       // [kStages][kBN][kSK]
+// The consumer thread's share of one 128 x BN tile: rows `row` and row + 8,
+// columns 8j + 2t, 8j + 2t + 1 for each 8-column chunk j (the wgmma D
+// fragment, sm90.cuh). The chunks go in groups of kEpilogueGroup: a group's
+// bias pairs (and RESIDUAL's stream pairs) are all loaded before its first
+// store, so their latencies overlap; loads after a store of the same
+// pointer type could not be moved ahead of it by the compiler.
+constexpr int kEpilogueGroup = 8;
 
-  const int tid = threadIdx.x;
-  const int warp = tid >> 5;
-  const int lane = tid & 31;
-  const int wm = warp >> 2;  // 64-row half of the block tile
-  const int wn = warp & 3;   // 32-column quarter
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-
-  auto load_stage = [&](int stage, int kt) {
-    const int k0 = kt * kBK;
+template <int EPI, int BN>
+__device__ __forceinline__ void store_tile(const float (&acc)[BN / 2], int row, int n0, int lane, int m, int n,
+                                           const EpilogueArgs& ep) {
+  const bool in0 = row < m, in1 = row + 8 < m;
+  const size_t row_off0 = EPI == kQKV && in0 ? qkv_row_part(row, ep) : 0;
+  const size_t row_off1 = EPI == kQKV && in1 ? qkv_row_part(row + 8, ep) : 0;
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * kGemmThreads;  // 512 16-byte chunks per operand tile
-      const int r = c >> 2;
-      const int col = (c & 3) * 8;
-      const int gk = k0 + col;
-      const int ga = m0 + r;
-      const bool va = ga < m && gk < k;
-      cp_async_16(smem_addr(sA + (stage * kBM + r) * kSK + col), va ? a + static_cast<size_t>(ga) * k + gk : a,
-                  va ? 16 : 0);
-      const int gb = n0 + r;
-      const bool vb = gb < n && gk < k;
-      cp_async_16(smem_addr(sB + (stage * kBN + r) * kSK + col), vb ? w + static_cast<size_t>(gb) * k + gk : w,
-                  vb ? 16 : 0);
-    }
-  };
-
-  float acc[4][4][4];
+  for (int j0 = 0; j0 < BN / 8; j0 += kEpilogueGroup) {
+    float2 fb[kEpilogueGroup];
+    uint32_t x0[kEpilogueGroup], x1[kEpilogueGroup];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
-
-  const int nk = (k + kBK - 1) / kBK;
-#pragma unroll
-  for (int s = 0; s < kStages - 1; ++s) {
-    if (s < nk) load_stage(s, s);
-    cp_async_commit();
-  }
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // stage kt has landed, and every warp is done with stage kt - 1
-    if (kt + kStages - 1 < nk) load_stage((kt + kStages - 1) % kStages, kt + kStages - 1);
-    cp_async_commit();
-    const bf16* tA = sA + (kt % kStages) * kBM * kSK;
-    const bf16* tB = sB + (kt % kStages) * kBN * kSK;
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t af[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-        ldmatrix_x4(af[mt], smem_addr(tA + (wm * 64 + mt * 16 + (lane & 15)) * kSK + ks * 16 + (lane >> 4) * 8));
-      uint32_t bfr[4][2];
-#pragma unroll
-      for (int np = 0; np < 2; ++np) {
-        uint32_t b[4];
-        ldmatrix_x4(b, smem_addr(tB + (wn * 32 + np * 16 + (lane & 7) + (lane >> 4) * 8) * kSK + ks * 16 +
-                                 ((lane >> 3) & 1) * 8));
-        bfr[2 * np][0] = b[0];
-        bfr[2 * np][1] = b[1];
-        bfr[2 * np + 1][0] = b[2];
-        bfr[2 * np + 1][1] = b[3];
+    for (int i = 0; i < kEpilogueGroup; ++i) {
+      const int col = n0 + (j0 + i) * 8 + (lane % 4) * 2;
+      fb[i] = make_float2(0.f, 0.f);
+      x0[i] = x1[i] = 0;
+      if (j0 + i < BN / 8 && col < n) {
+        const unsigned int b = __ldg(reinterpret_cast<const unsigned int*>(ep.bias + col));
+        fb[i] = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&b));
+        if (EPI == kRESIDUAL) {
+          if (in0) x0[i] = *reinterpret_cast<const uint32_t*>(ep.out + static_cast<size_t>(row) * n + col);
+          if (in1) x1[i] = *reinterpret_cast<const uint32_t*>(ep.out + static_cast<size_t>(row + 8) * n + col);
+        }
       }
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < 4; ++nt) mma_16816(acc[mt][nt], af[mt], bfr[nt][0], bfr[nt][1]);
     }
-  }
-  cp_async_wait<0>();
-
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt) {
-    const int row = m0 + wm * 64 + mt * 16 + (lane >> 2);
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt) {
-      const int col = n0 + wn * 32 + nt * 8 + (lane & 3) * 2;
-      if (col < n) {
-        if (row < m) store_pair<EPI>(row, col, acc[mt][nt][0], acc[mt][nt][1], n, m, ep);
-        if (row + 8 < m) store_pair<EPI>(row + 8, col, acc[mt][nt][2], acc[mt][nt][3], n, m, ep);
+    for (int i = 0; i < kEpilogueGroup; ++i) {
+      const int j = j0 + i;
+      const int col = n0 + j * 8 + (lane % 4) * 2;
+      if (j < BN / 8 && col < n) {
+        const size_t col_off = EPI == kQKV ? qkv_col_part(col, m, ep) : 0;
+        if (in0) store_pair<EPI>(row, col, acc[4 * j], acc[4 * j + 1], fb[i], x0[i], n, row_off0 + col_off, ep);
+        if (in1) store_pair<EPI>(row + 8, col, acc[4 * j + 2], acc[4 * j + 3], fb[i], x1[i], n, row_off1 + col_off, ep);
       }
     }
   }
 }
 
+// Output tile `tile` of the walk -> its first row and column. Consecutive
+// tiles run across N under one 128-row panel of A (or, under
+// L4P_GEMM_RASTER_M, down M under one BN-row panel of W).
+template <int BN>
+__device__ __forceinline__ void tile_origin(int tile, int m, int n, int& m0, int& n0) {
+#ifdef L4P_GEMM_RASTER_M
+  const int tiles_m = (m + kBM - 1) / kBM;
+  m0 = (tile % tiles_m) * kBM;
+  n0 = (tile / tiles_m) * BN;
+#else
+  const int tiles_n = (n + BN - 1) / BN;
+  m0 = (tile / tiles_n) * kBM;
+  n0 = (tile % tiles_n) * BN;
+#endif
+}
+
+template <int EPI, int BN>
+__global__ void __launch_bounds__(kGemmThreads, 1)
+    gemm_nt_kernel(const __grid_constant__ CUtensorMap tm_a, const __grid_constant__ CUtensorMap tm_w, int m, int n,
+                   int k, EpilogueArgs ep) {
+  constexpr int kStages = gemm_stages<BN>();
+  constexpr int kStageBytes = gemm_stage_bytes<BN>();
+  constexpr int kLoader = kConsumerThreads;  // the producer thread that issues every TMA load
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + kStages * kStageBytes);  // a stage's A and W arrived
+  uint64_t* empty = full + kStages;  // both consumer warpgroups are done with a stage
+  const int tiles = ((m + kBM - 1) / kBM) * ((n + BN - 1) / BN);
+  const int nk = (k + kBK - 1) / kBK;
+
+  if (threadIdx.x == kLoader) {
+    prefetch_tensor_map(&tm_a);
+    prefetch_tensor_map(&tm_w);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  // the warpgroup, warp-uniform by construction (so that ptxas can budget
+  // registers per branch after setmaxnreg)
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x) / 128, 0);
+  if (wg == kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == kLoader) {
+      int it = 0;  // k-steps issued by this block over all its tiles: the ring position
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int m0, n0;
+        tile_origin<BN>(tile, m, n, m0, n0);
+        for (int kt = 0; kt < nk; ++kt, ++it) {
+          const int s = it % kStages;
+          if (it >= kStages) mbar_wait(&empty[s], (it / kStages - 1) & 1);
+          unsigned char* stage = smem + s * kStageBytes;
+          mbar_arrive_expect_tx(&full[s], kStageBytes);
+          tma_load_3d(stage, &tm_a, &full[s], kt * kBK, m0, 0);
+          tma_load_3d(stage + kATileBytes, &tm_w, &full[s], kt * kBK, n0, 0);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    float acc[BN / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
+    int it = 0;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      int m0, n0;
+      tile_origin<BN>(tile, m, n, m0, n0);
+      for (int kt = 0; kt < nk; ++kt, ++it) {
+        const int s = it % kStages;
+        mbar_wait(&full[s], (it / kStages) & 1);
+#ifndef L4P_GEMM_LOADS_ONLY
+        // this warpgroup's 64 rows of A start 64 rows x 128 bytes into the stage
+        const uint64_t desc_a = smem_desc(smem + s * kStageBytes + wg * 64 * 128, 16, 1024, kSwizzle128B);
+        const uint64_t desc_w = smem_desc(smem + s * kStageBytes + kATileBytes, 16, 1024, kSwizzle128B);
+        wgmma_fence();
+#pragma unroll
+        for (int ks = 0; ks < kBK / 16; ++ks)  // k16 step ks: 32 bytes into the 128-byte rows
+          wgmma_ss<BN>(acc, desc_a + 2 * ks, desc_w + 2 * ks, kt > 0 || ks > 0);
+        wgmma_commit();
+        wgmma_wait<1>();  // the previous k-step's products are done with their stage
+#endif
+        if (kt > 0) mbar_arrive(&empty[(it - 1) % kStages]);
+      }
+      wgmma_wait<0>();
+      fence_regs(acc);
+      mbar_arrive(&empty[(it - 1) % kStages]);
+#if !defined(L4P_GEMM_LOADS_ONLY) && !defined(L4P_GEMM_NO_EPILOGUE)
+      store_tile<EPI, BN>(acc, m0 + wg * 64 + warp * 16 + lane / 4, n0, lane, m, n, ep);
+#endif
+    }
+  }
+}
+
+int sm_count() {
+  static const int count = [] {
+    int device = 0, c = 0;
+    if (cudaGetDevice(&device) != cudaSuccess ||
+        cudaDeviceGetAttribute(&c, cudaDevAttrMultiProcessorCount, device) != cudaSuccess)
+      return 0;
+    return c;
+  }();
+  return count;
+}
+
+// Encodes A's and W's tensor maps and launches one block per tile (or, under
+// L4P_GEMM_PERSISTENT, one block per SM); returns 0, a cudaError_t of a
+// refused launch, or a negative sm90::tensor_map_error.
+template <int EPI, int BN>
+int launch_gemm(const bf16* a, const bf16* w, int m, int n, int k, const EpilogueArgs& ep, cudaStream_t stream) {
+  CUtensorMap ta, tw;
+  int err = sm90::encode_bf16_3d(&ta, a, k, k, m, 1, kBK, kBM, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err == 0) err = sm90::encode_bf16_3d(&tw, w, k, k, n, 1, kBK, BN, CU_TENSOR_MAP_SWIZZLE_128B);
+  if (err != 0) return err;
+  constexpr int smem = gemm_smem_bytes<BN>();
+  auto* kernel = gemm_nt_kernel<EPI, BN>;
+  const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int tiles = ((m + kBM - 1) / kBM) * ((n + BN - 1) / BN);
+#ifndef L4P_GEMM_PERSISTENT
+  const int grid = tiles;
+#else
+  const int sms = sm_count();
+  if (sms <= 0) return static_cast<int>(cudaErrorInvalidDevice);
+  const int grid = tiles < sms ? tiles : sms;
+#endif
+  kernel<<<grid, kGemmThreads, smem, stream>>>(ta, tw, m, n, k, ep);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int EPI>
-cudaError_t launch_gemm(const bf16* a, const bf16* w, int m, int n, int k, const EpilogueArgs& ep,
-                        cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(gemm_nt_kernel<EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize, kGemmSmem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  gemm_nt_kernel<EPI><<<grid, kGemmThreads, kGemmSmem, stream>>>(a, w, m, n, k, ep);
-  return cudaGetLastError();
+int launch_gemm_width(const bf16* a, const bf16* w, int m, int n, int k, int tile_n, const EpilogueArgs& ep,
+                      cudaStream_t stream) {
+  switch (tile_n) {
+    case 176:
+      return launch_gemm<EPI, 176>(a, w, m, n, k, ep, stream);
+    case 192:
+      return launch_gemm<EPI, 192>(a, w, m, n, k, ep, stream);
+    case 256:
+      return launch_gemm<EPI, 256>(a, w, m, n, k, ep, stream);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
@@ -300,11 +461,13 @@ extern "C" int l4p_ln_rows_bf16(const void* x, const void* w, const void* b, voi
 }
 
 // epilogue: 0 QKV (out (3, m / tokens, heads, tokens, head_row_pitch(head_dim)), n == 3 * heads * head_dim),
-// 1 GELU (out (m, n)), 2 RESIDUAL (out (m, n) updated in place, copy_out (m, n) or null).
+// 1 GELU (out (m, n)), 2 RESIDUAL (out (m, n) updated in place, copy_out (m, n) or null); tile_n: the output
+// tile's width, 176, 192 or 256 (ops/fused_encoder.py:gemm_tile_width).
 extern "C" int l4p_gemm_nt_bf16(const void* a, const void* w, const void* bias, void* out, void* copy_out, int m,
-                                int n, int k, int epilogue, int tokens, int heads, int head_dim, void* stream) {
-  if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0 || m / kBM >= 65535 || !aligned16(a) ||
-      !aligned16(w) || !aligned16(out))
+                                int n, int k, int epilogue, int tokens, int heads, int head_dim, int tile_n,
+                                void* stream) {
+  if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0 || !aligned16(a) || !aligned16(w) ||
+      !aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
   if (epilogue == kQKV && (tokens <= 0 || m % tokens != 0 || heads <= 0 || head_dim <= 0 || head_dim % 2 != 0 ||
                            n != 3 * heads * head_dim))
@@ -314,16 +477,10 @@ extern "C" int l4p_gemm_nt_bf16(const void* a, const void* w, const void* bias, 
   const bf16* pa = static_cast<const bf16*>(a);
   const bf16* pw = static_cast<const bf16*>(w);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (epilogue == kQKV)
-    err = launch_gemm<kQKV>(pa, pw, m, n, k, ep, s);
-  else if (epilogue == kGELU)
-    err = launch_gemm<kGELU>(pa, pw, m, n, k, ep, s);
-  else if (epilogue == kRESIDUAL)
-    err = launch_gemm<kRESIDUAL>(pa, pw, m, n, k, ep, s);
-  else
-    err = cudaErrorInvalidValue;
-  return static_cast<int>(err);
+  if (epilogue == kQKV) return launch_gemm_width<kQKV>(pa, pw, m, n, k, tile_n, ep, s);
+  if (epilogue == kGELU) return launch_gemm_width<kGELU>(pa, pw, m, n, k, tile_n, ep, s);
+  if (epilogue == kRESIDUAL) return launch_gemm_width<kRESIDUAL>(pa, pw, m, n, k, tile_n, ep, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // qkv (3, batch, heads, tokens, head_row_pitch(head_dim)) -> o (batch, tokens, heads * head_dim)

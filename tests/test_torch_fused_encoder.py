@@ -156,3 +156,58 @@ def test_linear_gelu_plain_on_the_cpu():
     ref = torch.nn.functional.gelu(a @ w.T + b)  # fp32: the exact erf lane
     assert torch.equal(FE.linear_gelu(a, w, b), FE.linear_gelu_plain(a, w, b))
     check(FE.linear_gelu(a, w, b), ref.numpy(), 1e-6)
+
+
+@pytest.mark.parametrize("n,want", [(4224, 192), (1408, 176), (6144, 256), (1400, 176), (8, 176), (512, 256),
+                                    (576, 192), (264, 176)])
+def test_gemm_tile_width_takes_the_widest_divisor_else_the_least_padding(n, want):
+    """The giant widths (qkv 4224, proj/fc2 1408, fc1 6144) and ragged ones."""
+    assert FE.gemm_tile_width(n) == want and want in FE.GEMM_TILE_WIDTHS
+
+
+@pytest.mark.parametrize("epilogue", ["QKV", "GELU", "RESIDUAL"])
+def test_gemm_nt_on_the_cpu_is_its_plain_version(epilogue):
+    """What each epilogue writes, against float64 numpy: QKV the head-major
+    (3, B, H, tokens, pitch) rows with the pad left alone, GELU the fp32
+    (exact erf) lane, RESIDUAL in place on the stream and into copy_out."""
+    from scipy.special import erf
+
+    from l4p_tpu_torch.ops.flash_attention import kernel_row_pitch
+
+    m, k, tokens, heads, hd = 12, 24, 6, 2, 8
+    n = 3 * heads * hd if epilogue == "QKV" else 16
+    a, w, bias, x = (rand(s, i) for i, s in enumerate(((m, k), (n, k), (n,), (m, n))))
+    y = a.astype(np.float64) @ w.T.astype(np.float64) + bias
+    ta, tw, tb = (torch.from_numpy(t) for t in (a, w, bias))
+    if epilogue == "QKV":
+        out = torch.full((3, m // tokens, heads, tokens, kernel_row_pitch(hd)), float("nan"))
+        assert FE.gemm_nt(ta, tw, tb, FE.QKV, out, tokens=tokens, heads=heads, head_dim=hd) is out
+        want = y.reshape(m // tokens, tokens, 3, heads, hd).transpose(2, 0, 3, 1, 4)
+        check(out[..., :hd], want, 1e-6, "q/k/v rows")
+        assert torch.isnan(out[..., hd:]).all()
+        plain = FE.gemm_nt_plain(ta, tw, tb, FE.QKV, torch.full_like(out, float("nan")), None, tokens, heads, hd)
+    elif epilogue == "GELU":
+        out = FE.gemm_nt(ta, tw, tb, FE.GELU, torch.empty((m, n)))
+        check(out, 0.5 * y * (1 + erf(y / np.sqrt(2))), 1e-6, "GELU")
+        plain = FE.gemm_nt_plain(ta, tw, tb, FE.GELU, torch.empty((m, n)))
+    else:
+        out, copy_out = torch.from_numpy(x.copy()), torch.empty((m, n))
+        FE.gemm_nt(ta, tw, tb, FE.RESIDUAL, out, copy_out)
+        check(out, x + y, 1e-6, "residual stream")
+        assert torch.equal(copy_out, out)
+        plain = FE.gemm_nt_plain(ta, tw, tb, FE.RESIDUAL, torch.from_numpy(x.copy()))
+    assert torch.equal(out.nan_to_num(7.0), plain.nan_to_num(7.0))  # QKV's pad stays NaN in both
+
+
+def test_gemm_nt_refuses_what_the_kernel_does_not_take():
+    a, w, bias = torch.zeros((4, 16)), torch.zeros((48, 16)), torch.zeros((48,))
+    with pytest.raises(ValueError, match="do not fit"):
+        FE.gemm_nt(a, w, bias, FE.GELU, torch.zeros((4, 40)))  # out of another width
+    with pytest.raises(ValueError, match="do not fit"):
+        FE.gemm_nt(a, w, bias, FE.GELU, torch.zeros((4, 48)), copy_out=torch.zeros((4, 48)))  # copy_out: RESIDUAL only
+    with pytest.raises(ValueError, match="3 x heads"):
+        FE.gemm_nt(a, w, bias, FE.QKV, torch.zeros((3, 1, 2, 4, 16)), tokens=4, heads=2, head_dim=4)  # 48 != 24
+    with pytest.raises(ValueError, match="unknown epilogue"):
+        FE.gemm_nt(a, w, bias, 7, torch.zeros((4, 48)))
+    with pytest.raises(ValueError, match="incompatible"):
+        FE.gemm_nt(a, w[:, :8], bias, FE.GELU, torch.zeros((4, 48)))

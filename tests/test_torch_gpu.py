@@ -362,6 +362,189 @@ def test_linear_gelu_matches_plain_on_card(cuda, m, n, k):
     assert err <= 2e-2
 
 
+# the blocks' GEMM (gemm_nt) against its plain version on the same bf16
+# operands: max |kernel - plain| <= GEMM_BAND * max |plain|. Both round
+# acc + bias (and the GELU output, and the residual add) to bf16 once and
+# sum K in other orders, so a value can land one bf16 step apart
+GEMM_BAND = 2e-2
+GEMM_M, GEMM_N, GEMM_K = (1, 127, 129, 300), (8, 264, 1400), (8, 88, 1400, 6144)
+
+
+def gemm_operands(m, n, k, cuda, seed=6):
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    a = torch.randn((m, k), generator=g, device=cuda).bfloat16()
+    w = (torch.randn((n, k), generator=g, device=cuda) * k ** -0.5).bfloat16()
+    bias = (0.1 * torch.randn((n,), generator=g, device=cuda)).bfloat16()
+    x = torch.randn((m, n), generator=g, device=cuda).bfloat16()  # a residual stream
+    return a, w, bias, x
+
+
+def run_gemm(epilogue, m, n, k, cuda, copy=False, tokens=1, heads=1, head_dim=2):
+    """(kernel out, plain out[, kernel copy_out]) of one gemm_nt launch; a
+    QKV output buffer starts as NaN, so a pad column that is written shows."""
+    from l4p_tpu_torch.ops import fused_encoder as FE
+    from l4p_tpu_torch.ops.flash_attention import kernel_row_pitch
+
+    a, w, bias, x = gemm_operands(m, n, k, cuda)
+    if epilogue == FE.QKV:
+        shape = (3, m // tokens, heads, tokens, kernel_row_pitch(head_dim))
+        out = torch.full(shape, float("nan"), device=cuda, dtype=torch.bfloat16)
+    elif epilogue == FE.GELU:
+        out = torch.empty((m, n), device=cuda, dtype=torch.bfloat16)
+    else:
+        out = x.clone()
+    plain = out.clone()
+    copy_out = torch.empty_like(out) if copy else None
+    before = FE.gemm_nt.launches
+    FE.gemm_nt(a, w, bias, epilogue, out, copy_out, tokens, heads, head_dim)
+    torch.cuda.synchronize()
+    assert FE.gemm_nt.launches == before + 1
+    FE.gemm_nt_plain(a, w, bias, epilogue, plain, None, tokens, heads, head_dim)
+    return out, plain, copy_out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", GEMM_K)
+@pytest.mark.parametrize("n", GEMM_N)
+@pytest.mark.parametrize("m", GEMM_M)
+@pytest.mark.parametrize("epilogue", ["GELU", "RESIDUAL"])
+def test_gemm_nt_matches_plain_on_card_at_ragged_shapes(cuda, epilogue, m, n, k):
+    """M off the 128-row tile and below it, N off every tile width, K off the
+    64-deep ring stage and below it: the tensor maps' zero fill and the
+    store masks."""
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    out, plain, _ = run_gemm(getattr(FE, epilogue), m, n, k, cuda)
+    assert torch.isfinite(out).all()
+    err = band_err(out, plain)
+    print(f"gemm_nt {epilogue} {(m, n, k)}: max|kernel - plain| / max|plain| = {err:.3g}")
+    assert err <= GEMM_BAND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", GEMM_K)
+@pytest.mark.parametrize("heads,head_dim", [(1, 88), (2, 88), (1, 8)])
+@pytest.mark.parametrize("m,tokens", [(1, 1), (127, 127), (129, 129), (300, 150)])
+def test_gemm_nt_qkv_matches_plain_on_card_and_leaves_the_pad(cuda, m, tokens, heads, head_dim, k):
+    """The QKV epilogue's head-major rows at D = 88 (pitch 96) and D = 8
+    (pitch 16): the data columns match the plain version and the pad
+    columns keep the NaN they started with (never written)."""
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    out, plain, _ = run_gemm(FE.QKV, m, 3 * heads * head_dim, k, cuda, tokens=tokens, heads=heads,
+                             head_dim=head_dim)
+    assert torch.isnan(out[..., head_dim:]).all()
+    assert torch.isfinite(out[..., :head_dim]).all()
+    err = band_err(out[..., :head_dim], plain[..., :head_dim])
+    print(f"gemm_nt QKV {(m, tokens, heads, head_dim, k)}: max|kernel - plain| / max|plain| = {err:.3g}")
+    assert err <= GEMM_BAND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("epilogue,m,n,k", [
+    # one output tile of each width, one or two ring stages: a fault of the
+    # 128-byte swizzle, the wgmma descriptors or the TMA boxes shows here first
+    ("GELU", 64, 176, 64), ("GELU", 128, 176, 64), ("GELU", 128, 192, 64), ("GELU", 128, 256, 64),
+    ("GELU", 64, 256, 128), ("RESIDUAL", 128, 176, 64), ("QKV", 128, 192, 64)])
+def test_gemm_nt_on_one_tile_matches_plain_on_card(cuda, epilogue, m, n, k):
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    assert FE.gemm_tile_width(n) == n
+    qkv = dict(tokens=m, heads=2, head_dim=n // 6) if epilogue == "QKV" else {}
+    out, plain, _ = run_gemm(getattr(FE, epilogue), m, n, k, cuda, **qkv)
+    err = band_err(out[..., : n // 6] if qkv else out, plain[..., : n // 6] if qkv else plain)
+    print(f"gemm_nt {epilogue} one tile {(m, n, k)}: max|kernel - plain| / max|plain| = {err:.3g}")
+    assert err <= GEMM_BAND
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,epilogue,n,k", [("qkv", "QKV", 4224, 1408), ("proj", "RESIDUAL", 1408, 1408),
+                                               ("fc1", "GELU", 6144, 1408), ("fc2", "RESIDUAL", 1408, 6144)])
+def test_gemm_nt_giant_block_products_match_plain_on_card(cuda, name, epilogue, n, k):
+    """The four products of a giant block at M = 4096 (2 windows of 2048
+    tokens), fc2 also writing its hook copy."""
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    qkv = dict(tokens=2048, heads=16, head_dim=88) if epilogue == "QKV" else {}
+    out, plain, copy_out = run_gemm(getattr(FE, epilogue), 4096, n, k, cuda, copy=name == "fc2", **qkv)
+    if qkv:
+        out, plain = out[..., :88], plain[..., :88]
+    err = band_err(out, plain)
+    print(f"gemm_nt {name} (4096, {n}, {k}): max|kernel - plain| / max|plain| = {err:.3g}")
+    assert err <= GEMM_BAND
+    if copy_out is not None:
+        assert torch.equal(copy_out, out)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("copy", [False, True])
+def test_gemm_nt_residual_updates_in_place(cuda, copy):
+    """RESIDUAL adds onto the stream it is given, in place, and writes the
+    same values into copy_out when asked; nothing else is written."""
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    m, n, k = 300, 1400, 1400
+    a, w, bias, x = gemm_operands(m, n, k, cuda)
+    stream = x.clone()
+    ptr = stream.data_ptr()
+    copy_out = torch.full((m, n), float("nan"), device=cuda, dtype=torch.bfloat16) if copy else None
+    assert FE.gemm_nt(a, w, bias, FE.RESIDUAL, stream, copy_out) is stream
+    torch.cuda.synchronize()
+    assert stream.data_ptr() == ptr
+    plain = FE.gemm_nt_plain(a, w, bias, FE.RESIDUAL, x.clone())
+    assert band_err(stream, plain) <= GEMM_BAND
+    assert band_err(stream - x, plain - x) <= 2 * GEMM_BAND  # the added part itself, not only x
+    if copy:
+        assert torch.equal(copy_out, stream)
+
+
+# the GEMM and its plain version against an fp32 product of the same bf16
+# operands: the kernel's mean |error| within this factor of the plain
+# version's (the other kernels' witnesses take the same slack)
+GEMM_WITNESS_SLACK = 1.1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("epilogue,n,k", [("GELU", 6144, 1408), ("RESIDUAL", 1408, 6144)])
+def test_gemm_nt_no_farther_from_fp32_than_plain(cuda, epilogue, n, k):
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    m = 4096
+    a, w, bias, x = gemm_operands(m, n, k, cuda)
+    out, plain, _ = run_gemm(getattr(FE, epilogue), m, n, k, cuda)
+    y = a.float() @ w.float().t() + bias.float()
+    exact = torch.nn.functional.gelu(y, approximate="tanh") if epilogue == "GELU" else x.float() + y
+    off = {name: (t.float() - exact).abs().mean().item() for name, t in (("kernel", out), ("plain", plain))}
+    print(f"gemm_nt {epilogue} {(m, n, k)} against fp32: mean |error| {off} (ratio {off['kernel'] / off['plain']:.3g})")
+    assert off["kernel"] <= GEMM_WITNESS_SLACK * off["plain"]
+
+
+@pytest.mark.gpu
+def test_gemm_nt_raises_instead_of_falling_back(cuda):
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    a, w, bias, x = gemm_operands(64, 176, 64, cuda)
+    out = torch.empty((64, 176), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        FE.gemm_nt(a[:, :60].contiguous(), w[:, :60].contiguous(), bias, FE.GELU, out)  # K = 60
+    with pytest.raises(ValueError, match="bf16"):
+        FE.gemm_nt(a.float(), w, bias, FE.GELU, out)
+    with pytest.raises(ValueError, match="one CUDA device"):
+        FE.gemm_nt(a.cpu(), w, bias, FE.GELU, out)
+    shifted = torch.empty(64 * 64 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(64, 64).copy_(a)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FE.gemm_nt(shifted, w, bias, FE.GELU, out)  # no TMA map of a misaligned base
+    # the entry point itself: a K off 8 and a tile width it was not built for
+    gemm = FE._kernels()[1]
+    stream = torch.cuda.current_stream().cuda_stream
+    null = None
+    assert gemm(a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), null, 64, 176, 60, FE.GELU, 1, 1, 2,
+                176, stream) != 0
+    assert gemm(a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), null, 64, 176, 64, FE.GELU, 1, 1, 2,
+                128, stream) != 0
+
+
 @pytest.mark.gpu
 def test_fused_encoder_raises_instead_of_falling_back(cuda):
     from l4p_tpu_torch.config import EncoderConfig
