@@ -18,6 +18,7 @@ import torch
 
 from l4p_tpu_torch.geometry.core import (
     _pixel_grid,
+    below,
     denormalize_intrinsics,
     normalize_intrinsics,
     plucker_to_point_direction,
@@ -143,13 +144,13 @@ def find_homography_ransac(src: torch.Tensor, dst: torch.Tensor, sample_idx: tor
     inf = torch.full_like(errs, float("inf"))
     errs = torch.where(valid[:, None], errs, inf)
     thr2 = reproj_threshold ** 2
-    inliers = errs < thr2
+    inliers = below(errs, thr2)
     best = ransac_best(inliers)
     w = inliers[torch.arange(src.shape[0], device=src.device), best].to(src.dtype)
     for _ in range(refine_iters):
         h = homography_dlt(src, dst, w)
         e = torch.where(valid, _homography_transfer_err2(h, src, dst), inf[:, 0])
-        w = (e < thr2).to(src.dtype)
+        w = below(e, thr2).to(src.dtype)
     return homography_dlt(src, dst, w)
 
 

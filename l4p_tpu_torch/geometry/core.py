@@ -14,6 +14,34 @@ import torch
 # chosen hypothesis (B,)) on the CPU: a run on two devices can then say
 # where a near-tie picked another hypothesis. None (the default) costs nothing.
 RANSAC_TRACE: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
+# Every inlier decision of the camera solve and the stitch goes through
+# `below`. Set THRESHOLD_TRACE to a list to keep each decision this run
+# takes itself, as a mask on the CPU, in order. Set THRESHOLD_REPLAY to such
+# a list (another run's, e.g. on another device) to go on with its masks
+# instead of this run's own, so that the run follows the other through
+# every decision at a threshold; with THRESHOLD_FLIPS set to a list, each
+# replayed decision then appends the relative distance |err - thr| / thr of
+# the entries where this run's own mask differs. None (the default) costs
+# nothing.
+THRESHOLD_TRACE: Optional[List[torch.Tensor]] = None
+THRESHOLD_REPLAY: Optional[List[torch.Tensor]] = None
+THRESHOLD_FLIPS: Optional[List[torch.Tensor]] = None
+
+
+def below(errs: torch.Tensor, thr) -> torch.Tensor:
+    """The inlier mask errs < thr (thr a number or a tensor broadcast
+    against errs), traced and replayed as THRESHOLD_* say."""
+    mask = errs < thr
+    if THRESHOLD_TRACE is not None:
+        THRESHOLD_TRACE.append(mask.cpu())
+    if THRESHOLD_REPLAY is not None:
+        theirs = THRESHOLD_REPLAY.pop(0).to(mask.device)
+        if THRESHOLD_FLIPS is not None:
+            thr_t = torch.as_tensor(thr, dtype=errs.dtype, device=errs.device).expand_as(errs)
+            flip = theirs != mask
+            THRESHOLD_FLIPS.append(((errs[flip] - thr_t[flip]) / thr_t[flip]).abs().cpu())
+        mask = theirs
+    return mask
 
 
 def ransac_best(inliers: torch.Tensor) -> torch.Tensor:

@@ -2,23 +2,27 @@
 
     python3 scripts/encoder_bounds.py                       # from the repository root, one card
     python3 scripts/encoder_bounds.py --other old=path.cu   # also time another fused_encoder.cu
+    python3 scripts/encoder_bounds.py --same alt=path.cu    # one with this source's C interface
 
 Each variant is ``l4p_tpu_torch/csrc/fused_encoder.cu`` compiled by nvcc
 (the port's flags) with the build-time hooks that the source lists, all
 builds at once, into a temporary directory; ``--other`` adds sources with
 the C interface of the mma.sync GEMM before wgmma (no tile-width argument;
-an earlier revision, with the headers it includes beside it), built
-without hooks:
+an earlier revision, with the headers it includes beside it), and
+``--same`` sources of this one's interface, both built without hooks:
   kernel       the shipped GEMM;
-  persistent   one block per SM walking the output tiles instead of one
-               block per tile;
-  raster_m     tiles down M under one panel of W instead of across N under
-               one panel of A;
+  one_tile     one block per output tile instead of one per SM walking
+               the tiles;
+  raster_m     the walk down M under one panel of W instead of across N
+               under one panel of A;
   no_epilogue  the products and their ring without the epilogue;
-  loads_only   the ring and its TMA loads alone.
-The exact builds (kernel, persistent, raster_m and each --other) are held
-against the plain version (GEMM_BAND) at each timed shape first; the other
-two compute nothing usable on purpose and only their times mean something.
+  loads_only   the ring and its TMA loads alone;
+  no_store     the epilogue without its global stores;
+  stages3      a ring of at most 3 stages.
+The exact builds (kernel, one_tile, raster_m, stages3 and each --other and
+--same) are held against the plain version (GEMM_BAND) at each timed shape
+first; the others compute nothing usable on purpose and only their times
+mean something.
 Then, for each of a giant block's four products (qkv with the QKV epilogue,
 proj and fc2 with RESIDUAL, fc1 with GELU) at M = 4096 (2 windows of 2048
 tokens) and M = 10240 (the fused point's 5 windows), all builds and one
@@ -50,9 +54,10 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 from chip_smoke import PEAK_BYTES, PEAK_FLOPS, card_line, encoder_operands, time_ms  # noqa: E402
 
-VARIANTS = {"kernel": (), "persistent": ("L4P_GEMM_PERSISTENT",), "raster_m": ("L4P_GEMM_RASTER_M",),
-            "no_epilogue": ("L4P_GEMM_NO_EPILOGUE",), "loads_only": ("L4P_GEMM_LOADS_ONLY",)}
-EXACT = ("kernel", "persistent", "raster_m")
+VARIANTS = {"kernel": (), "one_tile": ("L4P_GEMM_ONE_TILE_PER_BLOCK",), "raster_m": ("L4P_GEMM_RASTER_M",),
+            "no_epilogue": ("L4P_GEMM_NO_EPILOGUE",), "loads_only": ("L4P_GEMM_LOADS_ONLY",),
+            "no_store": ("L4P_GEMM_NO_STORE",), "stages3": ("L4P_GEMM_STAGES_MAX=3",)}
+EXACT = ("kernel", "one_tile", "raster_m", "stages3")
 GEMM_BAND = 2e-2  # tests/test_torch_gpu.py's band of the GEMM against its plain version
 TOKENS, HEADS, HEAD_DIM, E, HIDDEN = 2048, 16, 88, 1408, 6144
 # (name, epilogue, N, K) of a giant block's products
@@ -136,6 +141,8 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", action="append", default=[], metavar="NAME=PATH",
                     help="another fused_encoder.cu with the parent's C interface, timed beside the variants")
+    ap.add_argument("--same", action="append", default=[], metavar="NAME=PATH",
+                    help="another fused_encoder.cu with this one's C interface, timed beside the variants")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("encoder_bounds: needs a CUDA card", file=sys.stderr)
@@ -152,8 +159,10 @@ def main() -> int:
     source = os.path.join(_build.CSRC_DIR, "fused_encoder.cu")
     builds = {name: (source, defines, False) for name, defines in VARIANTS.items()}
     others = dict(o.split("=", 1) for o in args.other)
+    same = dict(o.split("=", 1) for o in args.same)
     builds.update({name: (os.path.abspath(path), (), True) for name, path in others.items()})
-    exact = [*EXACT, *others]
+    builds.update({name: (os.path.abspath(path), (), False) for name, path in same.items()})
+    exact = [*EXACT, *others, *same]
     failed = []
     with tempfile.TemporaryDirectory() as work:
         with ThreadPoolExecutor(max_workers=len(builds)) as pool:

@@ -288,6 +288,36 @@ def test_ransac_trace_keeps_each_solve_counts_and_choice():
     assert int(trace[0][0].max()) <= 128 and int(trace[1][0].max()) <= 300  # counts of points
 
 
+def test_threshold_replay_follows_another_runs_decisions():
+    """With THRESHOLD_TRACE set, every inlier decision of the homography
+    RANSAC (scoring and the refits) is kept; replaying a run's own trace
+    gives its results exactly with no decision flipped, and a replayed mask
+    with one entry flipped is followed, the entry's distance from the
+    threshold recorded."""
+    src, dst = homography_points()
+    idx = torch.stack([PCORE.ransac_sample_indices(torch.Generator().manual_seed(i), 128, 16, 4) for i in (0, 1)])
+
+    def run(replay):
+        PCORE.THRESHOLD_TRACE, PCORE.THRESHOLD_REPLAY = [], replay
+        PCORE.THRESHOLD_FLIPS = None if replay is None else []
+        try:
+            out = PCAM.find_homography_ransac(T(src), T(dst), idx, 0.05)
+            return out, PCORE.THRESHOLD_TRACE, PCORE.THRESHOLD_FLIPS
+        finally:
+            PCORE.THRESHOLD_TRACE = PCORE.THRESHOLD_REPLAY = PCORE.THRESHOLD_FLIPS = None
+
+    free, trace, _ = run(None)
+    assert len(trace) == 3  # the scoring of every hypothesis, then two refits
+    replayed, trace2, flips = run(list(trace))
+    assert torch.equal(replayed, free) and all(f.numel() == 0 for f in flips)
+    assert all(torch.equal(a, b) for a, b in zip(trace, trace2))
+    other = [t.clone() for t in trace]
+    other[2][0, 0] = ~other[2][0, 0]
+    _, trace3, flips = run(list(other))
+    assert [f.numel() for f in flips] == [0, 0, 1] and flips[2].item() > 0
+    assert torch.equal(trace3[2], trace[2])  # the trace keeps the run's own decision
+
+
 def test_umeyama_degenerate_points_give_the_identity():
     tf, s = PA.umeyama_sim3(torch.ones((1, 5, 3)), torch.randn((1, 5, 3)))
     assert torch.equal(tf[0], torch.eye(4)) and float(s[0]) == 1.0
