@@ -34,7 +34,7 @@
 // - K goes in steps of 64: one 128-byte row per operand row, loaded by TMA
 //   with 128-byte swizzle (CU_TENSOR_MAP_SWIZZLE_128B; the descriptor
 //   layout in sm90.cuh) into a ring of 3-4 stages (as many as 227 KB hold
-//   beside the staging buffer: 3 at BN = 256, 4 at 176 and 192), each with
+//   beside the staging buffer: 3 at BN = 256, 4 at 176), each with
 //   a full barrier (the producer's expect_tx and the TMA bytes) and an
 //   empty barrier (an arrival from each consumer thread). A stage is 4
 //   wgmma m64nBNk16 per warpgroup, the next stage's products in flight
@@ -56,21 +56,22 @@
 //   its arithmetic (PERF.md), and the consumers' own reads of the stream
 //   ~0.03 ms per product.
 // - BN, the tile width, is chosen per product by
-//   ops/fused_encoder.py:gemm_tile_width, from 176, 192 and 256: the widest
-//   that divides N, else the one with the least padding. At the giant
-//   widths: qkv N = 4224 -> 192 (22 tiles across), proj and fc2 N = 1408
-//   -> 176 (8; at M = 4096, 256 tiles, 1.94 waves on 132 SMs, where 256
-//   would leave half of its 192 tiles half empty), fc1 N = 6144 -> 256 (24).
-//   The widest tile reads the least operand traffic per FLOP; 176 and 192
-//   divide the widths 256 does not.
+//   ops/fused_encoder.py:gemm_tile_width, from 176 and 256: the wider that
+//   divides N, else the one with the less padding. At the giant widths: qkv
+//   N = 4224 -> 176 (24 tiles across), proj and fc2 N = 1408 -> 176 (8; at
+//   M = 4096, 256 tiles, 1.94 waves on 132 SMs, where 256 would leave half
+//   of its 192 tiles half empty), fc1 N = 6144 -> 256 (24). The wider tile
+//   reads the less operand traffic per FLOP; 176 divides the widths 256
+//   does not. A width of 192 (which divides 4224) measured 2-9% slower
+//   than 176 on qkv and slower on the other products (PERF.md).
 // - Ragged M, N and K edges come from the tensor maps' zero fill on load
 //   and from masks on store. The bias is the bf16 parameter, added in
 //   fp32; per 8-column chunk v = bf16(acc + bias) of the staging buffer:
 //   QKV      v written head-major as (3, B, H, N, head_row_pitch(D)), so
 //            attention reads q, k and v without copies; the tile's row and
 //            column offsets are computed once into shared memory (four
-//            runtime divisions a chunk cost 0.05 ms at M = 10240); a chunk
-//            lies in one head when D % 8 == 0, else it goes pair by pair;
+//            runtime divisions a chunk cost 0.05 ms at M = 10240); D is a
+//            multiple of 8, so a chunk lies in one head;
 //   GELU     bf16(gelu_tanh(v)), the bf16 lane of ops/conv.py:gelu;
 //   RESIDUAL x <- bf16(x + v) in place on the residual stream (the JAX
 //            package is immutable and writes a new x; the port updates it
@@ -145,7 +146,7 @@ __host__ __device__ constexpr int staging_bytes() {
 // (128 + BN / 8) offsets of 8 bytes
 constexpr int kSmemReserve = 1024 + 1536;
 // as many ring stages as fit beside the staging buffer and the reserve, at
-// most L4P_GEMM_STAGES_MAX: 3 at BN = 256, 4 at 176 and 192
+// most L4P_GEMM_STAGES_MAX: 3 at BN = 256, 4 at 176
 template <int BN>
 __host__ __device__ constexpr int gemm_stages() {
   return (kMaxSmem - kSmemReserve - staging_bytes<BN>()) / gemm_stage_bytes<BN>() < L4P_GEMM_STAGES_MAX
@@ -299,9 +300,8 @@ __device__ __forceinline__ void stage_tile(const float (&acc)[BN / 2], const Til
 // consecutive threads cover a row. For RESIDUAL each thread takes 4 chunks
 // kEpilogueThreads apart at a time and loads their stream before the first
 // use; the loop itself is rolled. Per chunk (v: the staged bf16):
-//   QKV      v into the head-major rows, 16 bytes at once when a head's D
-//            is a multiple of 8 (a chunk then lies in one head), else pair
-//            by pair;
+//   QKV      v into the head-major rows, 16 bytes at once (D % 8 == 0, so
+//            a chunk lies in one head);
 //   GELU     bf16(gelu_tanh(v));
 //   RESIDUAL bf16(x + v) into the stream and, if given, the hook copy.
 template <int EPI, int BN>
@@ -347,14 +347,7 @@ __device__ __forceinline__ void store_staged(const uint32_t* staging, const size
       if (v.x != 0x7FC17FC1u) continue;  // never stores: the epilogue without its global stores
 #endif
       if (EPI == kQKV) {
-        const size_t row_off = qkv_offsets[c / kChunks];
-        if (ep.head_dim % 8 == 0) {
-          *reinterpret_cast<uint4*>(ep.out + row_off + qkv_offsets[kBM + c % kChunks]) = v;
-        } else {
-#pragma unroll
-          for (int i = 0; i < 4; ++i)
-            *reinterpret_cast<uint32_t*>(ep.out + row_off + qkv_col_part(col + 2 * i, m, ep)) = w[i];
-        }
+        *reinterpret_cast<uint4*>(ep.out + qkv_offsets[c / kChunks] + qkv_offsets[kBM + c % kChunks]) = v;
       } else {
         *reinterpret_cast<uint4*>(ep.out + static_cast<size_t>(r) * n + col) = v;
         if (EPI == kRESIDUAL && ep.copy_out != nullptr)
@@ -564,8 +557,6 @@ int launch_gemm_width(const bf16* a, const bf16* w, int m, int n, int k, int til
   switch (tile_n) {
     case 176:
       return launch_gemm<EPI, 176>(a, w, m, n, k, ep, stream);
-    case 192:
-      return launch_gemm<EPI, 192>(a, w, m, n, k, ep, stream);
     case 256:
       return launch_gemm<EPI, 256>(a, w, m, n, k, ep, stream);
     default:
@@ -591,16 +582,17 @@ extern "C" int l4p_ln_rows_bf16(const void* x, const void* w, const void* b, voi
   return static_cast<int>(cudaGetLastError());
 }
 
-// epilogue: 0 QKV (out (3, m / tokens, heads, tokens, head_row_pitch(head_dim)), n == 3 * heads * head_dim),
+// epilogue: 0 QKV (out (3, m / tokens, heads, tokens, head_row_pitch(head_dim)), n == 3 * heads * head_dim,
+// head_dim % 8 == 0),
 // 1 GELU (out (m, n)), 2 RESIDUAL (out (m, n) updated in place, copy_out (m, n) or null); tile_n: the output
-// tile's width, 176, 192 or 256 (ops/fused_encoder.py:gemm_tile_width).
+// tile's width, 176 or 256 (ops/fused_encoder.py:gemm_tile_width).
 extern "C" int l4p_gemm_nt_bf16(const void* a, const void* w, const void* bias, void* out, void* copy_out, int m,
                                 int n, int k, int epilogue, int tokens, int heads, int head_dim, int tile_n,
                                 void* stream) {
   if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0 || !aligned16(a) || !aligned16(w) ||
       !aligned16(out))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (epilogue == kQKV && (tokens <= 0 || m % tokens != 0 || heads <= 0 || head_dim <= 0 || head_dim % 2 != 0 ||
+  if (epilogue == kQKV && (tokens <= 0 || m % tokens != 0 || heads <= 0 || head_dim <= 0 || head_dim % 8 != 0 ||
                            n != 3 * heads * head_dim))
     return static_cast<int>(cudaErrorInvalidValue);
   EpilogueArgs ep{static_cast<const bf16*>(bias), static_cast<bf16*>(out), static_cast<bf16*>(copy_out), tokens,

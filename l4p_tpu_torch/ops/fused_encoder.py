@@ -36,14 +36,14 @@ NAME = "fused_encoder"
 SOURCES = ("fused_encoder.cu",)
 MAX_HEAD_DIM = 96  # the fused path's attention pads D to 64 or 96 in shared memory
 QKV, GELU, RESIDUAL = 0, 1, 2  # the GEMM epilogues of csrc/fused_encoder.cu
-GEMM_TILE_WIDTHS = (256, 192, 176)  # the output tile widths the GEMM is built for, widest first
+GEMM_TILE_WIDTHS = (256, 176)  # the output tile widths the GEMM is built for, widest first
 LAUNCHES_PER_BLOCK = 7
 
 
 def gemm_tile_width(n: int) -> int:
     """The GEMM's output tile width for N columns: the widest of
     GEMM_TILE_WIDTHS that divides N, else the one that pads N the least
-    (the wider on a tie). Giant widths: 4224 -> 192, 1408 -> 176, 6144 -> 256."""
+    (the wider on a tie). Giant widths: 4224 and 1408 -> 176, 6144 -> 256."""
     return min(GEMM_TILE_WIDTHS, key=lambda bn: (-(-n // bn) * bn - n, -bn))
 
 
@@ -223,9 +223,9 @@ def gemm_nt_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue
 
 def _gemm_out_shape(m: int, n: int, epilogue: int, tokens: int, heads: int, head_dim: int) -> Tuple[int, ...]:
     if epilogue == QKV:
-        if tokens <= 0 or m % tokens or n != 3 * heads * head_dim or head_dim % 2:
-            raise ValueError(f"gemm_nt: QKV needs M {m} a multiple of tokens {tokens}, an even head_dim "
-                             f"{head_dim} and N {n} = 3 x heads {heads} x head_dim")
+        if tokens <= 0 or m % tokens or n != 3 * heads * head_dim or head_dim % 8:
+            raise ValueError(f"gemm_nt: QKV needs M {m} a multiple of tokens {tokens}, head_dim {head_dim} a "
+                             f"multiple of 8 and N {n} = 3 x heads {heads} x head_dim")
         return (3, m // tokens, heads, tokens, kernel_row_pitch(head_dim))
     if epilogue in (GELU, RESIDUAL):
         return (m, n)

@@ -2,14 +2,13 @@
 
     python3 scripts/encoder_bounds.py                       # from the repository root, one card
     python3 scripts/encoder_bounds.py --other old=path.cu   # also time another fused_encoder.cu
-    python3 scripts/encoder_bounds.py --same alt=path.cu    # one with this source's C interface
 
 Each variant is ``l4p_tpu_torch/csrc/fused_encoder.cu`` compiled by nvcc
 (the port's flags) with the build-time hooks that the source lists, all
 builds at once, into a temporary directory; ``--other`` adds sources with
 the C interface of the mma.sync GEMM before wgmma (no tile-width argument;
-an earlier revision, with the headers it includes beside it), and
-``--same`` sources of this one's interface, both built without hooks:
+an earlier revision, with the headers it includes beside it), built
+without hooks:
   kernel       the shipped GEMM;
   one_tile     one block per output tile instead of one per SM walking
                the tiles;
@@ -19,8 +18,8 @@ an earlier revision, with the headers it includes beside it), and
   loads_only   the ring and its TMA loads alone;
   no_store     the epilogue without its global stores;
   stages3      a ring of at most 3 stages.
-The exact builds (kernel, one_tile, raster_m, stages3 and each --other and
---same) are held against the plain version (GEMM_BAND) at each timed shape
+The exact builds (kernel, one_tile, raster_m, stages3 and each --other) are
+held against the plain version (GEMM_BAND) at each timed shape
 first; the others compute nothing usable on purpose and only their times
 mean something.
 Then, for each of a giant block's four products (qkv with the QKV epilogue,
@@ -141,8 +140,6 @@ def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", action="append", default=[], metavar="NAME=PATH",
                     help="another fused_encoder.cu with the parent's C interface, timed beside the variants")
-    ap.add_argument("--same", action="append", default=[], metavar="NAME=PATH",
-                    help="another fused_encoder.cu with this one's C interface, timed beside the variants")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("encoder_bounds: needs a CUDA card", file=sys.stderr)
@@ -159,10 +156,8 @@ def main() -> int:
     source = os.path.join(_build.CSRC_DIR, "fused_encoder.cu")
     builds = {name: (source, defines, False) for name, defines in VARIANTS.items()}
     others = dict(o.split("=", 1) for o in args.other)
-    same = dict(o.split("=", 1) for o in args.same)
     builds.update({name: (os.path.abspath(path), (), True) for name, path in others.items()})
-    builds.update({name: (os.path.abspath(path), (), False) for name, path in same.items()})
-    exact = [*EXACT, *others, *same]
+    exact = [*EXACT, *others]
     failed = []
     with tempfile.TemporaryDirectory() as work:
         with ThreadPoolExecutor(max_workers=len(builds)) as pool:

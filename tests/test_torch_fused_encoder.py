@@ -158,8 +158,8 @@ def test_linear_gelu_plain_on_the_cpu():
     check(FE.linear_gelu(a, w, b), ref.numpy(), 1e-6)
 
 
-@pytest.mark.parametrize("n,want", [(4224, 192), (1408, 176), (6144, 256), (1400, 176), (8, 176), (512, 256),
-                                    (576, 192), (264, 176)])
+@pytest.mark.parametrize("n,want", [(4224, 176), (1408, 176), (6144, 256), (1400, 176), (8, 176), (512, 256),
+                                    (576, 176), (264, 176)])
 def test_gemm_tile_width_takes_the_widest_divisor_else_the_least_padding(n, want):
     """The giant widths (qkv 4224, proj/fc2 1408, fc1 6144) and ragged ones."""
     assert FE.gemm_tile_width(n) == want and want in FE.GEMM_TILE_WIDTHS
@@ -207,6 +207,8 @@ def test_gemm_nt_refuses_what_the_kernel_does_not_take():
         FE.gemm_nt(a, w, bias, FE.GELU, torch.zeros((4, 48)), copy_out=torch.zeros((4, 48)))  # copy_out: RESIDUAL only
     with pytest.raises(ValueError, match="3 x heads"):
         FE.gemm_nt(a, w, bias, FE.QKV, torch.zeros((3, 1, 2, 4, 16)), tokens=4, heads=2, head_dim=4)  # 48 != 24
+    with pytest.raises(ValueError, match="multiple of 8"):
+        FE.gemm_nt(a, w[:36], bias[:36], FE.QKV, torch.zeros((3, 1, 6, 4, 16)), tokens=4, heads=6, head_dim=2)
     with pytest.raises(ValueError, match="unknown epilogue"):
         FE.gemm_nt(a, w, bias, 7, torch.zeros((4, 48)))
     with pytest.raises(ValueError, match="incompatible"):
