@@ -589,8 +589,10 @@ extern "C" int l4p_ln_rows_bf16(const void* x, const void* w, const void* b, voi
 extern "C" int l4p_gemm_nt_bf16(const void* a, const void* w, const void* bias, void* out, void* copy_out, int m,
                                 int n, int k, int epilogue, int tokens, int heads, int head_dim, int tile_n,
                                 void* stream) {
+  // a and w are TMA bases; out and copy_out take 16-byte stores, bias 4-byte loads
   if (m <= 0 || n <= 0 || k <= 0 || n % 8 != 0 || k % 8 != 0 || !aligned16(a) || !aligned16(w) ||
-      !aligned16(out))
+      !aligned16(out) || (copy_out != nullptr && !aligned16(copy_out)) ||
+      (reinterpret_cast<uintptr_t>(bias) & 3) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   if (epilogue == kQKV && (tokens <= 0 || m % tokens != 0 || heads <= 0 || head_dim <= 0 || head_dim % 8 != 0 ||
                            n != 3 * heads * head_dim))

@@ -6,7 +6,7 @@ fp32 throughout, as the reference forces there too.
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
@@ -15,33 +15,18 @@ import torch
 # where a near-tie picked another hypothesis. None (the default) costs nothing.
 RANSAC_TRACE: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
 # Every inlier decision of the camera solve and the stitch goes through
-# `below`. Set THRESHOLD_TRACE to a list to keep each decision this run
-# takes itself, as a mask on the CPU, in order. Set THRESHOLD_REPLAY to such
-# a list (another run's, e.g. on another device) to go on with its masks
-# instead of this run's own, so that the run follows the other through
-# every decision at a threshold; with THRESHOLD_FLIPS set to a list, each
-# replayed decision then appends the relative distance |err - thr| / thr of
-# the entries where this run's own mask differs. None (the default) costs
-# nothing.
-THRESHOLD_TRACE: Optional[List[torch.Tensor]] = None
-THRESHOLD_REPLAY: Optional[List[torch.Tensor]] = None
-THRESHOLD_FLIPS: Optional[List[torch.Tensor]] = None
+# `below`. Set THRESHOLD_HOOK to a function (errs, thr, mask) -> mask to see
+# each decision in order and to go on with the mask it returns: a run on two
+# devices can then follow one device's decisions on the other. None (the
+# default) costs nothing.
+THRESHOLD_HOOK: Optional[Callable[[torch.Tensor, Any, torch.Tensor], torch.Tensor]] = None
 
 
 def below(errs: torch.Tensor, thr) -> torch.Tensor:
     """The inlier mask errs < thr (thr a number or a tensor broadcast
-    against errs), traced and replayed as THRESHOLD_* say."""
+    against errs), passed through THRESHOLD_HOOK when it is set."""
     mask = errs < thr
-    if THRESHOLD_TRACE is not None:
-        THRESHOLD_TRACE.append(mask.cpu())
-    if THRESHOLD_REPLAY is not None:
-        theirs = THRESHOLD_REPLAY.pop(0).to(mask.device)
-        if THRESHOLD_FLIPS is not None:
-            thr_t = torch.as_tensor(thr, dtype=errs.dtype, device=errs.device).expand_as(errs)
-            flip = theirs != mask
-            THRESHOLD_FLIPS.append(((errs[flip] - thr_t[flip]) / thr_t[flip]).abs().cpu())
-        mask = theirs
-    return mask
+    return mask if THRESHOLD_HOOK is None else THRESHOLD_HOOK(errs, thr, mask)
 
 
 def ransac_best(inliers: torch.Tensor) -> torch.Tensor:

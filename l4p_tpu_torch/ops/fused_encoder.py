@@ -270,18 +270,3 @@ gemm_nt.launches = 0
 
 def linear_gelu_plain(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
     return gelu(linear(a, w, bias))
-
-
-def linear_gelu(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
-    """(M, K) x (N, K) -> gelu(a w^T + bias) (M, N): one launch of the blocks'
-    GEMM with its GELU epilogue (the fc1 step)."""
-    if a.dim() != 2 or w.dim() != 2 or a.shape[1] != w.shape[1] or bias.shape != (w.shape[0],):
-        raise ValueError(f"linear_gelu: incompatible shapes a{tuple(a.shape)} w{tuple(w.shape)} bias{tuple(bias.shape)}")
-    if {a.device, w.device, bias.device} == {torch.device("cpu")}:
-        return linear_gelu_plain(a, w, bias)
-    out = gemm_nt(a, w, bias, GELU, torch.empty((a.shape[0], w.shape[0]), device=a.device, dtype=a.dtype))
-    linear_gelu.launches += 1
-    return out
-
-
-linear_gelu.launches = 0

@@ -289,33 +289,41 @@ def test_ransac_trace_keeps_each_solve_counts_and_choice():
 
 
 def test_threshold_replay_follows_another_runs_decisions():
-    """With THRESHOLD_TRACE set, every inlier decision of the homography
-    RANSAC (scoring and the refits) is kept; replaying a run's own trace
-    gives its results exactly with no decision flipped, and a replayed mask
-    with one entry flipped is followed, the entry's distance from the
-    threshold recorded."""
+    """Every inlier decision of the homography RANSAC (scoring and the
+    refits) goes through THRESHOLD_HOOK, and the run goes on with the mask
+    the hook returns: chip_smoke's InlierDecisions replaying a run's own
+    decisions gives its results exactly with no decision flipped, and a
+    replayed scoring with one entry of the chosen hypothesis flipped is
+    followed, decision_flips reporting that entry as the deciding one."""
+    import chip_smoke
+
     src, dst = homography_points()
     idx = torch.stack([PCORE.ransac_sample_indices(torch.Generator().manual_seed(i), 128, 16, 4) for i in (0, 1)])
 
     def run(replay):
-        PCORE.THRESHOLD_TRACE, PCORE.THRESHOLD_REPLAY = [], replay
-        PCORE.THRESHOLD_FLIPS = None if replay is None else []
+        PCORE.THRESHOLD_HOOK = chip_smoke.InlierDecisions(replay)
         try:
-            out = PCAM.find_homography_ransac(T(src), T(dst), idx, 0.05)
-            return out, PCORE.THRESHOLD_TRACE, PCORE.THRESHOLD_FLIPS
+            return PCAM.find_homography_ransac(T(src), T(dst), idx, 0.05), PCORE.THRESHOLD_HOOK.taken
         finally:
-            PCORE.THRESHOLD_TRACE = PCORE.THRESHOLD_REPLAY = PCORE.THRESHOLD_FLIPS = None
+            PCORE.THRESHOLD_HOOK = None
 
-    free, trace, _ = run(None)
-    assert len(trace) == 3  # the scoring of every hypothesis, then two refits
-    replayed, trace2, flips = run(list(trace))
-    assert torch.equal(replayed, free) and all(f.numel() == 0 for f in flips)
-    assert all(torch.equal(a, b) for a, b in zip(trace, trace2))
-    other = [t.clone() for t in trace]
-    other[2][0, 0] = ~other[2][0, 0]
-    _, trace3, flips = run(list(other))
-    assert [f.numel() for f in flips] == [0, 0, 1] and flips[2].item() > 0
-    assert torch.equal(trace3[2], trace[2])  # the trace keeps the run's own decision
+    free, trace = run(None)
+    assert torch.equal(free, PCAM.find_homography_ransac(T(src), T(dst), idx, 0.05))
+    assert [t[0].shape for t in trace] == [(2, 16, 128), (2, 128), (2, 128)]  # scoring, then two refits
+    replayed, own = run(list(trace))
+    assert torch.equal(replayed, free) and all(torch.equal(a[0], b[0]) for a, b in zip(trace, own))
+    flips = chip_smoke.decision_flips(own, trace)
+    assert flips["flipped"] == 0 and flips["gap"] == 0 and flips["deciding"] == 0.0
+    other = [tuple(x.clone() for x in t) for t in trace]
+    best = trace[0][0][0].sum(-1).argmax()
+    point = int(trace[0][0][0, best].nonzero()[0])
+    other[0][0][0, best, point] = False  # the chosen hypothesis loses an inlier
+    _, own = run(other)
+    assert torch.equal(own[0][0], trace[0][0])  # the run keeps its own decision beside the followed one
+    flips = chip_smoke.decision_flips(own, other)
+    mask, errs, thr = trace[0]
+    want = abs(float(errs[0, best, point]) - float(thr)) / float(thr)
+    assert flips["flipped"] >= 1 and flips["deciding"] >= want > 0
 
 
 def test_umeyama_degenerate_points_give_the_identity():

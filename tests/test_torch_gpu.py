@@ -352,13 +352,13 @@ def test_linear_gelu_matches_plain_on_card(cuda, m, n, k):
     a = torch.randn((m, k), generator=g, device=cuda).bfloat16()
     w = (torch.randn((n, k), generator=g, device=cuda) * k ** -0.5).bfloat16()
     bias = (0.1 * torch.randn((n,), generator=g, device=cuda)).bfloat16()
-    before = FE.linear_gelu.launches
-    out = FE.linear_gelu(a, w, bias)
+    before = FE.gemm_nt.launches
+    out = FE.gemm_nt(a, w, bias, FE.GELU, torch.empty((m, n), device=cuda, dtype=torch.bfloat16))
     torch.cuda.synchronize()
-    assert FE.linear_gelu.launches == before + 1
+    assert FE.gemm_nt.launches == before + 1
     # both round acc + bias and the GELU output to bf16 once; the sums differ in order
     err = band_err(out, FE.linear_gelu_plain(a, w, bias))
-    print(f"linear_gelu {(m, n, k)}: max|kernel - plain| / max|plain| = {err:.3g}")
+    print(f"gemm_nt GELU {(m, n, k)}: max|kernel - plain| / max|plain| = {err:.3g}")
     assert err <= 2e-2
 
 
@@ -538,6 +538,16 @@ def test_gemm_nt_raises_instead_of_falling_back(cuda):
     assert shifted.is_contiguous() and shifted.data_ptr() % 16 != 0
     with pytest.raises(RuntimeError, match="launch failed"):
         FE.gemm_nt(shifted, w, bias, FE.GELU, out)  # no TMA map of a misaligned base
+    # copy_out takes 16-byte stores and bias 4-byte loads: a contiguous but misaligned one is refused
+    x_copy = torch.empty(64 * 176 + 1, device=cuda, dtype=torch.bfloat16)[1:].view(64, 176)
+    assert x_copy.is_contiguous() and x_copy.data_ptr() % 16 != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FE.gemm_nt(a, w, bias, FE.RESIDUAL, x.clone(), x_copy)
+    odd_bias = torch.empty(177, device=cuda, dtype=torch.bfloat16)[1:].copy_(bias)
+    assert odd_bias.is_contiguous() and odd_bias.data_ptr() % 4 != 0
+    with pytest.raises(RuntimeError, match="launch failed"):
+        FE.gemm_nt(a, w, odd_bias, FE.GELU, out)
+    torch.cuda.synchronize()  # the refusals left no launch behind to fault
     # the entry point itself: a K off 8 and a tile width it was not built for
     gemm = FE._kernels()[1]
     stream = torch.cuda.current_stream().cuda_stream
@@ -657,3 +667,4 @@ def test_all_task_session_with_fused_encoder_on_card_matches_plain_path(cuda):
         assert out[key].shape == r.shape and torch.isfinite(out[key]).all() and torch.isfinite(r).all(), key
         if key != "depth_est_b1thw" and not key.startswith("traj3d"):
             assert (out[key].float() - r.float()).abs().max().item() <= 3e-2 * r.float().abs().max().item(), key
+
