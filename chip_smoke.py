@@ -74,13 +74,7 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
  13. the camera solve and the joint stitch of the fused point's rays and
      depth, once on the card and once on the CPU with the same draws, held
      within GEOMETRY_TOL; every RANSAC's chosen hypothesis is compared and
-     the two best inlier counts printed; where a RANSAC chose another
-     hypothesis on each, the card against the CPU's own solve is printed,
-     and the CPU solves again following the card's inlier decisions, which
-     must be ones the CPU could have taken (NEAR_TIE_INLIERS; the entries
-     decided otherwise in the two chosen hypotheses' rows and in the refits
-     within DECISION_MARGIN of the threshold): that solve is held within
-     GEOMETRY_TOL;
+     the two best inlier counts printed;
  14. the same on a synthetic trajectory at the request's sizes (5 windows of
      16 frames, 16 x 16 rays, 224 x 224 depth, each window in its own
      Sim(3) frame), where the random weights' rays of phase 13 give the
@@ -184,21 +178,6 @@ WITNESS_SLACK = 1.25
 # solutions to fp32 rounding, which the homography refits and the Sim(3)
 # chain carry from window to window
 GEOMETRY_TOL = 1e-3
-# where a RANSAC on the card and on the CPU chose other hypotheses, the
-# card's solve is held against the CPU's own only as a printed reading. The
-# CPU then solves again following the card's inlier decisions (InlierDecisions
-# through geometry.core.THRESHOLD_HOOK), and that solve is held within
-# GEOMETRY_TOL, once the card's decisions are shown to be ones the CPU could
-# have taken: each RANSAC's chosen hypothesis at most NEAR_TIE_INLIERS
-# inliers short of the CPU's best, and every entry where the two disagree,
-# in the rows of the two chosen hypotheses and in every refit's and final
-# inlier set, within DECISION_MARGIN of the threshold (|err - thr| / thr on
-# the CPU). The scoring of the other hypotheses is printed, not held: a
-# degenerate 4-point sample gives each device its own arbitrary homography.
-# With random weights the model's rays leave a homography a handful of
-# inliers, so one entry at the threshold can decide it
-NEAR_TIE_INLIERS = 1
-DECISION_MARGIN = 1e-2
 # the synthetic trajectory's solve against its truth: max |error| of the
 # estimated K and of the window poses over their largest value, and the
 # median of |stitched depth / true depth - 1|. The rays carry 1e-3 noise and
@@ -684,57 +663,6 @@ def track_witness(P, FA, model, cfg, dev, n_requests: int, log) -> dict:
     return rows
 
 
-class InlierDecisions:
-    """A geometry.core.THRESHOLD_HOOK for one solve: keeps every inlier
-    decision it takes itself (mask, errors, threshold, on the CPU, in order)
-    in `taken` and, given another run's `taken` as `replay`, goes on with
-    that run's masks instead of its own."""
-
-    def __init__(self, replay=None):
-        self.taken = []
-        self.replay = None if replay is None else iter(replay)
-
-    def __call__(self, errs: torch.Tensor, thr, mask: torch.Tensor) -> torch.Tensor:
-        self.taken.append((mask.cpu(), errs.cpu(), torch.as_tensor(thr, dtype=errs.dtype).cpu()))
-        return mask if self.replay is None else next(self.replay)[0].to(mask.device)
-
-
-def decision_flips(own, theirs) -> dict:
-    """Where a run that followed another's inlier decisions (`theirs`, that
-    run's InlierDecisions.taken) would itself have decided otherwise (`own`,
-    its own taken): for the RANSAC scorings (B, trials, N), the largest gap
-    between its best count and the followed choice's, and the largest
-    |err - thr| / thr of a flipped entry in the two chosen hypotheses' rows
-    ("deciding") and in any row ("anywhere"); for the refits and final sets
-    (B, N) that of any flipped entry ("refit"); and the largest |err - the
-    other run's err| / thr over the flipped entries held ("drift")."""
-    out = {"gap": 0, "deciding": 0.0, "anywhere": 0.0, "refit": 0.0, "drift": 0.0, "flipped": 0}
-
-    def top(t: torch.Tensor) -> float:
-        return torch.nan_to_num(t, nan=math.inf).max().item() if t.numel() else 0.0
-
-    for (mask, errs, thr), (followed, errs_t, _) in zip(own, theirs):
-        thr = thr.expand_as(errs)
-        flip = mask != followed
-        dist, drift = ((errs - thr) / thr).abs(), ((errs - errs_t) / thr).abs()
-        out["flipped"] += int(flip.sum())
-        if mask.dim() == 3:  # a RANSAC's scoring of every hypothesis
-            counts, chosen = mask.sum(-1), followed.sum(-1).argmax(-1)
-            out["gap"] = max(out["gap"], int((counts.max(-1).values - counts.gather(-1, chosen[:, None])[:, 0]).max()))
-            rows = torch.zeros(mask.shape[:2], dtype=torch.bool)
-            bi = torch.arange(mask.shape[0])
-            rows[bi, chosen] = True
-            rows[bi, counts.argmax(-1)] = True
-            held = flip & rows[..., None]
-            out["deciding"] = max(out["deciding"], top(dist[held]))
-            out["anywhere"] = max(out["anywhere"], top(dist[flip]))
-        else:  # a refit's or the final inlier set
-            held = flip
-            out["refit"] = max(out["refit"], top(dist[flip]))
-        out["drift"] = max(out["drift"], top(drift[held]))
-    return out
-
-
 def rel_diff(a: torch.Tensor, b: torch.Tensor):
     """(max |a - b|, max |b|) in fp32 on b's device."""
     a, b = a.to(b.device).float(), b.float()
@@ -1150,63 +1078,34 @@ def main() -> int:
     del ref, all_out
 
     # 13. the camera solve and the joint stitch on the card and on the CPU
-    def solve(d, rays_w, intr_k, depth_w, replay=None):
-        """The camera solve and the joint stitch on device d with fresh
-        draws (and, with `replay`, another run's inlier decisions); returns
-        the results, the RANSAC trace and the decisions taken."""
-        GC.RANSAC_TRACE, GC.THRESHOLD_HOOK = [], InlierDecisions(replay)
-        try:
+    def card_and_cpu(what: str, rays_w, intr_k, depth_w) -> dict:
+        """The camera solve and the joint stitch on the card and on the CPU
+        with the same draws; returns the CPU's results."""
+        trace, results = {}, {}
+        for where, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            GC.RANSAC_TRACE = []
             with torch.inference_mode():
                 pose_d, intr_d = PL.camray_windows_to_cameras(rays_w.to(d), hcfg, img_info, intr_k.to(d), stride,
                                                               P.RandomDraws())
                 joint = PL.stitch_joint_depth_camray(depth_w.to(d), pose_d, intr_d, stride, TRACK_FRAMES,
                                                      P.RandomDraws(), cfg.sim3_num_trials, cfg.sim3_min_samples)
-            return ({"window poses": pose_d, "window K": intr_d, "stitched depth": joint["depth"],
-                     "stitched poses": joint["camray"], "stitched K": joint["camray_intrinsics"]},
-                    GC.RANSAC_TRACE, GC.THRESHOLD_HOOK.taken)
-        finally:
-            GC.RANSAC_TRACE = GC.THRESHOLD_HOOK = None
-
-    def hold_solves(what: str, card: dict, cpu: dict, note: str, check: bool) -> None:
-        for key, cpu_val in cpu.items():
-            err, scale = rel_diff(card[key], cpu_val)
-            log(f"{what} {key}: max|card - CPU| {err:.4g} = {err / max(scale, 1e-30):.3g} x max|CPU| "
-                f"({note})")
-            if check:
-                checks.expect(math.isfinite(err) and err <= GEOMETRY_TOL * scale,
-                              f"{what} {key} on the card differs from the CPU by {err}")
-
-    def card_and_cpu(what: str, rays_w, intr_k, depth_w) -> dict:
-        """The camera solve and the joint stitch on the card and on the CPU
-        with the same draws, held within GEOMETRY_TOL; where a RANSAC chose
-        another hypothesis on each, the CPU solves again on the card's inlier
-        decisions, which must be ones the CPU could have taken
-        (NEAR_TIE_INLIERS, DECISION_MARGIN), and that solve is held instead.
-        Returns the CPU's own results."""
-        card, trace_g, decisions_g = solve(dev, rays_w, intr_k, depth_w)
-        cpu, trace_c, decisions_c = solve(torch.device("cpu"), rays_w, intr_k, depth_w)
-        checks.expect(len(trace_g) == len(trace_c) and len(decisions_g) == len(decisions_c),
-                      f"{what}: the card and the CPU ran other RANSACs")
-        for i, ((cnt_g, best_g), (cnt_c, best_c)) in enumerate(zip(trace_g, trace_c)):
+            results[where] = {"window poses": pose_d, "window K": intr_d, "stitched depth": joint["depth"],
+                              "stitched poses": joint["camray"], "stitched K": joint["camray_intrinsics"]}
+            trace[where] = GC.RANSAC_TRACE
+        GC.RANSAC_TRACE = None
+        checks.expect(len(trace["card"]) == len(trace["cpu"]), f"{what}: the card and the CPU ran other RANSACs")
+        for i, ((cnt_g, best_g), (cnt_c, best_c)) in enumerate(zip(trace["card"], trace["cpu"])):
             top_g, top_c = cnt_g.topk(2, dim=-1).values.tolist(), cnt_c.topk(2, dim=-1).values.tolist()
             which = "homography (window 0)" if i == 0 else f"Sim(3) window step {i}"
             log(f"{what} RANSAC {which}: chosen hypothesis card {best_g.tolist()} / CPU {best_c.tolist()}, two "
                 f"best inlier counts card {top_g} / CPU {top_c} of {cnt_g.shape[-1]} hypotheses")
-        if all(torch.equal(g[1], c[1]) for g, c in zip(trace_g, trace_c)):
-            hold_solves(what, card, cpu, f"band {GEOMETRY_TOL}", True)
-            return cpu
-        hold_solves(what, card, cpu, "the CPU's own solve, another RANSAC choice: not held", False)
-        held, _, own = solve(torch.device("cpu"), rays_w, intr_k, depth_w, replay=decisions_g)
-        f = decision_flips(own, decisions_g)
-        log(f"{what} the CPU on the card's inlier decisions: {f['flipped']} entries decided otherwise; the card's "
-            f"RANSAC choices at most {f['gap']} inlier(s) short of the CPU's best (at most {NEAR_TIE_INLIERS}); "
-            f"|err - thr| / thr of those entries at most {f['deciding']:.4g} in the two chosen hypotheses' rows, "
-            f"{f['refit']:.4g} in the refit and final sets (each at most {DECISION_MARGIN}), {f['anywhere']:.4g} "
-            f"in any hypothesis' row (not held); |CPU err - card err| / thr at most {f['drift']:.4g} where held")
-        checks.expect(f["gap"] <= NEAR_TIE_INLIERS and max(f["deciding"], f["refit"]) <= DECISION_MARGIN,
-                      f"{what} the card took inlier decisions the CPU would not: {f}")
-        hold_solves(what, card, held, f"band {GEOMETRY_TOL}, the CPU on the card's inlier decisions", True)
-        return cpu
+        for key, cpu_val in results["cpu"].items():
+            err, scale = rel_diff(results["card"][key], cpu_val)
+            log(f"{what} {key}: max|card - CPU| {err:.4g} = {err / max(scale, 1e-30):.3g} x max|CPU| "
+                f"(band {GEOMETRY_TOL})")
+            checks.expect(math.isfinite(err) and err <= GEOMETRY_TOL * scale,
+                          f"{what} {key} on the card differs from the CPU by {err}")
+        return results["cpu"]
 
     card_and_cpu("model's rays:", rays, intr, depth_f)
 

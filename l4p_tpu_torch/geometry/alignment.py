@@ -11,7 +11,7 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from l4p_tpu_torch.geometry.core import below, ransac_best
+from l4p_tpu_torch.geometry.core import ransac_best
 from l4p_tpu_torch.ops.misc import safe_inverse
 
 
@@ -119,11 +119,10 @@ def sim3_ransac(src_n3: torch.Tensor, dst_n3: torch.Tensor, sample_idx: torch.Te
     Returns (T (B, 4, 4), s (B,), inliers (B, N))."""
     bi = torch.arange(src_n3.shape[0], device=src_n3.device)
     tfs, _ = umeyama_sim3(src_n3[bi[:, None, None], sample_idx], dst_n3[bi[:, None, None], sample_idx])
-    res = _sim3_residuals(tfs, src_n3[:, None].float(), dst_n3[:, None].float())
-    inl = below(res, residual_threshold[:, None, None])
+    inl = _sim3_residuals(tfs, src_n3[:, None].float(), dst_n3[:, None].float()) < residual_threshold[:, None, None]
     best = ransac_best(inl)
     tf, s = umeyama_sim3(src_n3, dst_n3, inl[bi, best].float())
-    return tf, s, below(_sim3_residuals(tf, src_n3.float(), dst_n3.float()), residual_threshold[:, None])
+    return tf, s, _sim3_residuals(tf, src_n3.float(), dst_n3.float()) < residual_threshold[:, None]
 
 
 def sim3_sample_counts(frames: int, h: int, w: int, frame_sample_step: int = 3, point_sample_ratio: float = 0.1,

@@ -18,7 +18,6 @@ import torch
 
 from l4p_tpu_torch.geometry.core import (
     _pixel_grid,
-    below,
     denormalize_intrinsics,
     normalize_intrinsics,
     plucker_to_point_direction,
@@ -86,9 +85,15 @@ def rq_decomposition_3x3(m: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 
 def homography_dlt(src: torch.Tensor, dst: torch.Tensor, w: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Weighted least-squares homography by the Hartley-normalised DLT.
-    src, dst (..., N, 2), w (..., N) -> H (..., 3, 3) with dst ~ H src."""
-    if w is None:
-        w = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device)
+    src, dst (..., N, 2), w (..., N) -> H (..., 3, 3) with dst ~ H src, in
+    src's dtype. Solved in float64, as cv2.findHomography solves: the null
+    vector of A^T A from an fp32 eigh differs between an H100 and the CPU
+    (up to 1.5e-3 on 4-point samples whose largest to second-smallest
+    eigenvalue ratio is 675-3.2e3, tests/test_torch_gpu.py), enough for a
+    RANSAC on each device to choose another hypothesis."""
+    dtype = src.dtype
+    src, dst = src.double(), dst.double()
+    w = torch.ones(src.shape[:-1], dtype=src.dtype, device=src.device) if w is None else w.double()
     wsum = torch.clamp(w.sum(-1), min=1e-8)
 
     def normalizer(pts):
@@ -111,12 +116,13 @@ def homography_dlt(src: torch.Tensor, dst: torch.Tensor, w: Optional[torch.Tenso
     row2 = torch.stack([zero, zero, zero, -x, -y, -one, v * x, v * y, v], dim=-1)
     a = torch.cat([row1, row2], dim=-2) * torch.sqrt(torch.cat([w, w], dim=-1))[..., None]
     # the null vector is the eigenvector of A^T A (9 x 9) with the smallest
-    # eigenvalue, as in the JAX package (l4p_tpu/geometry/cameras.py:106-113)
-    ata = torch.matmul(a.transpose(-1, -2).float(), a.float())
+    # eigenvalue, as in the JAX package (l4p_tpu/geometry/cameras.py:106-113),
+    # which solves it in fp32
+    ata = torch.matmul(a.transpose(-1, -2), a)
     vecs = torch.linalg.eigh(ata)[1]
     h_n = vecs[..., :, 0].reshape(vecs.shape[:-2] + (3, 3))
     h = _inv(t_d) @ h_n @ t_s
-    return h / h[..., 2:3, 2:3]
+    return (h / h[..., 2:3, 2:3]).to(dtype)
 
 
 def _homography_transfer_err2(h: torch.Tensor, src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -144,13 +150,13 @@ def find_homography_ransac(src: torch.Tensor, dst: torch.Tensor, sample_idx: tor
     inf = torch.full_like(errs, float("inf"))
     errs = torch.where(valid[:, None], errs, inf)
     thr2 = reproj_threshold ** 2
-    inliers = below(errs, thr2)
+    inliers = errs < thr2
     best = ransac_best(inliers)
     w = inliers[torch.arange(src.shape[0], device=src.device), best].to(src.dtype)
     for _ in range(refine_iters):
         h = homography_dlt(src, dst, w)
         e = torch.where(valid, _homography_transfer_err2(h, src, dst), inf[:, 0])
-        w = below(e, thr2).to(src.dtype)
+        w = (e < thr2).to(src.dtype)
     return homography_dlt(src, dst, w)
 
 

@@ -6,7 +6,7 @@ fp32 throughout, as the reference forces there too.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
@@ -14,19 +14,6 @@ import torch
 # chosen hypothesis (B,)) on the CPU: a run on two devices can then say
 # where a near-tie picked another hypothesis. None (the default) costs nothing.
 RANSAC_TRACE: Optional[List[Tuple[torch.Tensor, torch.Tensor]]] = None
-# Every inlier decision of the camera solve and the stitch goes through
-# `below`. Set THRESHOLD_HOOK to a function (errs, thr, mask) -> mask to see
-# each decision in order and to go on with the mask it returns: a run on two
-# devices can then follow one device's decisions on the other. None (the
-# default) costs nothing.
-THRESHOLD_HOOK: Optional[Callable[[torch.Tensor, Any, torch.Tensor], torch.Tensor]] = None
-
-
-def below(errs: torch.Tensor, thr) -> torch.Tensor:
-    """The inlier mask errs < thr (thr a number or a tensor broadcast
-    against errs), passed through THRESHOLD_HOOK when it is set."""
-    mask = errs < thr
-    return mask if THRESHOLD_HOOK is None else THRESHOLD_HOOK(errs, thr, mask)
 
 
 def ransac_best(inliers: torch.Tensor) -> torch.Tensor:

@@ -668,3 +668,53 @@ def test_all_task_session_with_fused_encoder_on_card_matches_plain_path(cuda):
         if key != "depth_est_b1thw" and not key.startswith("traj3d"):
             assert (out[key].float() - r.float()).abs().max().item() <= 3e-2 * r.float().abs().max().item(), key
 
+
+def dlt_normal_matrix(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """A^T A (..., 9, 9) of the Hartley-normalised DLT of 4-point samples
+    src, dst (..., 4, 2), in float64."""
+    def norm(p):
+        p = p.double()
+        m = p.mean(-2, keepdim=True)
+        return (p - m) * (2 ** 0.5 / (p - m).norm(dim=-1).mean(-1))[..., None, None]
+
+    s, t = norm(src), norm(dst)
+    x, y, u, v = s[..., 0], s[..., 1], t[..., 0], t[..., 1]
+    z, o = torch.zeros_like(x), torch.ones_like(x)
+    a = torch.cat([torch.stack([-x, -y, -o, z, z, z, u * x, u * y, u], -1),
+                   torch.stack([z, z, z, -x, -y, -o, v * x, v * y, v], -1)], -2)
+    return a.transpose(-1, -2) @ a
+
+
+@pytest.mark.gpu
+def test_homography_dlt_agrees_between_card_and_cpu(cuda):
+    """The camera solve's DLT on the card and on the CPU: seeded 4-point
+    samples, ill-conditioned ones among them, give the same H to 1e-6 of it,
+    so that a RANSAC on each device puts every point on the same side of its
+    threshold (chip_smoke phase 13 holds the two solves to 1e-3). Printed
+    beside it, per conditioning quartile: how far the two devices' null
+    vectors of A^T A lie apart when its eigh runs in fp32 (the JAX package's
+    formulation) and in float64 (the port's)."""
+    from l4p_tpu_torch.geometry import cameras as PCAM
+
+    g = torch.Generator().manual_seed(8)
+    src = torch.rand((1024, 4, 2), generator=g) * 16
+    dst = src + 0.5 * torch.randn(src.shape, generator=g)
+    h_cpu = PCAM.homography_dlt(src, dst)
+    h_card = PCAM.homography_dlt(src.to(cuda), dst.to(cuda)).cpu()
+    assert h_card.dtype == h_cpu.dtype == torch.float32
+    diff = (h_card - h_cpu).abs().amax((-1, -2)) / h_cpu.abs().amax((-1, -2))
+    ata = dlt_normal_matrix(src, dst)
+    eig = torch.linalg.eigvalsh(ata)
+    ratio = eig[:, -1] / eig[:, 1]  # largest over the smallest nonzero
+    order = ratio.argsort()
+    apart = {}
+    for dtype in (torch.float32, torch.float64):
+        v_cpu, v_card = (torch.linalg.eigh(ata.to(dtype).to(d))[1][..., :, 0].double().cpu() for d in ("cpu", cuda))
+        apart[dtype] = torch.minimum((v_card - v_cpu).abs().amax(-1), (v_card + v_cpu).abs().amax(-1))
+    for lo in range(0, 1024, 256):
+        q = order[lo: lo + 256]
+        print(f"eigenvalue ratio {ratio[q[0]].item():.3g}-{ratio[q[-1]].item():.3g}: null vectors card vs CPU "
+              f"apart at most {apart[torch.float32][q].max().item():.3g} in fp32, "
+              f"{apart[torch.float64][q].max().item():.3g} in float64; H card vs CPU at most "
+              f"{diff[q].max().item():.3g} of it")
+    assert diff.max().item() <= 1e-6
