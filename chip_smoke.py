@@ -80,12 +80,35 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      Sim(3) frame), where the random weights' rays of phase 13 give the
      RANSACs few inliers: card against CPU within GEOMETRY_TOL, and against
      the truth (TRUTH_BANDS): the estimated intrinsics, the window poses and
-     the stitched depth in window 0's frame.
+     the stitched depth in window 0's frame;
+ 15. `python3 -m l4p_tpu_torch.bench --iters 3` in a subprocess (its own
+     process, so its launches are not counted here; it serves phase 10's
+     path at 192 frames x 128 queries and 48 x 64): its JSON line printed
+     and checked (keys, value finite and > 0, 0 < mfu <= 1.05,
+     model_tflops_per_video equal to l4p_tpu_torch.utils.flops's count);
+ 16. bidirectional tracking, estimation_directions (1, -1): the four-task
+     48-frame x 128-query request with every query spread over the video,
+     the counts set to 0 just before it (the attention and each track
+     kernel launched twice as often as forward only), timed in turns with
+     the forward-only request; the forward-only and backward-only (-1,)
+     requests against their plain paths (SLICE_TOL, TRACK_BANDS, whose vis
+     scale is the -10 a direction leaves before a query), and the
+     bidirectional tracks equal to the merge of those two;
+ 17. a camera_rays head (the released camray head's class swapped for
+     VideoMAECameraDPTHead) beside the dense tasks, 48 frames: raw 16 x 16
+     rays, launch counts, kernel path against plain path (SLICE_TOL);
+ 18. streaming (StreamingL4P) of bench.py's 48-frame five-task request
+     (the released camray head estimates K once, the mode in which JAX's
+     streaming equals its offline run) in pushes of one stride, ms per
+     stride printed and launch counts checked, held against the offline
+     session that encodes and runs the heads one window at a time, as
+     streaming does (SLICE_TOL, TRACK_BANDS, GEOMETRY_TOL), and printed
+     beside the default offline session; whole-video times of both.
 Every line with a number names the card and its power limit. The last two
 lines are the kernels' record and {"ok": true, "device": {...}}. A kernel's
 `launches` is its count over bench.py's request (phase 10's first point,
 the counts set to 0 just before it), fused_encoder_blocks' over the fused
-point, the path that runs it; fused_encoder_blocks' entry also holds
+point, the path that runs it (phases 16-18 check their own counts); fused_encoder_blocks' entry also holds
 `products`, each block product's kernel ms beside torch.matmul's and the
 gemm_nt wrapper's.
 """
@@ -669,6 +692,45 @@ def rel_diff(a: torch.Tensor, b: torch.Tensor):
     return (a - b).abs().max().item(), b.abs().max().item()
 
 
+def spread_queries(n: int, frames: int, hw, gen, dev) -> dict:
+    """n queries (t, x, y) with every t spread over the video, so that both
+    tracking directions run for most of them."""
+    t = torch.rand(n, generator=gen, device=dev) * (frames - 1)
+    x = 4 + torch.rand(n, generator=gen, device=dev) * (hw[1] - 8)
+    y = 4 + torch.rand(n, generator=gen, device=dev) * (hw[0] - 8)
+    return {"track_2d_pointquerries_bn3": torch.stack([t, x, y], -1)[None],
+            "track_2d_pointlabels_bn": torch.ones((1, n), device=dev)}
+
+
+def run_bench(log, checks, cfg) -> None:
+    """Phase 15: the port's bench.py in its own process; its line checked."""
+    from l4p_tpu_torch.utils.flops import alltask_video_flops
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "l4p_tpu_torch.bench", "--iters", "3"], capture_output=True,
+                          text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    log(f"python3 -m l4p_tpu_torch.bench --iters 3: exit {proc.returncode} in {time.perf_counter() - t0:.1f} s")
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, json.JSONDecodeError):
+        checks.expect(False, f"bench printed no JSON line: {proc.stdout[-500:]} {proc.stderr[-1500:]}")
+        return
+    log(f"bench line: {json.dumps(line)}")
+    d = line.get("detail", {})
+    want = {"frames", "seconds_per_video", "compile_seconds", "tasks", "device", "model_tflops_per_video", "mfu",
+            "encoder_tflops_per_video", "secondary", "card"}
+    checks.expect(proc.returncode == 0 and want <= set(d), f"bench failed or lacks keys {want - set(d)}")
+    value, mfu = line.get("value", 0.0), d.get("mfu", 0.0)
+    checks.expect(math.isfinite(value) and value > 0 and 0 < mfu <= 1.05, f"bench value {value}, mfu {mfu}")
+    frames = d.get("frames", 192)
+    c = dataclasses.replace(cfg, track=dataclasses.replace(cfg.track, max_queries=128))
+    flop = round(alltask_video_flops(c, d.get("tasks", []), frames, 128)["total"] / 1e12, 2)
+    checks.expect(d.get("model_tflops_per_video") == flop,
+                  f"bench model_tflops_per_video {d.get('model_tflops_per_video')}, the flops module {flop}")
+    checks.expect("error" not in d.get("secondary", {"error": "absent"}), f"bench secondary: {d.get('secondary')}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's smoke run needs a CUDA card",
@@ -1125,6 +1187,131 @@ def main() -> int:
     checks.expect(k_err <= TRUTH_BANDS["K"] * k_max and p_err <= TRUTH_BANDS["poses"] * p_max
                   and ratio_med <= TRUTH_BANDS["depth"],
                   f"the synthetic trajectory's solve is off its truth: K {k_err}, poses {p_err}, depth {ratio_med}")
+
+    # 15. bench.py's port in its own process
+    run_bench(log, checks, cfg)
+    torch.cuda.empty_cache()
+
+    # 16. bidirectional tracking, in turns with forward-only tracking
+    def with_dirs(dirs):
+        return dataclasses.replace(cfg, track=dataclasses.replace(cfg.track, estimation_directions=dirs))
+
+    bi_request = {"rgb_u8_bthw3": video, **spread_queries(n_q, TRACK_FRAMES, hw, gen, dev)}
+    bi_queries = bi_request["track_2d_pointquerries_bn3"]
+    sess_fwd, sess_bi = P.InferenceSession(cfg, tasks, dev), P.InferenceSession(with_dirs((1, -1)), tasks, dev)
+    sess_bi(model, bi_request)  # warm-up
+    times, outs = {"forward": [], "bidirectional": []}, {}
+    for which in ("forward", "bidirectional", "bidirectional", "forward"):
+        reset_counts()
+        t0 = time.perf_counter()
+        outs[which] = (sess_fwd if which == "forward" else sess_bi)(model, bi_request)
+        torch.cuda.synchronize()
+        times[which].append(time.perf_counter() - t0)
+        got = counts()
+        want = {name: (2 if which == "bidirectional" else 1) * c for name, c in expected(n_q, False).items()}
+        checks.expect(got == want, f"{which} request launches {got}, expected {want}")
+        check_outputs(outs[which], {**DENSE_KEYS, **TRACK_KEYS}, TRACK_FRAMES, hw, checks, bi_queries)
+    log(f"{TRACK_FRAMES}-frame {n_q}-query request with every query spread, in turns: forward only "
+        f"{', '.join(f'{t:.4f}' for t in times['forward'])} s, bidirectional "
+        f"{', '.join(f'{t:.4f}' for t in times['bidirectional'])} s (launches {counts()})")
+    checks.expect(bool((outs["bidirectional"]["track_2d_depth_est_bn1t"] > 0).all()),
+                  "bidirectional track depth is not positive before the queries' frames")
+    # each direction's kernel path against its plain path. TRACK_BANDS are relative to an output's
+    # largest value, which for vis is the -10 its frames before a query keep in one direction, so
+    # the bands hold the two directions' outputs; the bidirectional output is their merge
+    outs["backward"] = P.InferenceSession(with_dirs((-1,)), tasks, dev)(model, bi_request)
+    before = counts()
+    for which, dirs in (("forward", (1,)), ("backward", (-1,))):
+        ref = P.InferenceSession(with_dirs(dirs), tasks, dev, attention=FA.flash_attention_plain,
+                                 track_kernels=P.PLAIN)(model, bi_request)
+        for key, r in ref.items():
+            if which == "forward" or key in TRACK_KEYS:
+                hold(key, outs[which][key], r, f"{which} tracks of the bidirectional request:")
+        del ref
+    torch.cuda.synchronize()
+    checks.expect(counts() == before, "the plain-path sessions launched a kernel")
+    merged = PL.merge_directions({k: outs["forward"][k] for k in TRACK_KEYS},
+                                 {k: outs["backward"][k] for k in TRACK_KEYS}, bi_queries, TRACK_FRAMES)
+    same = all(torch.equal(merged[k], outs["bidirectional"][k]) for k in TRACK_KEYS)
+    log(f"bidirectional tracks equal the merge of the forward-only and backward-only requests' tracks: {same}")
+    checks.expect(same, "the bidirectional tracks are not the merge of the two directions' tracks")
+    del outs, merged
+
+    # 17. a camera_rays head: the released camray head read as VideoMAECameraDPTHead
+    rays_head = dataclasses.replace(cfg.head_dict["camray"], kind="camera_rays")
+    cfg_rays = dataclasses.replace(cfg, heads=tuple((n, rays_head if n == "camray" else h) for n, h in cfg.heads))
+    rays_tasks = (*dense_tasks, "camray")
+    rays_key = f"{rays_head.task_name}_est_b6thw"
+    reset_counts()
+    t0 = time.perf_counter()
+    out = P.InferenceSession(cfg_rays, rays_tasks, dev)(model, {"rgb_u8_bthw3": video})
+    torch.cuda.synchronize()
+    rays_s = time.perf_counter() - t0
+    got = counts()
+    want = {**{name: 0 for name in counters}, "flash_attention": expected(n_q, False)["flash_attention"]}
+    checks.expect(got == want, f"camera_rays request launches {got}, expected {want}")
+    ray_shape = (1, 6, TRACK_FRAMES, *rays_head.dpt.output_size[1:])
+    checks.expect(tuple(out[rays_key].shape) == ray_shape and bool(torch.isfinite(out[rays_key]).all()),
+                  f"{rays_key} has shape {tuple(out[rays_key].shape)}, expected {ray_shape}, or is not finite")
+    log(f"camera_rays request {TRACK_FRAMES} frames, tasks {rays_tasks}: {rays_s:.4f} s, {rays_key} "
+        f"{tuple(out[rays_key].shape)}")
+    ref = P.InferenceSession(cfg_rays, rays_tasks, dev, attention=FA.flash_attention_plain)(
+        model, {"rgb_u8_bthw3": video})
+    for key, r in ref.items():
+        hold(key, out[key], r, "camera_rays request")
+    del ref, out
+
+    # 18. streaming bench.py's request in strides, against the offline session
+    frames_np = video.cpu().numpy()
+    intr_np = intr.cpu().numpy()
+    stream = P.StreamingL4P(model, cfg, P.ALL_TASKS, dev, request["track_2d_pointquerries_bn3"])
+    stream.warmup()
+    reset_counts()
+    emits, push_ms = [], []
+    t_all = time.perf_counter()
+    for t0_ in range(0, TRACK_FRAMES, stride):
+        t0 = time.perf_counter()
+        got = stream.push(frames_np[:, t0_: t0_ + stride], intr_np[..., t0_: t0_ + stride])
+        torch.cuda.synchronize()
+        push_ms.append((time.perf_counter() - t0) * 1e3)
+        emits += got
+    emits.append(stream.flush())
+    streamed = P.assemble_emissions(emits)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t_all
+    got = counts()
+    want = {**expected(n_q, False), "flash_attention": cfg.encoder.depth * nw}
+    checks.expect(got == want, f"streaming launches {got}, expected {want}")
+    check_outputs(streamed, {**DENSE_KEYS, **TRACK_KEYS, **CAMRAY_KEYS}, TRACK_FRAMES, hw, checks,
+                  request["track_2d_pointquerries_bn3"])
+    cfg_one = dataclasses.replace(cfg, enc_window_chunk=1, dense_window_chunk=1)
+    offline = {}
+    for name, c in (("one window at a time", cfg_one), ("default", cfg)):
+        sess_o = P.InferenceSession(c, P.ALL_TASKS, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        offline[name] = sess_o(model, request)
+        torch.cuda.synchronize()
+        offline[name + " s"] = time.perf_counter() - t0
+    log(f"streaming {TRACK_FRAMES} frames x {n_q} queries, five tasks, pushes of {stride} frames: ms per push "
+        f"{', '.join(f'{t:.1f}' for t in push_ms)} (a window runs from the second push on; "
+        f"{sum(push_ms[1:]) / len(push_ms[1:]):.1f} ms per stride), whole video {stream_s:.4f} s; offline session "
+        f"{offline['default s']:.4f} s (one window at a time: {offline['one window at a time s']:.4f} s)")
+    for key, r in offline["one window at a time"].items():
+        if key in ("depth_est_b1thw", *CAMRAY_KEYS):
+            err, scale = rel_diff(streamed[key], r)
+            log(f"streaming {key} against the offline session one window at a time: max|diff| {err:.4g} = "
+                f"{err / max(scale, 1e-30):.3g} x max|offline| (band {GEOMETRY_TOL})")
+            checks.expect(math.isfinite(err) and err <= GEOMETRY_TOL * scale,
+                          f"streaming {key} differs from the offline session by {err}")
+        else:
+            hold(key, streamed[key], r, "streaming against the offline session one window at a time:")
+    for key, r in offline["default"].items():
+        err, scale = rel_diff(streamed[key], r)
+        log(f"streaming {key} against the default offline session: max|diff| {err:.4g} = "
+            f"{err / max(scale, 1e-30):.3g} x max|offline|")
+    del offline, streamed, emits, stream
+
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     if checks.failed:
         print(f"chip_smoke: {len(checks.failed)} check(s) failed: {checks.failed}", file=sys.stderr)

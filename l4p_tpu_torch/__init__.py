@@ -9,10 +9,15 @@ the whole-encoder kernels (ops/fused_encoder.py, csrc/fused_encoder.cu);
 then the DPT heads, the camera solve and the window stitching, and the
 SAM-style track head whose two-way transformer and mask decoder stream the
 per-query image tokens through three more kernels (ops/fused_keys.py,
-ops/fused_upscale.py). It imports torch and never jax or l4p_tpu.
+ops/fused_upscale.py). Besides the session: the model factory
+(`prepare_model`, `load_video_encoder_ckpt`), backward and bidirectional
+tracking (`track_bidirectional`, or `estimation_directions` in the session),
+one unstitched window (`forward_single_window`), online serving
+(`StreamingL4P`) and bench.py's measurement (`python3 -m
+l4p_tpu_torch.bench`). It imports torch and never jax or l4p_tpu.
 """
 
-from l4p_tpu_torch.checkpoint import params_from_jax
+from l4p_tpu_torch.checkpoint import load_video_encoder_ckpt, params_from_jax, prepare_model
 from l4p_tpu_torch.config import (
     GIANT,
     DenseHeadConfig,
@@ -25,17 +30,19 @@ from l4p_tpu_torch.config import (
     load_model_config,
 )
 from l4p_tpu_torch.inference import ALL_TASKS, DENSE_TASKS, SLICE_TASKS, InferenceSession
-from l4p_tpu_torch.models.l4p import L4P, Draws, RandomDraws
+from l4p_tpu_torch.models.l4p import L4P, Draws, RandomDraws, forward_single_window, track_bidirectional
 from l4p_tpu_torch.models.sam import KERNELS, PLAIN, TrackKernels
 from l4p_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from l4p_tpu_torch.ops.fused_encoder import fused_encoder_blocks, fused_encoder_blocks_plain
 from l4p_tpu_torch.ops.fused_keys import i2t_ln_t2i, i2t_ln_t2i_plain, t2i_flash, t2i_flash_plain
 from l4p_tpu_torch.ops.fused_upscale import fused_upscale_hypernet, fused_upscale_hypernet_plain
+from l4p_tpu_torch.streaming import StreamingL4P, assemble_emissions
 
 __all__ = [
     "ALL_TASKS", "DENSE_TASKS", "GIANT", "KERNELS", "PLAIN", "DPTConfig", "DenseHeadConfig", "Draws", "EncoderConfig",
-    "InferenceSession", "L4P", "L4PConfig", "RandomDraws", "SLICE_TASKS", "SamConfig", "TrackConfig", "TrackKernels",
-    "default_dense_heads", "flash_attention", "flash_attention_plain", "fused_encoder_blocks",
-    "fused_encoder_blocks_plain", "fused_upscale_hypernet", "fused_upscale_hypernet_plain", "i2t_ln_t2i",
-    "i2t_ln_t2i_plain", "load_model_config", "params_from_jax", "t2i_flash", "t2i_flash_plain",
+    "InferenceSession", "L4P", "L4PConfig", "RandomDraws", "SLICE_TASKS", "SamConfig", "StreamingL4P", "TrackConfig",
+    "TrackKernels", "assemble_emissions", "default_dense_heads", "flash_attention", "flash_attention_plain",
+    "forward_single_window", "fused_encoder_blocks", "fused_encoder_blocks_plain", "fused_upscale_hypernet",
+    "fused_upscale_hypernet_plain", "i2t_ln_t2i", "i2t_ln_t2i_plain", "load_model_config", "load_video_encoder_ckpt",
+    "params_from_jax", "prepare_model", "t2i_flash", "t2i_flash_plain", "track_bidirectional",
 ]

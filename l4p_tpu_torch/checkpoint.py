@@ -1,21 +1,35 @@
-"""The JAX package's parameter tree -> the port's state dict.
+"""Checkpoints: the model factory, the encoder overlay, and the JAX
+package's parameter tree -> the port's state dict.
 
-The inverse of `convert_encoder`/`convert_dpt`/`convert_track_head`
-(l4p_tpu/checkpoint.py:71-110, :258-300, :308-385): keys come out in the released checkpoint's layout without the
-Lightning `l4p_model.` prefix, so `L4P(cfg).load_state_dict(sd, strict=True)`
-accepts them. The tree may hold numpy arrays or anything `np.asarray` reads;
-heads that `cfg` does not configure are ignored.
+`prepare_model` (counterpart of l4p_tpu/config.py:229-252) builds the model
+of a reference-schema YAML from a released Lightning `.ckpt` (strict) or
+from seeded random weights, overlaid with an encoder-only checkpoint by
+`load_video_encoder_ckpt` (l4p_tpu/config.py:255-301) when the YAML names
+one. `params_from_jax` is the inverse of
+`convert_encoder`/`convert_dpt`/`convert_track_head`
+(l4p_tpu/checkpoint.py:71-110, :258-300, :308-385): keys come out in the
+released checkpoint's layout without the Lightning `l4p_model.` prefix, so
+`L4P(cfg).load_state_dict(sd, strict=True)` accepts them. The tree may hold
+numpy arrays or anything `np.asarray` reads; heads that `cfg` does not
+configure are ignored.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+import dataclasses
+import os
+import re
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from l4p_tpu_torch.config import DPTConfig, EncoderConfig, L4PConfig, TrackConfig
+from l4p_tpu_torch.config import DPTConfig, EncoderConfig, L4PConfig, TrackConfig, load_model_config
 from l4p_tpu_torch.models.dpt import rescale_kind
+from l4p_tpu_torch.models.encoder import VideoEncoder
+from l4p_tpu_torch.models.l4p import L4P
+
+LIGHTNING_PREFIX = "l4p_model."
 
 
 def _t(x) -> torch.Tensor:
@@ -139,3 +153,81 @@ def params_from_jax(tree: Mapping, cfg: L4PConfig) -> Dict[str, torch.Tensor]:
         for k, v in _track_state(tree["task_heads"]["track_2d"], cfg.track).items():
             sd[f"task_heads.track_2d.{k}"] = v
     return sd
+
+
+def released_state_dict(state_dict: Mapping[str, torch.Tensor], cfg: L4PConfig) -> Dict[str, torch.Tensor]:
+    """A Lightning checkpoint's `state_dict` -> the port's keys: the
+    `l4p_model.` prefix stripped (other keys kept, for the strict load to
+    refuse). A configured head without a key raises KeyError naming it, as
+    l4p_tpu.config.convert_l4p does (config.py:192-200)."""
+    sd = {k[len(LIGHTNING_PREFIX):] if k.startswith(LIGHTNING_PREFIX) else k: v for k, v in state_dict.items()}
+    prefixes = {name: f"task_heads.{name}.task_head." for name, _ in cfg.heads}
+    if cfg.track is not None:
+        prefixes["track_2d"] = "task_heads.track_2d."
+    for name, pre in prefixes.items():
+        if not any(k.startswith(pre) for k in sd):
+            raise KeyError(f"checkpoint has no keys for configured head '{name}' (prefix '{LIGHTNING_PREFIX}{pre}')")
+    return sd
+
+
+def load_video_encoder_ckpt(encoder: VideoEncoder, path: Union[str, os.PathLike]) -> None:
+    """Overlays an encoder-only torch checkpoint on `encoder`, in place: the
+    reference's strict=False load (l4p_videomae.py:187-191; l4p_tpu/config.py:
+    255-301). The file holds a state dict, raw or under 'state_dict', 'model'
+    or 'module'; an 'encoder.' prefix (MAE pretraining) is dropped. Present
+    tensors of the parameter's shape overlay it; a missing or mismatched one
+    keeps the init, and a per-block tensor loads only when every block has
+    it, as the JAX package stacks them. Extra keys are ignored. A directory
+    is the JAX package's own (orbax) checkpoint format, which needs JAX."""
+    if os.path.isdir(path):
+        raise NotImplementedError(
+            f"{path} is a directory: orbax checkpoints (scripts/pretrain_mae.py) are read by the JAX package; "
+            "the port reads them once the MAE pretraining is ported")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    for key in ("state_dict", "model", "module"):
+        if isinstance(ckpt, dict) and isinstance(ckpt.get(key), dict):
+            ckpt = ckpt[key]
+            break
+    if not any(k.startswith("blocks.") for k in ckpt) and any(k.startswith("encoder.blocks.") for k in ckpt):
+        ckpt = {k[len("encoder."):]: v for k, v in ckpt.items() if k.startswith("encoder.")}
+    params = encoder.state_dict()
+
+    def fits(k: str) -> bool:
+        return k in ckpt and tuple(ckpt[k].shape) == tuple(params[k].shape)
+
+    per_block: Dict[str, list] = {}
+    for k in params:
+        m = re.fullmatch(r"blocks\.(\d+)\.(.+)", k)
+        if m:
+            per_block.setdefault(m.group(2), []).append(k)
+        elif fits(k):
+            params[k].copy_(ckpt[k])
+    for keys in per_block.values():
+        if all(fits(k) for k in keys):
+            for k in keys:
+                params[k].copy_(ckpt[k])
+
+
+def prepare_model(path: Union[str, os.PathLike], ckpt_path: Optional[Union[str, os.PathLike]] = None,
+                  max_queries: Optional[int] = None, dtype: torch.dtype = torch.bfloat16,
+                  device: Union[str, torch.device] = "cuda") -> Tuple[L4P, L4PConfig, Tuple[str, ...]]:
+    """The model of a reference-schema YAML, ready to serve: (model, cfg,
+    tasks) (counterpart of l4p_tpu/config.py:229-252). With `ckpt_path`, the
+    Lightning checkpoint's `state_dict` loads strictly (`released_state_dict`);
+    without, random weights from `torch.Generator(device).manual_seed(0)`,
+    overlaid with the YAML's `video_encoder_ckpt_path` when it names one.
+    `max_queries` sets the track head's query chunk."""
+    cfg, tasks = load_model_config(path)
+    if max_queries is not None and cfg.track is not None:
+        cfg = dataclasses.replace(cfg, track=dataclasses.replace(cfg.track, max_queries=max_queries))
+    device = torch.device(device)
+    model = L4P(cfg, device=device, dtype=dtype)
+    with torch.no_grad():
+        if ckpt_path is None:
+            model.init_weights(torch.Generator(device=device).manual_seed(0))
+            if cfg.video_encoder_ckpt_path:
+                load_video_encoder_ckpt(model.video_encoder, cfg.video_encoder_ckpt_path)
+        else:
+            state = torch.load(ckpt_path, map_location="cpu", weights_only=True)["state_dict"]
+            model.load_state_dict(released_state_dict(state, cfg), strict=True)
+    return model.eval(), cfg, tasks

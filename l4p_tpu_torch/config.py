@@ -20,13 +20,11 @@ DENSE_KINDS = {
     "VideoMAEDepthDPTHead": "depth",
     "VideoMAEDynMaskDPTHead": "dyn_mask",
     "VideoMAETraj3DDPTHead": "camray",
+    "VideoMAECameraDPTHead": "camera_rays",  # raw 6-channel rays (reference dense_heads.py:220-254)
 }
-# head classes the JAX reader knows and the port does not run yet
-# (l4p_tpu/config.py:_DENSE_KINDS): load_model_config raises on them
-NOT_PORTED_HEADS = {"VideoMAECameraDPTHead": "camera_rays"}
 
-# the camray head's DPT variant (reference dense_heads.py:269-270;
-# l4p_tpu/config.py:38-42)
+# the DPT variant of the camray and camera_rays heads (reference
+# dense_heads.py:269-270; l4p_tpu/config.py:38-42)
 _CAMRAY_DPT_DEFAULTS = dict(
     actpost_scale_factors=((1, 0, 0), (1, 0, 0), (0, 0, 0), (-1, -1, -1)),
     fusion_scale_factors=((1, 1, 1), (1, 1, 1), (2, 1, 1), (2, 2, 2)),
@@ -97,7 +95,7 @@ class DenseHeadConfig:
     applies them; `default_dense_heads` sets what configs/model.yaml sets."""
 
     task_name: str
-    kind: str  # 'flow' | 'depth' | 'dyn_mask' | 'camray'
+    kind: str  # 'flow' | 'depth' | 'dyn_mask' | 'camray' | 'camera_rays'
     out_nchan: int
     dpt: DPTConfig
     depth_fn: str = "linear"
@@ -217,6 +215,9 @@ class L4PConfig:
     dense_window_chunk: int = 2  # windows per DPT head call
     sim3_num_trials: int = 128  # RANSAC hypotheses of the joint alignment
     sim3_min_samples: int = 10
+    # an encoder-only checkpoint that prepare_model overlays on random
+    # weights (reference l4p_videomae.py:187-191; l4p_tpu/models/l4p.py:115)
+    video_encoder_ckpt_path: Optional[str] = None
 
     @property
     def head_dict(self) -> Dict[str, DenseHeadConfig]:
@@ -234,19 +235,20 @@ class L4PConfig:
 
 def _dense_head_from_yaml(name: str, cls: str, args: Mapping[str, Any]) -> DenseHeadConfig:
     """A dense head's init_args with the YAML schema's defaults
-    (l4p_tpu/config.py:76-108): camray has 6 channels, its DPT variant, and
-    use_intrinsics on, fixed_intrinsics off unless the file says otherwise."""
+    (l4p_tpu/config.py:76-108): camray and camera_rays have 6 channels and
+    camray's DPT variant; use_intrinsics on, fixed_intrinsics off unless the
+    file says otherwise."""
     kind = DENSE_KINDS[cls]
     d = args.get("depth", 40)
     hooks = tuple(args.get("hooks_idx") or (d * 2 // 5, d * 3 // 5, d * 4 // 5, d))
-    out_nchan = 6 if kind == "camray" else args.get("out_nchan", 2 if kind == "flow" else 1)
+    out_nchan = 6 if kind in ("camray", "camera_rays") else args.get("out_nchan", 2 if kind == "flow" else 1)
     dpt_kw: Dict[str, Any] = dict(num_channels=out_nchan, hooks=hooks)
     if "embed_dim" in args:
         dpt_kw["dim_tokens"] = args["embed_dim"]
     for ext in ("layer_dims", "feature_dim", "last_dim"):
         if ext in args:
             dpt_kw[ext] = tuple(args[ext]) if ext == "layer_dims" else args[ext]
-    if kind == "camray":
+    if kind in ("camray", "camera_rays"):
         dpt_kw.update(_CAMRAY_DPT_DEFAULTS)
         for k in ("actpost_scale_factors", "fusion_scale_factors"):
             if k in args:
@@ -303,12 +305,10 @@ def _track_from_yaml(args: Mapping[str, Any]) -> TrackConfig:
 def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
     """Parse a reference-schema model YAML into (L4PConfig, tasks).
 
-    The flow, depth, dyn_mask, camray and track_2d heads are read, and
-    `tasks` is returned as written (InferenceSession refuses the tasks it
-    cannot run). A file with no track_2d head gives `track=None`. A head
-    class the JAX reader knows but the port does not run yet raises
-    NotImplementedError; any other unknown class raises ValueError, as the
-    JAX reader does."""
+    The flow, depth, dyn_mask, camray, camera_rays and track_2d heads are
+    read, and `tasks` is returned as written (InferenceSession refuses the
+    tasks it cannot run). A file with no track_2d head gives `track=None`.
+    An unknown head class raises ValueError, as the JAX reader does."""
     import yaml
 
     with open(path) as f:
@@ -324,11 +324,12 @@ def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
             heads.append((name, _dense_head_from_yaml(name, cls, args)))
         elif cls == "VideoMAETrack2DSamHead":
             track = _track_from_yaml(args)
-        elif cls in NOT_PORTED_HEADS:
-            raise NotImplementedError(f"head class {cls} (JAX kind {NOT_PORTED_HEADS[cls]!r}) is not ported yet")
         else:
             raise ValueError(f"unknown head class {cls}")
-    enc = EncoderConfig(**m["encoder"]) if "encoder" in m else GIANT
+    enc_args = dict(m.get("encoder") or {})
+    if enc_args.pop("cam_emb_placed_at", None) is not None:
+        raise NotImplementedError("the Plucker camera embedding (encoder.cam_emb_placed_at) is not ported")
+    enc = EncoderConfig(**enc_args) if "encoder" in m else GIANT
     cfg = L4PConfig(
         encoder=enc,
         window_size=tuple(m.get("window_size", (16, 224, 224))),
@@ -336,5 +337,6 @@ def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
         joint_alignment=m.get("joint_alignment", False),
         heads=tuple(heads),
         track=track,
+        video_encoder_ckpt_path=m.get("video_encoder_ckpt_path"),
     )
     return cfg, tuple(init["tasks"])

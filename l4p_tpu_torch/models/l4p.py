@@ -1,5 +1,5 @@
-"""L4P: shared encoder + flow/depth/dyn_mask/camray DPT heads + the
-point-track head + sliding-window stitching (counterpart of
+"""L4P: shared encoder + flow/depth/dyn_mask/camray/camera_rays DPT heads
++ the point-track head + sliding-window stitching (counterpart of
 l4p_tpu/models/l4p.py).
 
 Windows are encoded `enc_window_chunk` at a time (all at once with the
@@ -7,9 +7,12 @@ fused encoder) with the window axis merged into the batch, and each dense
 head runs `dense_window_chunk` windows at a time; the JAX package's lax.map
 chunking and stacked zero-padded heads exist for XLA's compiler and are not
 carried over (the outputs are the same). Camray rays become poses and
-intrinsics per window (`camray_windows_to_cameras`); depth and camray are
-stitched by one Sim(3) chain under `joint_alignment`. Tracking runs
-`max_queries` queries at a time (`run_track_chunked`).
+intrinsics per window (`window_cameras`); depth and camray are stitched by
+one Sim(3) chain under `joint_alignment`; each chain is a loop of one-window
+steps (`depth_align_step`, `joint_align_step`), which streaming also runs.
+Tracking runs `max_queries` queries at a time (`run_track_chunked`), and
+backward in time on the flipped video (`flip_query_times`,
+`merge_directions`). `forward_single_window` runs one window unstitched.
 
 Every random draw (the homography and Sim(3) RANSAC samples) comes from a
 `Draws` object the caller passes: `RandomDraws` by default.
@@ -42,7 +45,7 @@ from l4p_tpu_torch.models.dpt import DPTHead
 from l4p_tpu_torch.models.encoder import AttentionFn, EncoderBlocksFn, VideoEncoder
 from l4p_tpu_torch.models.ingest import ingest_video_tokens
 from l4p_tpu_torch.models.sam import KERNELS, TrackKernels
-from l4p_tpu_torch.models.track import TrackHead, track_forward_windowed
+from l4p_tpu_torch.models.track import TrackHead, track_forward, track_forward_windowed
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 from l4p_tpu_torch.ops.fused_encoder import fused_encoder_blocks
 from l4p_tpu_torch.ops.misc import apply_fn
@@ -95,7 +98,8 @@ class Draws(Protocol):
                            num_trials: int) -> torch.Tensor:
         """(count, num_trials, 4) minimal samples over n rays: the window-0
         solve of fixed intrinsics (window None, one per batch item) or window
-        `window` of variable intrinsics (one per batch item and frame)."""
+        `window` of variable intrinsics (one per batch item and frame).
+        `num_windows` is the request's window count, None when streaming."""
 
     def sim3_draws(self, step: int, count: int, stride: int, n: int, num_trials: int,
                    min_samples: int) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -151,9 +155,11 @@ def encode_windows(
     rgb_u8_bthw3: Optional[torch.Tensor] = None,
     attention: AttentionFn = flash_attention,
     encoder_blocks: EncoderBlocksFn = fused_encoder_blocks,
+    hooks: Optional[Sequence[int]] = None,
 ) -> Dict[str, object]:
     """Slice the video into overlapping windows and encode them all.
-    Returns {'hooks': {hook: (nw, B, P, C)}, 'final': (nw, B, P, C)}.
+    Returns {'hooks': {hook: (nw, B, P, C)}, 'final': (nw, B, P, C)} for
+    `hooks` (default: every hook of the configured heads).
 
     With `rgb_u8_bthw3` the whole video is tokenized once by the folded
     normalise+patchify matmul and windows are sliced in token space. With
@@ -176,7 +182,7 @@ def encode_windows(
         def window_tokens(starts):
             return encoder.embed(torch.cat([rgb_b3thw[:, :, s: s + ws] for s in starts]))
 
-    hooks = cfg.all_hooks
+    hooks = cfg.all_hooks if hooks is None else tuple(hooks)
     chunk = nw if ecfg.fused_encoder else cfg.enc_window_chunk
     blocks_fn = encoder_blocks if ecfg.fused_encoder else None
     chunks = []
@@ -226,71 +232,98 @@ def stitch_overwrite(win_outs: torch.Tensor, stride: int, t_total: int, flow_ski
     return win_outs[win, :, :, frame].movedim(0, 2)
 
 
-def stitch_depth_aligned(depth_w: torch.Tensor, stride: int, t_total: int, hcfg: DenseHeadConfig) -> torch.Tensor:
-    """Sequential scale/shift alignment chain over windows
-    (reference dense_heads.py:104-140): each window is aligned to the
-    previous aligned window on their overlap, then overwrite-stitched."""
-    overlap = depth_w.shape[3] - stride
-    aligned = [depth_w[0]]
-    for cur in depth_w[1:]:
-        prev = aligned[-1]
-        if hcfg.align_type == "affine":
-            sol = lstsq_affine_solve(cur[:, :, :overlap], prev[:, :, stride:], pre_inverse=hcfg.align_pre_inverse)
-            aligned.append(lstsq_affine_apply(sol, cur, pre_inverse=hcfg.align_pre_inverse))
+def window_cameras(rays_b6thw: torch.Tensor, hcfg: DenseHeadConfig, img_info: Tuple[int, int, int],
+                   intr_b44t: Optional[torch.Tensor], window: int, num_windows: Optional[int],
+                   k0: Optional[torch.Tensor], draws: Draws):
+    """One window's rays (B, 6, t, h, w) -> (pose (B, 16, t), intrinsics
+    (B, 16, t), k0), fp32, in VideoMAETraj3DDPTHead.forward's three modes
+    (dense_heads.py:292-352; l4p_tpu/models/l4p.py:294-360).
+    `use_intrinsics` solves poses from the input K `intr_b44t` (this window's
+    frames, pixels) and reports it; `fixed_intrinsics` estimates K at window 0
+    by homography RANSAC and returns it as `k0` (B, 4, 4, t), which later
+    windows pass back: they solve rotations from the input K (from k0 when
+    there is none) and report k0; otherwise K is estimated per frame."""
+    b, tw, n_rays = rays_b6thw.shape[0], rays_b6thw.shape[2], rays_b6thw.shape[3] * rays_b6thw.shape[4]
+    _, h_img, w_img = img_info
+    rays, dev = rays_b6thw.float(), rays_b6thw.device
+    if hcfg.use_intrinsics:
+        ext = rays_to_cameras(rays, normalize_intrinsics(intr_b44t.float(), h_img, w_img))[0]
+        # the reference emits no estimated K here; the joint stitch reads the
+        # raw input intrinsics (dense_heads.py:424-426)
+        k_out = intr_b44t.float().reshape(b, 16, tw)
+    elif hcfg.fixed_intrinsics:
+        if window == 0:
+            idx = draws.homography_samples(None, num_windows, b, n_rays, HOMOGRAPHY_TRIALS).to(dev)
+            ext, _, k0 = rays_to_cameras_and_fixed_intrinsics(rays, idx, output_size=(h_img, w_img))
         else:
-            sol = linear_scale_solve(cur[:, :, :overlap], prev[:, :, stride:], pre_inverse=hcfg.align_pre_inverse)
-            aligned.append(linear_scale_apply(sol, cur, pre_inverse=hcfg.align_pre_inverse))
-    return stitch_overwrite(torch.stack(aligned), stride, t_total)
+            k = intr_b44t.float() if intr_b44t is not None else k0
+            ext = rays_to_cameras(rays, normalize_intrinsics(k, h_img, w_img))[0]
+        k_out = k0.reshape(b, 16, tw)
+    else:
+        idx = draws.homography_samples(window, num_windows, b * tw, n_rays, HOMOGRAPHY_TRIALS).to(dev)
+        ext, _, k_w = rays_to_cameras_and_variable_intrinsics(rays, idx, output_size=(h_img, w_img))
+        k_out = k_w.reshape(b, 16, tw)
+    # pose = inv(extrinsics) (dense_heads.py:346-347)
+    pose = torch.linalg.inv_ex(ext.permute(0, 3, 1, 2))[0].permute(0, 2, 3, 1)
+    return pose.reshape(b, 16, tw), k_out, k0
 
 
 def camray_windows_to_cameras(rays_w_b6thw: torch.Tensor, hcfg: DenseHeadConfig, img_info: Tuple[int, int, int],
                               intrinsics_b44t: Optional[torch.Tensor], window_stride: int,
                               draws: Draws) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-window rays (nw, B, 6, t, h, w) -> (pose (nw, B, 16, t),
-    intrinsics (nw, B, 16, t)), fp32, in VideoMAETraj3DDPTHead.forward's three
-    modes (dense_heads.py:292-352; l4p_tpu/models/l4p.py:294-360):
-    `use_intrinsics` solves poses from the input K and reports it;
-    `fixed_intrinsics` estimates K from window 0 by homography RANSAC,
-    solves later windows' rotations from the input K (from that estimate when
-    there is none) and reports window 0's K everywhere; otherwise K is
-    estimated per frame."""
-    nw, b = rays_w_b6thw.shape[:2]
-    _, h_img, w_img = img_info
-    rays = rays_w_b6thw.float()
-    tw, n_rays = rays.shape[3], rays.shape[4] * rays.shape[5]
-    dev = rays.device
+    intrinsics (nw, B, 16, t)), fp32: `window_cameras` over the windows,
+    window 0's K estimate carried to the later ones."""
+    nw, tw = rays_w_b6thw.shape[0], rays_w_b6thw.shape[3]
+    poses, ks, k0 = [], [], None
+    for w in range(nw):
+        intr = None if intrinsics_b44t is None else intrinsics_b44t[..., w * window_stride: w * window_stride + tw]
+        pose, k, k0 = window_cameras(rays_w_b6thw[w], hcfg, img_info, intr, w, nw, k0, draws)
+        poses.append(pose)
+        ks.append(k)
+    return torch.stack(poses), torch.stack(ks)
 
-    def raw_k(w):
-        return intrinsics_b44t[..., w * window_stride: w * window_stride + tw].float()
 
-    def window_k(w):  # the input intrinsics of window w, normalised to ray space
-        return normalize_intrinsics(raw_k(w), h_img, w_img)
+def depth_align_step(prev: torch.Tensor, cur: torch.Tensor, stride: int, hcfg: DenseHeadConfig) -> torch.Tensor:
+    """One step of the depth chain: window depth `cur` (B, 1, ws, H, W)
+    aligned to the previous aligned window `prev` on their overlap."""
+    overlap = cur.shape[2] - stride
+    if hcfg.align_type == "affine":
+        sol = lstsq_affine_solve(cur[:, :, :overlap], prev[:, :, stride:], pre_inverse=hcfg.align_pre_inverse)
+        return lstsq_affine_apply(sol, cur, pre_inverse=hcfg.align_pre_inverse)
+    sol = linear_scale_solve(cur[:, :, :overlap], prev[:, :, stride:], pre_inverse=hcfg.align_pre_inverse)
+    return linear_scale_apply(sol, cur, pre_inverse=hcfg.align_pre_inverse)
 
-    if hcfg.use_intrinsics:
-        ext = torch.stack([rays_to_cameras(rays[w], window_k(w))[0] for w in range(nw)])
-        # the reference emits no estimated K here; the joint stitch reads the
-        # raw input intrinsics (dense_heads.py:424-426)
-        k_out = torch.stack([raw_k(w) for w in range(nw)]).reshape(nw, b, 16, tw)
-    elif hcfg.fixed_intrinsics:
-        idx = draws.homography_samples(None, nw, b, n_rays, HOMOGRAPHY_TRIALS).to(dev)
-        ext0, _, k_est0 = rays_to_cameras_and_fixed_intrinsics(rays[0], idx, output_size=(h_img, w_img))
-        exts = [ext0]
-        for w in range(1, nw):
-            k = window_k(w) if intrinsics_b44t is not None else normalize_intrinsics(k_est0, h_img, w_img)
-            exts.append(rays_to_cameras(rays[w], k)[0])
-        ext = torch.stack(exts)
-        k_out = k_est0.reshape(1, b, 16, tw).expand(nw, b, 16, tw)
-    else:
-        exts, ks = [], []
-        for w in range(nw):
-            idx = draws.homography_samples(w, nw, b * tw, n_rays, HOMOGRAPHY_TRIALS).to(dev)
-            ext_w, _, k_w = rays_to_cameras_and_variable_intrinsics(rays[w], idx, output_size=(h_img, w_img))
-            exts.append(ext_w)
-            ks.append(k_w.reshape(b, 16, tw))
-        ext, k_out = torch.stack(exts), torch.stack(ks)
-    # pose = inv(extrinsics) (dense_heads.py:346-347)
-    pose = torch.linalg.inv_ex(ext.permute(0, 1, 4, 2, 3))[0].permute(0, 1, 3, 4, 2)
-    return pose.reshape(nw, b, 16, tw), k_out
+
+def stitch_depth_aligned(depth_w: torch.Tensor, stride: int, t_total: int, hcfg: DenseHeadConfig) -> torch.Tensor:
+    """Sequential scale/shift alignment chain over windows
+    (reference dense_heads.py:104-140): each window is aligned to the
+    previous aligned window on their overlap, then overwrite-stitched."""
+    aligned = [depth_w[0]]
+    for cur in depth_w[1:]:
+        aligned.append(depth_align_step(aligned[-1], cur, stride, hcfg))
+    return stitch_overwrite(torch.stack(aligned), stride, t_total)
+
+
+def joint_align_step(prev: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
+                     cur: Tuple[torch.Tensor, torch.Tensor, torch.Tensor], stride: int, step: int, draws: Draws,
+                     num_trials: int = 128, min_samples: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One step of the joint Sim(3) chain: window `cur`'s point map on the
+    overlap, from its (depth (B, 1, ws, H, W), pose (B, 16, ws), K (B, 16,
+    ws)), RANSAC-aligned to the previous aligned window `prev`'s; returns
+    cur's aligned (depth, pose). `step` names the draws."""
+    (prev_d, prev_p, prev_k), (cur_d, cur_p, cur_k) = prev, cur
+    b, _, ws, h, w = cur_d.shape
+    overlap = ws - stride
+    n_keep, n_stride = sim3_sample_counts(overlap, h, w, min_samples=min_samples)
+    pred = {"depth": cur_d[:, :, :overlap], "camray": cur_p[:, :, :overlap],
+            "camray_intrinsics": cur_k[:, :, :overlap].reshape(b, 4, 4, overlap)}
+    tgt = {"depth": prev_d[:, :, stride:], "camray": prev_p[:, :, stride:],
+           "camray_intrinsics": prev_k[:, :, stride:].reshape(b, 4, 4, overlap)}
+    phase, idx = draws.sim3_draws(step, b, n_stride, n_keep, num_trials, min_samples)
+    rel = sim3_overlap_solve(pred, tgt, phase, idx)
+    applied = sim3_overlap_apply(rel, {"depth": cur_d, "camray": cur_p})
+    return applied["depth"], applied["camray"]
 
 
 def stitch_joint_depth_camray(depth_w: torch.Tensor, pose_w: torch.Tensor, intr_w: torch.Tensor, stride: int,
@@ -301,23 +334,12 @@ def stitch_joint_depth_camray(depth_w: torch.Tensor, pose_w: torch.Tensor, intr_
     depth, pose and K, is RANSAC-aligned to the previous aligned window's,
     then depth, pose and K are overwrite-stitched. depth_w (nw, B, 1, ws, H, W),
     pose_w and intr_w (nw, B, 16, ws)."""
-    nw, b = depth_w.shape[:2]
-    ws, h, w = depth_w.shape[3:]
-    overlap = ws - stride
-    n_keep, n_stride = sim3_sample_counts(overlap, h, w, min_samples=min_samples)
     depths, poses = [depth_w[0]], [pose_w[0]]
-    for k_idx in range(1, nw):
-        prev_d, prev_p, prev_k = depths[-1], poses[-1], intr_w[k_idx - 1]
-        cur_d, cur_p, cur_k = depth_w[k_idx], pose_w[k_idx], intr_w[k_idx]
-        pred = {"depth": cur_d[:, :, :overlap], "camray": cur_p[:, :, :overlap],
-                "camray_intrinsics": cur_k[:, :, :overlap].reshape(b, 4, 4, overlap)}
-        tgt = {"depth": prev_d[:, :, stride:], "camray": prev_p[:, :, stride:],
-               "camray_intrinsics": prev_k[:, :, stride:].reshape(b, 4, 4, overlap)}
-        phase, idx = draws.sim3_draws(k_idx, b, n_stride, n_keep, num_trials, min_samples)
-        rel = sim3_overlap_solve(pred, tgt, phase, idx)
-        applied = sim3_overlap_apply(rel, {"depth": cur_d, "camray": cur_p})
-        depths.append(applied["depth"])
-        poses.append(applied["camray"])
+    for k_idx in range(1, depth_w.shape[0]):
+        d, p = joint_align_step((depths[-1], poses[-1], intr_w[k_idx - 1]), (depth_w[k_idx], pose_w[k_idx],
+                                intr_w[k_idx]), stride, k_idx, draws, num_trials, min_samples)
+        depths.append(d)
+        poses.append(p)
     return {
         "depth": stitch_overwrite(torch.stack(depths), stride, t_total),
         "camray": stitch_overwrite(torch.stack(poses), stride, t_total),
@@ -386,3 +408,77 @@ def run_track_chunked(head: TrackHead, enc_final: torch.Tensor, queries: torch.T
         for i in range(n_chunks)
     ]
     return {k: merge_query_chunks(torch.stack([o[k] for o in outs]), n) for k in outs[0]}
+
+
+def flip_query_times(queries_bn3: torch.Tensor, t_total: int) -> torch.Tensor:
+    """Query times in the time-flipped video: t -> T - t (l4p.py:752-754 of
+    the JAX package; not T - 1 - t, since t is a frame time plus 0.5)."""
+    q = queries_bn3.clone()
+    q[:, :, 0] = t_total - q[:, :, 0]
+    return q
+
+
+def merge_directions(fwd: Optional[Dict[str, torch.Tensor]], bwd: Dict[str, torch.Tensor], queries_bn3: torch.Tensor,
+                     t_total: int) -> Dict[str, torch.Tensor]:
+    """Bidirectional tracks (reference sparse_heads.py:242-245): the forward
+    outputs where t + 0.5 >= the query time, the backward ones (already
+    flipped back to forward time) elsewhere; the backward ones alone
+    without a forward pass."""
+    if fwd is None:
+        return bwd
+    t_ids = torch.arange(t_total, dtype=queries_bn3.dtype, device=queries_bn3.device) + 0.5
+    after = (t_ids[None, None, None, :] - queries_bn3[:, :, 0:1, None]) >= 0
+    return {k: torch.where(after, fwd[k], bwd[k]) for k in fwd}
+
+
+def track_bidirectional(model: L4P, cfg: L4PConfig, data: Dict, device, directions: Tuple[int, ...] = (1, -1),
+                        **session_kw) -> Dict[str, torch.Tensor]:
+    """Backward (`(-1,)`) or bidirectional (`(1, -1)`) tracking alone: the
+    session's track_2d task with those estimation directions (counterpart of
+    l4p_tpu/models/l4p.py:797-819). `session_kw` go to InferenceSession."""
+    import dataclasses
+
+    from l4p_tpu_torch.inference import InferenceSession
+
+    bi = dataclasses.replace(cfg, track=dataclasses.replace(cfg.track, estimation_directions=tuple(directions)))
+    return InferenceSession(bi, ("track_2d",), device, **session_kw)(model, data)
+
+
+@torch.inference_mode()
+def forward_single_window(model: L4P, cfg: L4PConfig, data: Dict, tasks: Sequence[str], device,
+                          draws: Optional[Draws] = None, attention: AttentionFn = flash_attention,
+                          track_kernels: TrackKernels = KERNELS,
+                          encoder_blocks: EncoderBlocksFn = fused_encoder_blocks) -> Dict[str, torch.Tensor]:
+    """One window of `rgb_b3thw` (B, 3, t, H, W), no stitching (reference
+    forward_single_window, l4p_videomae.py:234-254; l4p_tpu/models/l4p.py:
+    822-863): the dense heads' raw window outputs, camray's window poses and,
+    unless it uses the input intrinsics, its K (draws from `draws`), and the
+    track head on the one window (the prompt-feature and token-memory
+    outputs dropped)."""
+    dev = torch.device(device)
+    rgb = torch.as_tensor(data["rgb_b3thw"], device=dev)
+    img_info = tuple(rgb.shape[2:5])
+    enc_model, hooks = model.video_encoder, cfg.all_hooks
+    enc = enc_model(enc_model.embed(rgb), hooks, attention, encoder_blocks if cfg.encoder.fused_encoder else None)
+    feats = dict(zip(hooks, enc["hooks"]))
+    intr = data.get("intrinsics_b44t")
+    intr = None if intr is None else torch.as_tensor(intr, device=dev)
+    out: Dict[str, torch.Tensor] = {}
+    for task in tasks:
+        if task == "track_2d":
+            o = track_forward(model.task_heads["track_2d"], cfg.track, enc["final"],
+                              torch.as_tensor(data["track_2d_pointquerries_bn3"], device=dev),
+                              torch.as_tensor(data["track_2d_pointlabels_bn"], device=dev), kernels=track_kernels)
+            out.update({k: v for k, v in o.items() if not k.endswith(("bnpc", "_prompt_features_bnc"))})
+            continue
+        hcfg = cfg.head_dict[task]
+        raw = model.task_heads[task]([feats[h] for h in hcfg.dpt.hooks], img_info)
+        if hcfg.kind == "camray":
+            k_in = None if intr is None else intr[..., : raw.shape[2]]
+            pose, k, _ = window_cameras(raw, hcfg, img_info, k_in, 0, 1, None, draws or RandomDraws())
+            out[f"{hcfg.task_name}_est_b16t"] = pose
+            if not hcfg.use_intrinsics:
+                out[f"{hcfg.task_name}_intrinsics_est_b16t"] = k
+        else:
+            out[f"{hcfg.task_name}_est_b{hcfg.out_nchan}thw"] = raw
+    return out

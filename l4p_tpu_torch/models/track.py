@@ -1,16 +1,18 @@
 """The promptable point-track head: one window and the causal sliding-window
 scan (counterpart of l4p_tpu/models/track.py).
 
-Queries are the decoder's batch axis. The windowed scan is a Python loop
-over windows whose carry is the re-queries, the prompt features and labels,
-the kept half of the per-query token memory and the T-length output
-buffers; the JAX package's lax.scan exists for XLA's compiler.
+Queries are the decoder's batch axis. The windowed scan is a Python loop of
+`track_window_step` over windows, whose carry is the re-queries, the prompt
+features and labels, the kept half of the per-query token memory and
+window-length output buffers; each step emits the frames no later window
+writes, so the offline scan and streaming (l4p_tpu_torch/streaming.py) run
+the same step. The JAX package's lax.scan exists for XLA's compiler.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -31,6 +33,7 @@ from l4p_tpu_torch.ops.misc import apply_fn
 from l4p_tpu_torch.ops.resize import interp_matrix
 
 XY_CHUNK = 32  # queries per full-resolution heatmap (the heatmap is the head's largest tensor)
+TRACK_BUFFERS = ("traj", "vis", "depth")  # the windowed scan's per-frame outputs
 
 
 class TrackHead(nn.Module):
@@ -174,84 +177,122 @@ def track_forward(head: TrackHead, cfg: TrackConfig, enc_features: torch.Tensor,
     return out
 
 
-def track_forward_windowed(head: TrackHead, cfg: TrackConfig, enc_final_wbpc: torch.Tensor,
-                           queries_bn3: torch.Tensor, labels_bn: torch.Tensor, window_stride: int = 8,
-                           kernels: TrackKernels = KERNELS) -> Dict[str, torch.Tensor]:
-    """Causal sliding-window tracking, forward direction (reference
-    forward_windowed_core, sparse_heads.py:213-495). enc_final_wbpc:
-    (num_windows, B, P, C) -> traj (B, N, 2, T), vis and depth (B, N, 1, T).
-    Frames before a query's time keep the buffers' initial values."""
-    nw, b, p, c = enc_final_wbpc.shape
-    n = queries_bn3.shape[1]
-    ws = cfg.image_size[0]
-    t_total = (nw - 1) * window_stride + ws
-    dtype, mdtype, dev = queries_bn3.dtype, enc_final_wbpc.dtype, queries_bn3.device
-    tname = cfg.task_name
+def init_track_carry(head: TrackHead, cfg: TrackConfig, queries_bn3: torch.Tensor, num_tokens: int,
+                     mdtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """The windowed scan's carry before window 0: the queries, the prompt
+    features and labels, the token memory's kept half (the mask token) and
+    window-length output buffers at their initial values (traj 0, vis -10,
+    depth 0)."""
+    b, n = queries_bn3.shape[:2]
+    c, ws = cfg.sam.embed_dim, cfg.image_size[0]
+    dtype, dev = queries_bn3.dtype, queries_bn3.device
+    carry = {
+        "queries": queries_bn3,
+        "prompt_feats": torch.zeros((b, n, c), dtype=mdtype, device=dev),
+        "prompt_labels": torch.zeros((b, n), dtype=dtype, device=dev),
+        "traj": torch.zeros((b, n, 2, ws), dtype=dtype, device=dev),
+        "vis": torch.full((b, n, 1, ws), -10.0, dtype=dtype, device=dev),
+        "depth": torch.zeros((b, n, 1, ws), dtype=dtype, device=dev),
+    }
+    if cfg.attend_to_past:
+        mask_tok = head.processed_video_mask_token.weight[0].to(mdtype)
+        carry["history"] = mask_tok.expand(b, n, num_tokens // 2, c)
+    return carry
 
-    mask_tok = history = None
+
+def track_window_step(head: TrackHead, cfg: TrackConfig, carry: Dict[str, torch.Tensor], enc_bpc: torch.Tensor,
+                      queries0_bn3: torch.Tensor, window: int, window_stride: int,
+                      kernels: TrackKernels = KERNELS) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """One window of the causal scan (reference forward_windowed_core,
+    sparse_heads.py:213-495): window `window`'s final features (B, P, C) and
+    the carry -> (the next carry, the `window_stride` frames from the
+    window's start that no later window writes: TRACK_BUFFERS, traj (B, N,
+    2, s), vis and depth (B, N, 1, s)). The output buffers cover the window's frames: the
+    previous window's shifted by the stride, with initial values in the
+    tail, which is what the reference's video-length buffers hold there.
+    `queries0_bn3` are the input queries (the label rule compares them)."""
+    b, p, c = enc_bpc.shape
+    n = queries0_bn3.shape[1]
+    ws, s = cfg.image_size[0], window_stride
+    dtype, mdtype, dev = queries0_bn3.dtype, enc_bpc.dtype, queries0_bn3.device
+    tname = cfg.task_name
+    start = window * s
+    cur_q = carry["queries"]
+    frame_ids = torch.arange(ws, dtype=dtype, device=dev)
+    # results exist at t >= query time
+    valid_t = (frame_ids[None, None, :] + float(start) + 0.5 - cur_q[:, :, 0:1]) >= 0
+    valid_bn1t = valid_t[:, :, None]
+    valid_bn = valid_t.sum(-1) > 0
+    # labels 0/1/2; the order matters: the equals-input pass sets 1 even for queries not
+    # yet valid, then valid queries that are not the input get 2 (track.py:415-423)
+    lab = valid_bn.to(dtype)
+    if cfg.modify_pointlabels_for_windowing:
+        eq_input = (cur_q == queries0_bn3).sum(-1) > 0
+        lab = torch.where(eq_input, torch.ones_like(lab), lab)
+        lab = torch.where(valid_bn & ~eq_input, torch.full_like(lab, 2.0), lab)
+    q_off = cur_q.clone()
+    q_off[:, :, 0] -= float(start)
+
+    enc = enc_bpc
     if cfg.attend_to_past:
         # the carry holds the kept half of the token memory; the other half is the mask token
         mask_tok = head.processed_video_mask_token.weight[0].to(mdtype)
-        history = mask_tok.expand(b, n, p // 2, c)
-    cur_q = queries_bn3
-    prompt_feats = torch.zeros((b, n, c), dtype=mdtype, device=dev)
-    prompt_labels = torch.zeros((b, n), dtype=dtype, device=dev)
-    traj = torch.zeros((b, n, 2, t_total), dtype=dtype, device=dev)
-    vis = torch.full((b, n, 1, t_total), -10.0, dtype=dtype, device=dev)
-    depth = torch.zeros((b, n, 1, t_total), dtype=dtype, device=dev)
-    frame_ids = torch.arange(ws, dtype=dtype, device=dev)
+        first = enc[:, None, : p // 2] + carry["history"]
+        second = (enc[:, p // 2:] + mask_tok)[:, None].expand(b, n, p - p // 2, c)
+        enc = torch.cat([first, second], dim=2)
+    out = track_forward(head, cfg, enc, q_off, lab, carry["prompt_feats"], carry["prompt_labels"], kernels)
+    del enc
 
-    for w in range(nw):
-        start = w * window_stride
-        # results exist at t >= query time
-        valid_t = (frame_ids[None, None, :] + float(start) + 0.5 - cur_q[:, :, 0:1]) >= 0
-        valid_bn1t = valid_t[:, :, None]
-        valid_bn = valid_t.sum(-1) > 0
-        # labels 0/1/2; the order matters: the equals-input pass sets 1 even for queries not
-        # yet valid, then valid queries that are not the input get 2 (track.py:415-423)
-        lab = valid_bn.to(dtype)
-        if cfg.modify_pointlabels_for_windowing:
-            eq_input = (cur_q == queries_bn3).sum(-1) > 0
-            lab = torch.where(eq_input, torch.ones_like(lab), lab)
-            lab = torch.where(valid_bn & ~eq_input, torch.full_like(lab, 2.0), lab)
-        q_off = cur_q.clone()
-        q_off[:, :, 0] -= float(start)
+    def masked_write(key: str, vals: torch.Tensor) -> torch.Tensor:
+        buf = carry[key]
+        init = torch.zeros_like(buf[..., :s]) if key != "vis" else torch.full_like(buf[..., :s], -10.0)
+        return torch.where(valid_bn1t, vals.to(buf.dtype), torch.cat([buf[..., s:], init], dim=-1))
 
-        enc = enc_final_wbpc[w]
-        if cfg.attend_to_past:
-            first = enc[:, None, : p // 2] + history
-            second = (enc[:, p // 2:] + mask_tok)[:, None].expand(b, n, p - p // 2, c)
-            enc = torch.cat([first, second], dim=2)
-        out = track_forward(head, cfg, enc, q_off, lab, prompt_feats, prompt_labels, kernels)
-        del enc
-
-        window = slice(start, start + ws)
-
-        def masked_write(buf, vals):
-            buf[..., window] = torch.where(valid_bn1t, vals.to(buf.dtype), buf[..., window])
-
-        masked_write(vis, out[f"{tname}_vis_est_bn1t"])
-        masked_write(traj, out[f"{tname}_traj_est_bn2t"])
-        if cfg.estimate_depth:
-            masked_write(depth, out[f"{tname}_depth_est_bn1t"])
-
-        # the next window's carry (unused after the last window)
-        if cfg.prompt_using_features:
-            prompt_feats = torch.where(valid_bn[..., None], out[f"{tname}_prompt_features_bnc"].to(mdtype),
-                                       prompt_feats)
-            prompt_labels = torch.where(valid_bn, torch.ones_like(prompt_labels), prompt_labels)
-        if cfg.attend_to_past:
-            history = out[f"{tname}_enc_history_kept_bnpc"].to(mdtype)
-        # re-query at the frame of highest visibility inside the next overlap
-        next_start = start + window_stride
-        overlap = slice(next_start, next_start + ws - window_stride)
-        best = torch.argmax(vis[:, :, 0, overlap], dim=-1)  # the first maximum, as jnp.argmax
-        best_xy = torch.take_along_dim(traj[..., overlap], best[:, :, None, None].expand(b, n, 2, 1), dim=-1)[..., 0]
-        new_t = best.to(dtype) + float(next_start) + 0.5
-        cand = torch.cat([new_t[..., None], best_xy], dim=-1)
-        cur_q = torch.where((cand[..., 0] > cur_q[..., 0])[..., None], cand, cur_q)
-
-    out = {f"{tname}_traj_est_bn2t": traj, f"{tname}_vis_est_bn1t": vis}
+    new = dict(carry)
+    new["vis"] = masked_write("vis", out[f"{tname}_vis_est_bn1t"])
+    new["traj"] = masked_write("traj", out[f"{tname}_traj_est_bn2t"])
     if cfg.estimate_depth:
-        out[f"{tname}_depth_est_bn1t"] = depth
+        new["depth"] = masked_write("depth", out[f"{tname}_depth_est_bn1t"])
+    if cfg.prompt_using_features:
+        new["prompt_feats"] = torch.where(valid_bn[..., None], out[f"{tname}_prompt_features_bnc"].to(mdtype),
+                                          carry["prompt_feats"])
+        new["prompt_labels"] = torch.where(valid_bn, torch.ones_like(carry["prompt_labels"]), carry["prompt_labels"])
+    if cfg.attend_to_past:
+        new["history"] = out[f"{tname}_enc_history_kept_bnpc"].to(mdtype)
+    # re-query at the frame of highest visibility inside the next overlap: the buffers' frames after the stride
+    best = torch.argmax(new["vis"][:, :, 0, s:], dim=-1)  # the first maximum, as jnp.argmax
+    best_xy = torch.take_along_dim(new["traj"][..., s:], best[:, :, None, None].expand(b, n, 2, 1), dim=-1)[..., 0]
+    new_t = best.to(dtype) + float(start + s) + 0.5
+    cand = torch.cat([new_t[..., None], best_xy], dim=-1)
+    new["queries"] = torch.where((cand[..., 0] > cur_q[..., 0])[..., None], cand, cur_q)
+    return new, {k: new[k][..., :s] for k in TRACK_BUFFERS}
+
+
+def track_outputs(cfg: TrackConfig, parts: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """{traj, vis, depth} buffers -> the session's track_2d output keys
+    (depth only when the head estimates it)."""
+    t = cfg.task_name
+    out = {f"{t}_traj_est_bn2t": parts["traj"], f"{t}_vis_est_bn1t": parts["vis"]}
+    if cfg.estimate_depth:
+        out[f"{t}_depth_est_bn1t"] = parts["depth"]
     return out
+
+
+def track_forward_windowed(head: TrackHead, cfg: TrackConfig, enc_final_wbpc: torch.Tensor,
+                           queries_bn3: torch.Tensor, labels_bn: torch.Tensor, window_stride: int = 8,
+                           kernels: TrackKernels = KERNELS) -> Dict[str, torch.Tensor]:
+    """Causal sliding-window tracking, forward direction: `track_window_step`
+    over the windows of enc_final_wbpc (num_windows, B, P, C) -> traj (B, N,
+    2, T), vis and depth (B, N, 1, T). Frames before a query's time keep the
+    buffers' initial values. The labels are recomputed per window from the
+    queries' validity, as the reference does."""
+    del labels_bn
+    nw, _, p, _ = enc_final_wbpc.shape
+    carry = init_track_carry(head, cfg, queries_bn3, p, enc_final_wbpc.dtype)
+    emits = []
+    for w in range(nw):
+        carry, emit = track_window_step(head, cfg, carry, enc_final_wbpc[w], queries_bn3, w, window_stride, kernels)
+        emits.append(emit)
+    # the last window's frames after its first stride are final too
+    emits.append({k: carry[k][..., window_stride:] for k in TRACK_BUFFERS})
+    return track_outputs(cfg, {k: torch.cat([e[k] for e in emits], dim=-1) for k in TRACK_BUFFERS})

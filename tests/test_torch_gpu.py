@@ -718,3 +718,106 @@ def test_homography_dlt_agrees_between_card_and_cpu(cuda):
               f"{apart[torch.float64][q].max().item():.3g} in float64; H card vs CPU at most "
               f"{diff[q].max().item():.3g} of it")
     assert diff.max().item() <= 1e-6
+
+
+def tiny_request(cuda, g, t=8, n=11):
+    """uint8 frames and n queries spread over the video, on the card."""
+    queries = torch.stack([torch.rand(n, generator=g, device=cuda) * t,
+                           torch.rand(n, generator=g, device=cuda) * 28,
+                           torch.rand(n, generator=g, device=cuda) * 28], -1)[None]
+    return {"rgb_u8_bthw3": torch.randint(0, 256, (1, t, 28, 28, 3), generator=g, device=cuda, dtype=torch.uint8),
+            "track_2d_pointquerries_bn3": queries, "track_2d_pointlabels_bn": torch.ones((1, n), device=cuda)}
+
+
+def hold_to_cpu(out, ref, what):
+    """The card's outputs against the CPU's (plain versions) on the same bf16
+    weights, within the band chip_smoke.py holds the kernel path to."""
+    assert set(out) == set(ref), what
+    for k, r in ref.items():
+        o = out[k].cpu()
+        assert o.shape == r.shape and torch.isfinite(o).all(), f"{what} {k}"
+        assert (o.float() - r.float()).abs().max().item() <= 3e-2 * r.float().abs().max().item(), f"{what} {k}"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dirs", [(1, -1), (-1,)])
+def test_bidirectional_session_on_card_matches_cpu(cuda, dirs):
+    """Backward and bidirectional tracks of the tiny model in bf16: the card
+    (kernels) against the CPU (plain versions); the backward pass doubles
+    the encoder's attention launches and the track kernels' with (1, -1)."""
+    import dataclasses
+
+    from l4p_tpu_torch import L4P, SLICE_TASKS, InferenceSession
+
+    base = tiny_cfg()
+    cfg = dataclasses.replace(base, track=dataclasses.replace(base.track, estimation_directions=dirs))
+    g = torch.Generator(device=cuda).manual_seed(1)
+    model = L4P(cfg, device=cuda, dtype=torch.bfloat16).eval()
+    model.init_weights(g)
+    data = tiny_request(cuda, g)
+    counters = (flash_attention, FK.t2i_flash, FK.i2t_ln_t2i, FU.fused_upscale_hypernet)
+    before = [f.launches for f in counters]
+    out = InferenceSession(cfg, SLICE_TASKS, cuda)(model, data)
+    passes, chunks, nw = len(dirs), 2, 3
+    assert [f.launches - b for f, b in zip(counters, before)] == [
+        4 * 2 * 2, passes * nw * chunks, 2 * passes * nw * chunks, passes * nw * chunks]
+    ref = InferenceSession(cfg, SLICE_TASKS, "cpu")(model.cpu(), {k: v.cpu() for k, v in data.items()})
+    hold_to_cpu(out, ref, f"directions {dirs}")
+
+
+@pytest.mark.gpu
+def test_camera_rays_session_on_card_matches_cpu(cuda):
+    """A camera_rays head (camray's DPT variant, raw rays, overwrite
+    stitch) beside depth, on the card against the CPU."""
+    import dataclasses
+
+    from l4p_tpu_torch import L4P, InferenceSession
+
+    base = tiny_cfg()
+    rays = dataclasses.replace(base.head_dict["camray"], task_name="rays", kind="camera_rays",
+                               dpt=dataclasses.replace(base.head_dict["camray"].dpt, output_size=(4, 8, 8)))
+    cfg = dataclasses.replace(base, heads=base.heads + (("rays", rays),))
+    g = torch.Generator(device=cuda).manual_seed(2)
+    model = L4P(cfg, device=cuda, dtype=torch.bfloat16).eval()
+    model.init_weights(g)
+    data = {"rgb_u8_bthw3": tiny_request(cuda, g)["rgb_u8_bthw3"]}
+    out = InferenceSession(cfg, ("rays", "depth"), cuda)(model, data)
+    assert out["rays_est_b6thw"].shape == (1, 6, 8, 8, 8)
+    ref = InferenceSession(cfg, ("rays", "depth"), "cpu")(model.cpu(), {k: v.cpu() for k, v in data.items()})
+    hold_to_cpu(out, ref, "camera_rays")
+
+
+@pytest.mark.gpu
+def test_streaming_on_card_matches_the_offline_session(cuda):
+    """The slice's four tasks of the tiny model in bf16, pushed in chunks of
+    3, 2 and 5 frames, against the offline session on the card."""
+    from l4p_tpu_torch import L4P, SLICE_TASKS, InferenceSession, StreamingL4P, assemble_emissions
+
+    cfg = tiny_cfg()
+    g = torch.Generator(device=cuda).manual_seed(3)
+    model = L4P(cfg, device=cuda, dtype=torch.bfloat16).eval()
+    model.init_weights(g)
+    data = tiny_request(cuda, g, t=10)
+    ref = InferenceSession(cfg, SLICE_TASKS, cuda)(model, data)
+    s = StreamingL4P(model, cfg, SLICE_TASKS, cuda, data["track_2d_pointquerries_bn3"])
+    frames, emits, t0 = data["rgb_u8_bthw3"].cpu().numpy(), [], 0
+    for c in (3, 2, 5):
+        emits += s.push(frames[:, t0: t0 + c])
+        t0 += c
+    emits.append(s.flush())
+    out = assemble_emissions(emits)
+    assert set(out) == set(ref)
+    for k, r in ref.items():
+        assert out[k].shape == r.shape and torch.isfinite(out[k]).all(), k
+        assert (out[k].float() - r.float()).abs().max().item() <= 3e-2 * r.float().abs().max().item(), k
+
+
+@pytest.mark.gpu
+def test_device_peak_flops_knows_the_h100(cuda):
+    """989e12 bf16 FLOP/s on the H100 SXM part (NVIDIA's data sheet), no
+    figure for a card the table does not know."""
+    from l4p_tpu_torch.utils.flops import device_peak_flops
+
+    name = torch.cuda.get_device_name(cuda)
+    assert device_peak_flops(cuda) == (989e12 if name == "NVIDIA H100 80GB HBM3" else None), name
+    assert device_peak_flops("cpu") is None

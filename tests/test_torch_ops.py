@@ -22,7 +22,7 @@ from l4p_tpu_torch.ops import resize as PRES
 
 torch.set_num_threads(1)
 
-DENSE_KINDS = ("flow", "depth", "dyn_mask", "camray")
+DENSE_KINDS = ("flow", "depth", "dyn_mask", "camray", "camera_rays")
 
 
 def check(port, ref, tol: float, what: str = "") -> None:
@@ -128,16 +128,40 @@ def test_unknown_head_class_raises_in_both_readers(tmp_path):
         PC.load_model_config(path)
 
 
-def test_camera_dpt_head_is_refused_as_not_ported(tmp_path):
-    """The JAX reader reads VideoMAECameraDPTHead as a `camera_rays` head; the
-    port names it as not ported instead of dropping it."""
+def test_camera_dpt_head_reads_as_camera_rays_in_both_readers(tmp_path):
+    """VideoMAECameraDPTHead is a `camera_rays` head: 6 channels and
+    camray's DPT variant with its output size, read field by field as the
+    JAX reader reads it."""
     from l4p_tpu.config import load_model_config
 
     path = yaml_with_head_class(tmp_path, "VideoMAECameraDPTHead")
-    jcfg, _ = load_model_config(path)
-    assert dict((n, h.kind) for n, h in jcfg.heads)["depth"] == "camera_rays"
-    with pytest.raises(NotImplementedError, match="VideoMAECameraDPTHead.*camera_rays.*not ported"):
-        PC.load_model_config(path)
+    jcfg, jtasks = load_model_config(path)
+    pcfg, ptasks = PC.load_model_config(path)
+    assert ptasks == jtasks
+    assert pcfg == port_config(jcfg)
+    head = pcfg.head_dict["depth"]
+    assert (head.kind, head.out_nchan, head.dpt.num_channels, head.dpt.output_size) == ("camera_rays", 6, 6,
+                                                                                        (16, 16, 16))
+    assert head.dpt.fusion_scale_factors == pcfg.head_dict["camray"].dpt.fusion_scale_factors
+
+
+def test_camera_embedding_is_refused_by_the_reader(tmp_path):
+    """The Plucker camera embedding is not ported: a YAML encoder that asks
+    for it is refused, one that sets it to null is read."""
+    import yaml
+
+    with open("configs/model_tiny.yaml") as f:
+        tree = yaml.safe_load(f)
+    enc = tree["init_args"]["l4p_model"]["init_args"]["encoder"]
+    for value, ok in ((None, True), ("input", False)):
+        enc["cam_emb_placed_at"] = value
+        path = tmp_path / "model.yaml"
+        path.write_text(yaml.safe_dump(tree))
+        if ok:
+            assert PC.load_model_config(str(path))[0].encoder == PC.load_model_config("configs/model_tiny.yaml")[0].encoder
+        else:
+            with pytest.raises(NotImplementedError, match="camera embedding"):
+                PC.load_model_config(str(path))
 
 
 # --- conv / norm / activation ----------------------------------------------

@@ -83,13 +83,26 @@ def test_session_refuses_tasks_outside_the_slice(tasks):
         InferenceSession(cfg, tasks, "cpu")
 
 
-def test_session_refuses_bidirectional_tracking():
+def test_session_bidirectional_tracking_matches_jax():
+    """estimation_directions (1, -1) on the four tasks of the slice against
+    JAX l4p_forward (the JAX session refuses it): T = 8 (three windows), 11
+    queries spread over the video in chunks of 8, so the flipped pass's query
+    times, the merge at t + 0.5 >= q_t and the padding all run."""
     import dataclasses
 
-    _, _, pcfg, _ = tiny_models()
-    cfg = dataclasses.replace(pcfg, track=dataclasses.replace(pcfg.track, estimation_directions=(1, -1)))
-    with pytest.raises(ValueError, match="forward only"):
-        InferenceSession(cfg, SLICE_TASKS, "cpu")
+    from l4p_tpu.models.l4p import l4p_forward
+    from tests.test_l4p_forward import make_data
+
+    jcfg, jparams, pcfg, model = tiny_models()
+    jcfg = dataclasses.replace(jcfg, track=dataclasses.replace(jcfg.track, estimation_directions=(1, -1)))
+    pcfg = dataclasses.replace(pcfg, track=dataclasses.replace(pcfg.track, estimation_directions=(1, -1)))
+    data = {k: np.asarray(v) for k, v in make_data(T=8, N=11, seed=4).items() if k != "intrinsics_b44t"}
+    ref = l4p_forward(jparams, jcfg, {k: jnp.asarray(v) for k, v in data.items()}, SLICE_TASKS)
+    out = InferenceSession(pcfg, SLICE_TASKS, "cpu")(model, data)
+    assert set(out) == set(ref)
+    for k in ref:
+        # measured <= 6.1e-7 (depth), 3.8e-7 (traj, in pixels)
+        check(out[k], ref[k], 1.5e-6, k)
 
 
 def test_session_refuses_other_frame_sizes():
