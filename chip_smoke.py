@@ -12,9 +12,9 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      bytes, each input read once and each output written once, over the
      memory rate) and, where one PyTorch call computes the same function,
      that call's time: the attention at the default encoder's shape (2
-     windows x 16 heads, 2048 tokens, D=88) and at bench.py's fused shape (5
-     windows x 16 heads), each beside scaled_dot_product_attention, and at
-     N=512, D=64; t2i_flash and i2t_ln_t2i at the track head's N=128 queries,
+     windows x 16 heads, 2048 tokens, D=88), at bench.py's fused shape (5
+     windows x 16 heads) and at streaming's one window (1 x 16 heads), each
+     beside scaled_dot_product_attention, and at N=512, D=64; t2i_flash and i2t_ln_t2i at the track head's N=128 queries,
      P=2048, C=1408, K=48 and at a ragged N=3, P=1000, both also against
      their plain versions on fp32 copies of the bf16 operands (the kernel no
      farther from them than the plain version, KEYS_WITNESS_SLACK);
@@ -100,10 +100,13 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
  18. streaming (StreamingL4P) of bench.py's 48-frame five-task request
      (the released camray head estimates K once, the mode in which JAX's
      streaming equals its offline run) in pushes of one stride, ms per
-     stride printed and launch counts checked, held against the offline
+     stride printed and launch counts checked; held against the offline
      session that encodes and runs the heads one window at a time, as
-     streaming does (SLICE_TOL, TRACK_BANDS, GEOMETRY_TOL), and printed
-     beside the default offline session; whole-video times of both.
+     streaming does, on the plain path (plain attention and track kernels:
+     flow, dyn_mask within SLICE_TOL, the tracks within TRACK_BANDS, depth
+     and the camray outputs finite with their difference printed, as in
+     phase 12) and equal bit for bit to the same session's kernel path;
+     printed beside the default offline session; whole-video times of both.
 Every line with a number names the card and its power limit. The last two
 lines are the kernels' record and {"ok": true, "device": {...}}. A kernel's
 `launches` is its count over bench.py's request (phase 10's first point,
@@ -774,6 +777,7 @@ def main() -> int:
     gen = torch.Generator(device=dev).manual_seed(0)
     record = {"flash_attention": compare_attention(FA, (2, 16, 2048, 88), gen, log, checks, library=True)}
     compare_attention(FA, (5, 16, 2048, 88), gen, log, checks, library=True)  # the fused encoder's 80 heads
+    compare_attention(FA, (1, 16, 2048, 88), gen, log, checks, library=True)  # streaming's one window
     compare_attention(FA, (1, 8, 512, 64), gen, log, checks, library=False)
     heads = 8
     for n, p, c, k, giant in ((QUERY_CHUNK, 2048, 1408, 48, True), (3, 1000, 128, 48, False)):
@@ -1149,10 +1153,11 @@ def main() -> int:
             with torch.inference_mode():
                 pose_d, intr_d = PL.camray_windows_to_cameras(rays_w.to(d), hcfg, img_info, intr_k.to(d), stride,
                                                               P.RandomDraws())
-                joint = PL.stitch_joint_depth_camray(depth_w.to(d), pose_d, intr_d, stride, TRACK_FRAMES,
-                                                     P.RandomDraws(), cfg.sim3_num_trials, cfg.sim3_min_samples)
-            results[where] = {"window poses": pose_d, "window K": intr_d, "stitched depth": joint["depth"],
-                              "stitched poses": joint["camray"], "stitched K": joint["camray_intrinsics"]}
+                joint = PL.stitch_dense_outputs(cfg, ("depth", "camray"), {"depth": depth_w.to(d)}, stride,
+                                                TRACK_FRAMES, pose_d, intr_d, P.RandomDraws())
+            pose_key, k_key = CAMRAY_KEYS
+            results[where] = {"window poses": pose_d, "window K": intr_d, "stitched depth": joint["depth_est_b1thw"],
+                              "stitched poses": joint[pose_key], "stitched K": joint[k_key]}
             trace[where] = GC.RANSAC_TRACE
         GC.RANSAC_TRACE = None
         checks.expect(len(trace["card"]) == len(trace["cpu"]), f"{what}: the card and the CPU ran other RANSACs")
@@ -1297,15 +1302,32 @@ def main() -> int:
         f"{', '.join(f'{t:.1f}' for t in push_ms)} (a window runs from the second push on; "
         f"{sum(push_ms[1:]) / len(push_ms[1:]):.1f} ms per stride), whole video {stream_s:.4f} s; offline session "
         f"{offline['default s']:.4f} s (one window at a time: {offline['one window at a time s']:.4f} s)")
-    for key, r in offline["one window at a time"].items():
+    # the kernels at streaming's shapes (the encoder at batch 1, the track carry) against their
+    # plain versions: the offline session one window at a time on the plain path
+    before = counts()
+    plain = P.InferenceSession(cfg_one, P.ALL_TASKS, dev, attention=FA.flash_attention_plain,
+                               track_kernels=P.PLAIN)(model, request)
+    torch.cuda.synchronize()
+    checks.expect(counts() == before, "the plain-path one-window session launched a kernel")
+    for key, r in plain.items():
         if key in ("depth_est_b1thw", *CAMRAY_KEYS):
+            # the RANSACs pick among hypotheses by inlier counts, which a bf16 step can change
+            # (phase 12): finite, difference printed
             err, scale = rel_diff(streamed[key], r)
-            log(f"streaming {key} against the offline session one window at a time: max|diff| {err:.4g} = "
-                f"{err / max(scale, 1e-30):.3g} x max|offline| (band {GEOMETRY_TOL})")
-            checks.expect(math.isfinite(err) and err <= GEOMETRY_TOL * scale,
-                          f"streaming {key} differs from the offline session by {err}")
+            log(f"streaming {key} (joint Sim(3) chain) against the plain path one window at a time: max|diff| "
+                f"{err:.4g} = {err / max(scale, 1e-30):.3g} x max|plain|, both finite: "
+                f"{bool(torch.isfinite(r).all())}")
+            checks.expect(bool(torch.isfinite(r).all()), f"plain-path one-window {key} is not finite")
         else:
-            hold(key, streamed[key], r, "streaming against the offline session one window at a time:")
+            hold(key, streamed[key], r, "streaming against the plain path one window at a time:")
+    del plain
+    # the stream runs the offline session's one-window steps: equal to its kernel path bit for bit
+    for key, r in offline["one window at a time"].items():
+        same = torch.equal(streamed[key], r)
+        err, scale = rel_diff(streamed[key], r)
+        log(f"streaming {key} against the offline session's kernel path one window at a time: bit for bit "
+            f"{same}, max|diff| {err:.4g}")
+        checks.expect(same, f"streaming {key} differs from the offline session one window at a time by {err}")
     for key, r in offline["default"].items():
         err, scale = rel_diff(streamed[key], r)
         log(f"streaming {key} against the default offline session: max|diff| {err:.4g} = "

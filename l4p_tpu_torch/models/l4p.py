@@ -7,9 +7,11 @@ fused encoder) with the window axis merged into the batch, and each dense
 head runs `dense_window_chunk` windows at a time; the JAX package's lax.map
 chunking and stacked zero-padded heads exist for XLA's compiler and are not
 carried over (the outputs are the same). Camray rays become poses and
-intrinsics per window (`window_cameras`); depth and camray are stitched by
-one Sim(3) chain under `joint_alignment`; each chain is a loop of one-window
-steps (`depth_align_step`, `joint_align_step`), which streaming also runs.
+intrinsics per window (`window_cameras`). Stitching is a loop over windows
+that streaming also runs one window at a time: `align_window` takes a
+window's outputs through the depth chain, or through one Sim(3) chain for
+depth and camray under `joint_alignment`, and `window_frames` gives the
+frames no later window writes.
 Tracking runs `max_queries` queries at a time (`run_track_chunked`), and
 backward in time on the flipped video (`flip_query_times`,
 `merge_directions`). `forward_single_window` runs one window unstitched.
@@ -20,7 +22,7 @@ Every random draw (the homography and Sim(3) RANSAC samples) comes from a
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Protocol, Sequence, Tuple
+from typing import Dict, List, Optional, Protocol, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -212,24 +214,40 @@ def run_dense_head(head: DenseTaskHead, hook_feats: Dict[int, torch.Tensor], img
     return torch.cat(outs).unflatten(0, (nw, b))
 
 
-def writer_index(t_total: int, nw: int, stride: int, flow_skip: bool, device=None):
-    """For each output frame, (window, frame-in-window) of the last window
-    that writes it: the reference's sequential overwrite (dense_heads.py:136-140)
-    as a gather. With `flow_skip`, windows after the first do not write their
-    frame 0 (dense_heads.py:136-138)."""
-    t_idx = torch.arange(t_total, device=device)
-    if flow_skip:
-        win = torch.where(t_idx == 0, torch.zeros_like(t_idx), torch.div(t_idx - 1, stride, rounding_mode="floor"))
-    else:
-        win = torch.div(t_idx, stride, rounding_mode="floor")
-    win = win.clamp(0, nw - 1)
-    return win, t_idx - win * stride
+def window_frames(aligned: Dict[str, torch.Tensor], prev: Optional[Dict[str, torch.Tensor]], stride: int,
+                  skip_first: Optional[str] = None) -> Dict[str, torch.Tensor]:
+    """The frames of one window that no later window writes (the
+    reference's sequential overwrite, dense_heads.py:136-140: the last
+    writer wins): the `stride` frames from the window's start, on axis 2 of
+    each of its outputs. Windows after the first do not write frame 0 of
+    the output `skip_first` (flow's skip, dense_heads.py:136-138): that
+    frame is the previous window's frame `stride`. `prev` is the previous
+    window's outputs, None at window 0."""
+    out = {k: v[:, :, :stride] for k, v in aligned.items()}
+    if prev is not None and skip_first in aligned:
+        out[skip_first] = torch.cat([prev[skip_first][:, :, stride: stride + 1], aligned[skip_first][:, :, 1:stride]],
+                                    dim=2)
+    return out
+
+
+def window_tail(aligned: Dict[str, torch.Tensor], stride: int) -> Dict[str, torch.Tensor]:
+    """The last window's frames after its first stride."""
+    return {k: v[:, :, stride:] for k, v in aligned.items()}
 
 
 def stitch_overwrite(win_outs: torch.Tensor, stride: int, t_total: int, flow_skip: bool = False) -> torch.Tensor:
-    """(nw, B, C, ws, ...) -> (B, C, T, ...)."""
-    win, frame = writer_index(t_total, win_outs.shape[0], stride, flow_skip, win_outs.device)
-    return win_outs[win, :, :, frame].movedim(0, 2)
+    """(nw, B, C, ws, ...) -> (B, C, T, ...) by `window_frames`."""
+    check_frames(win_outs.shape[0], win_outs.shape[3], stride, t_total)
+    wins = [{"x": w} for w in win_outs]
+    parts = [window_frames(cur, wins[i - 1] if i else None, stride, "x" if flow_skip else None)["x"]
+             for i, cur in enumerate(wins)]
+    return torch.cat([*parts, window_tail(wins[-1], stride)["x"]], dim=2)
+
+
+def check_frames(nw: int, ws: int, stride: int, t_total: int) -> None:
+    if (nw - 1) * stride + ws != t_total:
+        raise ValueError(f"{nw} windows of {ws} frames at stride {stride} cover {(nw - 1) * stride + ws} frames, "
+                         f"not {t_total}")
 
 
 def window_cameras(rays_b6thw: torch.Tensor, hcfg: DenseHeadConfig, img_info: Tuple[int, int, int],
@@ -295,16 +313,6 @@ def depth_align_step(prev: torch.Tensor, cur: torch.Tensor, stride: int, hcfg: D
     return linear_scale_apply(sol, cur, pre_inverse=hcfg.align_pre_inverse)
 
 
-def stitch_depth_aligned(depth_w: torch.Tensor, stride: int, t_total: int, hcfg: DenseHeadConfig) -> torch.Tensor:
-    """Sequential scale/shift alignment chain over windows
-    (reference dense_heads.py:104-140): each window is aligned to the
-    previous aligned window on their overlap, then overwrite-stitched."""
-    aligned = [depth_w[0]]
-    for cur in depth_w[1:]:
-        aligned.append(depth_align_step(aligned[-1], cur, stride, hcfg))
-    return stitch_overwrite(torch.stack(aligned), stride, t_total)
-
-
 def joint_align_step(prev: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
                      cur: Tuple[torch.Tensor, torch.Tensor, torch.Tensor], stride: int, step: int, draws: Draws,
                      num_trials: int = 128, min_samples: int = 10) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -326,59 +334,71 @@ def joint_align_step(prev: Tuple[torch.Tensor, torch.Tensor, torch.Tensor],
     return applied["depth"], applied["camray"]
 
 
-def stitch_joint_depth_camray(depth_w: torch.Tensor, pose_w: torch.Tensor, intr_w: torch.Tensor, stride: int,
-                              t_total: int, draws: Draws, num_trials: int = 128,
-                              min_samples: int = 10) -> Dict[str, torch.Tensor]:
-    """Joint Sim(3) alignment chain (reference joint_windowed_estimation,
-    dense_heads.py:360-492): each window's point map on the overlap, from its
-    depth, pose and K, is RANSAC-aligned to the previous aligned window's,
-    then depth, pose and K are overwrite-stitched. depth_w (nw, B, 1, ws, H, W),
-    pose_w and intr_w (nw, B, 16, ws)."""
-    depths, poses = [depth_w[0]], [pose_w[0]]
-    for k_idx in range(1, depth_w.shape[0]):
-        d, p = joint_align_step((depths[-1], poses[-1], intr_w[k_idx - 1]), (depth_w[k_idx], pose_w[k_idx],
-                                intr_w[k_idx]), stride, k_idx, draws, num_trials, min_samples)
-        depths.append(d)
-        poses.append(p)
-    return {
-        "depth": stitch_overwrite(torch.stack(depths), stride, t_total),
-        "camray": stitch_overwrite(torch.stack(poses), stride, t_total),
-        "camray_intrinsics": stitch_overwrite(intr_w, stride, t_total),
-    }
+def flow_key(cfg: L4PConfig) -> Optional[str]:
+    """The flow output's key, the one whose frame 0 later windows skip."""
+    h = cfg.head_dict.get("flow_2d_backward")
+    return None if h is None else f"{h.task_name}_est_b2thw"
+
+
+def align_window(cfg: L4PConfig, tasks: Sequence[str], cur: Dict[str, torch.Tensor],
+                 prev: Optional[Dict[str, torch.Tensor]], step: int, stride: int,
+                 draws: Draws) -> Dict[str, torch.Tensor]:
+    """One window's outputs under the session's keys, each (B, C, ws, ...),
+    aligned to `prev`, the previous window's result (None at window 0).
+    `cur` holds the window's dense head outputs by task and, for camray, its
+    `pose` and `intrinsics` (B, 16, ws) from `window_cameras`. flow and
+    dyn_mask stay as they are; depth goes through the disparity-affine (or
+    scale) chain (reference dense_heads.py:104-140); camray gives its poses
+    and, unless it uses the input intrinsics, its K (dense_heads.py:
+    309-315); under `joint_alignment` depth and poses go through one Sim(3)
+    chain (dense_heads.py:360-492; l4p_tpu/models/l4p.py:604-656) and K is
+    always given. `step` names the Sim(3) draws."""
+    heads = cfg.head_dict
+    joint = cfg.joint_alignment and "depth" in tasks and "camray" in tasks
+    out: Dict[str, torch.Tensor] = {}
+    for t, layout in (("flow_2d_backward", "b2thw"), ("depth", "b1thw"), ("dyn_mask", "b1thw")):
+        if t in tasks:
+            out[f"{heads[t].task_name}_est_{layout}"] = cur[t]
+    if "camray" in tasks:
+        pose_key, k_key = f"{heads['camray'].task_name}_est_b16t", f"{heads['camray'].task_name}_intrinsics_est_b16t"
+        out[pose_key] = cur["pose"]
+        if joint or not heads["camray"].use_intrinsics:
+            out[k_key] = cur["intrinsics"]
+    if prev is not None and "depth" in tasks:
+        depth_key = f"{heads['depth'].task_name}_est_b1thw"
+        if joint:
+            out[depth_key], out[pose_key] = joint_align_step(
+                (prev[depth_key], prev[pose_key], prev[k_key]), (cur["depth"], cur["pose"], cur["intrinsics"]),
+                stride, step, draws, cfg.sim3_num_trials, cfg.sim3_min_samples)
+        else:
+            out[depth_key] = depth_align_step(prev[depth_key], cur["depth"], stride, heads["depth"])
+    return out
 
 
 def stitch_dense_outputs(cfg: L4PConfig, tasks: Sequence[str], dense_outs: Dict[str, torch.Tensor], stride: int,
                          t_total: int, pose_w: Optional[torch.Tensor] = None, intr_w: Optional[torch.Tensor] = None,
                          draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
-    """flow = overwrite with the frame-0 skip; dyn_mask = overwrite;
-    depth = disparity-affine chain; camray = pose overwrite (+ the estimated
-    K unless use_intrinsics); depth and camray together under
-    `joint_alignment` = the joint Sim(3) chain (l4p_tpu/models/l4p.py:604-656).
-    pose_w and intr_w (nw, B, 16, ws) come from `camray_windows_to_cameras`."""
-    heads = cfg.head_dict
-    joint = cfg.joint_alignment and "depth" in tasks and "camray" in tasks and pose_w is not None
-    out: Dict[str, torch.Tensor] = {}
-    for t in tasks:
-        hcf = heads.get(t)
-        if t == "flow_2d_backward":
-            out[f"{hcf.task_name}_est_b2thw"] = stitch_overwrite(dense_outs[t], stride, t_total, flow_skip=True)
-        elif t == "dyn_mask":
-            out[f"{hcf.task_name}_est_b1thw"] = stitch_overwrite(dense_outs[t], stride, t_total)
-        elif t == "depth" and not joint:
-            out[f"{hcf.task_name}_est_b1thw"] = stitch_depth_aligned(dense_outs[t], stride, t_total, hcf)
-        elif t == "camray" and pose_w is not None and not joint:
-            out[f"{hcf.task_name}_est_b16t"] = stitch_overwrite(pose_w, stride, t_total)
-            if not hcf.use_intrinsics:
-                # with input intrinsics the reference emits no K estimate (dense_heads.py:309-315)
-                out[f"{hcf.task_name}_intrinsics_est_b16t"] = stitch_overwrite(intr_w, stride, t_total)
-    if joint:
-        stitched = stitch_joint_depth_camray(dense_outs["depth"], pose_w, intr_w, stride, t_total,
-                                             draws or RandomDraws(), cfg.sim3_num_trials, cfg.sim3_min_samples)
-        out[f"{heads['depth'].task_name}_est_b1thw"] = stitched["depth"]
-        name = heads["camray"].task_name
-        out[f"{name}_est_b16t"] = stitched["camray"]
-        out[f"{name}_intrinsics_est_b16t"] = stitched["camray_intrinsics"]
-    return out
+    """Per-window outputs -> whole-video outputs: `align_window` over the
+    windows, each window's `window_frames` and the last window's tail
+    concatenated in time. dense_outs (nw, B, C, ws, H, W) by task; pose_w and
+    intr_w (nw, B, 16, ws) from `camray_windows_to_cameras` when the tasks
+    have camray. Tasks without a dense output (track_2d) are skipped."""
+    tasks = [t for t in tasks if t in dense_outs or (t == "camray" and pose_w is not None)]
+    if not tasks:
+        return {}
+    nw = (pose_w if pose_w is not None else dense_outs[tasks[0]]).shape[0]
+    draws = draws or RandomDraws()
+    parts, prev = [], None
+    for w in range(nw):
+        cur = {t: v[w] for t, v in dense_outs.items()}
+        if pose_w is not None:
+            cur.update(pose=pose_w[w], intrinsics=intr_w[w])
+        aligned = align_window(cfg, tasks, cur, prev, w, stride, draws)
+        parts.append(window_frames(aligned, prev, stride, flow_key(cfg)))
+        prev = aligned
+    check_frames(nw, next(iter(prev.values())).shape[2], stride, t_total)
+    parts.append(window_tail(prev, stride))
+    return {k: torch.cat([p[k] for p in parts], dim=2) for k in prev}
 
 
 def merge_query_chunks(v: torch.Tensor, n_queries: int) -> torch.Tensor:
@@ -388,26 +408,27 @@ def merge_query_chunks(v: torch.Tensor, n_queries: int) -> torch.Tensor:
     return m.reshape(m.shape[0], m.shape[1] * m.shape[2], *m.shape[3:])[:, :n_queries]
 
 
+def query_chunks(queries_bn3: torch.Tensor, max_queries: int) -> List[torch.Tensor]:
+    """`max_queries` queries at a time (the reference's memory governor,
+    sparse_heads.py:181-211), the last chunk padded with queries at (0, 0,
+    0) whose outputs `merge_query_chunks` drops."""
+    n = queries_bn3.shape[1]
+    chunk = min(max_queries, n)
+    pad = -n % chunk
+    if pad:
+        queries_bn3 = torch.cat([queries_bn3, queries_bn3.new_zeros((queries_bn3.shape[0], pad, 3))], dim=1)
+    return list(queries_bn3.split(chunk, dim=1))
+
+
 def run_track_chunked(head: TrackHead, enc_final: torch.Tensor, queries: torch.Tensor, labels: torch.Tensor,
                       stride: int, kernels: TrackKernels = KERNELS) -> Dict[str, torch.Tensor]:
     """Forward-direction windowed tracking over the encoder's final features
-    (nw, B, P, C), `max_queries` queries at a time (the reference's memory
-    governor, sparse_heads.py:181-211). Padding queries get coordinates 0
-    and label 0, and their outputs are sliced off."""
-    tcfg = head.cfg
-    n = queries.shape[1]
-    chunk = min(tcfg.max_queries, n)
-    n_chunks = -(-n // chunk)
-    pad = n_chunks * chunk - n
-    if pad:
-        queries = torch.cat([queries, queries.new_zeros((queries.shape[0], pad, 3))], dim=1)
-        labels = torch.cat([labels, labels.new_zeros((labels.shape[0], pad))], dim=1)
-    outs = [
-        track_forward_windowed(head, tcfg, enc_final, queries[:, i * chunk: (i + 1) * chunk],
-                               labels[:, i * chunk: (i + 1) * chunk], stride, kernels)
-        for i in range(n_chunks)
-    ]
-    return {k: merge_query_chunks(torch.stack([o[k] for o in outs]), n) for k in outs[0]}
+    (nw, B, P, C), in `query_chunks`. The labels are recomputed per window
+    from the queries' validity, as the reference does."""
+    del labels
+    outs = [track_forward_windowed(head, head.cfg, enc_final, q, None, stride, kernels)
+            for q in query_chunks(queries, head.cfg.max_queries)]
+    return {k: merge_query_chunks(torch.stack([o[k] for o in outs]), queries.shape[1]) for k in outs[0]}
 
 
 def flip_query_times(queries_bn3: torch.Tensor, t_total: int) -> torch.Tensor:

@@ -268,6 +268,11 @@ def track_window_step(head: TrackHead, cfg: TrackConfig, carry: Dict[str, torch.
     return new, {k: new[k][..., :s] for k in TRACK_BUFFERS}
 
 
+def track_tail(carry: Dict[str, torch.Tensor], window_stride: int) -> Dict[str, torch.Tensor]:
+    """The last window's frames after its first stride, which are final too."""
+    return {k: carry[k][..., window_stride:] for k in TRACK_BUFFERS}
+
+
 def track_outputs(cfg: TrackConfig, parts: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     """{traj, vis, depth} buffers -> the session's track_2d output keys
     (depth only when the head estimates it)."""
@@ -279,7 +284,7 @@ def track_outputs(cfg: TrackConfig, parts: Dict[str, torch.Tensor]) -> Dict[str,
 
 
 def track_forward_windowed(head: TrackHead, cfg: TrackConfig, enc_final_wbpc: torch.Tensor,
-                           queries_bn3: torch.Tensor, labels_bn: torch.Tensor, window_stride: int = 8,
+                           queries_bn3: torch.Tensor, labels_bn: Optional[torch.Tensor], window_stride: int = 8,
                            kernels: TrackKernels = KERNELS) -> Dict[str, torch.Tensor]:
     """Causal sliding-window tracking, forward direction: `track_window_step`
     over the windows of enc_final_wbpc (num_windows, B, P, C) -> traj (B, N,
@@ -293,6 +298,5 @@ def track_forward_windowed(head: TrackHead, cfg: TrackConfig, enc_final_wbpc: to
     for w in range(nw):
         carry, emit = track_window_step(head, cfg, carry, enc_final_wbpc[w], queries_bn3, w, window_stride, kernels)
         emits.append(emit)
-    # the last window's frames after its first stride are final too
-    emits.append({k: carry[k][..., window_stride:] for k in TRACK_BUFFERS})
+    emits.append(track_tail(carry, window_stride))
     return track_outputs(cfg, {k: torch.cat([e[k] for e in emits], dim=-1) for k in TRACK_BUFFERS})

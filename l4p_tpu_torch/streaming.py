@@ -7,11 +7,11 @@ features and token memory forward. So frames can be pushed as they arrive:
 frame f is final once window floor(f / stride) has run (the stitchers' "last
 writer wins"), and each `stride` frames pushed give `stride` final frames of
 every task. `StreamingL4P` runs, per window, the one-window steps the
-offline session loops over (`window_cameras`, `depth_align_step`,
-`joint_align_step`, `track_window_step`), with the carry as a dict of
-tensors on the device, so its outputs equal `InferenceSession`'s on the same
-frames and draws (with RandomDraws also in the variable-K camray mode,
-whose draws are named by window).
+offline session loops over (`window_cameras`, `align_window` and
+`window_frames`, `track_window_step`), with the carry as a dict of tensors
+on the device, so its outputs equal `InferenceSession`'s on the same frames
+and draws (with RandomDraws also in the variable-K camray mode, whose draws
+are named by window).
 """
 
 from __future__ import annotations
@@ -27,15 +27,18 @@ from l4p_tpu_torch.inference import DENSE_TASKS, InferenceSession
 from l4p_tpu_torch.models.encoder import AttentionFn, EncoderBlocksFn
 from l4p_tpu_torch.models.l4p import (
     Draws,
-    depth_align_step,
+    align_window,
     encode_windows,
-    joint_align_step,
+    flow_key,
     merge_query_chunks,
+    query_chunks,
     run_dense_head,
     window_cameras,
+    window_frames,
+    window_tail,
 )
 from l4p_tpu_torch.models.sam import KERNELS, TrackKernels
-from l4p_tpu_torch.models.track import TRACK_BUFFERS, init_track_carry, track_outputs, track_window_step
+from l4p_tpu_torch.models.track import TRACK_BUFFERS, init_track_carry, track_outputs, track_tail, track_window_step
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 from l4p_tpu_torch.ops.fused_encoder import fused_encoder_blocks
 
@@ -79,7 +82,7 @@ class StreamingL4P:
     session's."""
 
     def __init__(self, model: nn.Module, cfg: L4PConfig, tasks: Sequence[str], device: Union[str, torch.device],
-                 queries_bn3=None, labels_bn=None, draws: Optional[Draws] = None,
+                 queries_bn3=None, draws: Optional[Draws] = None,
                  attention: AttentionFn = flash_attention, track_kernels: TrackKernels = KERNELS,
                  encoder_blocks: EncoderBlocksFn = fused_encoder_blocks):
         heads = cfg.head_dict
@@ -95,7 +98,7 @@ class StreamingL4P:
         self.draws = self._session.draws
         self.ws, self.stride = cfg.window_size[0], cfg.window_stride_t
         self.h, self.w = cfg.window_size[1:]
-        self.joint = cfg.joint_alignment and "depth" in self.tasks and "camray" in self.tasks
+        self._dense_tasks = tuple(t for t in self.tasks if t != "track_2d")
 
         # host-side frame buffer, trimmed as windows complete; _buf_t counts every frame pushed
         self._frames: List[np.ndarray] = []  # each (B, t, H, W, 3) uint8
@@ -104,23 +107,16 @@ class StreamingL4P:
         self._w = 0  # the next window
         self._flushed = False
         self._has_intr: Optional[bool] = None  # intrinsics with every push or never
-        self._carry: Optional[Dict] = None  # the previous window's outputs, built by window 0
+        # the previous window's aligned outputs, camray's window-0 K and the track carry, built by window 0
+        self._carry: Optional[Dict] = None
 
         self._q0 = None
         if "track_2d" in self.tasks:
             if queries_bn3 is None:
                 raise ValueError("track_2d requires queries at session start")
-            # like the offline scan, the labels are recomputed per window from the queries' validity
-            del labels_bn
             q = torch.as_tensor(queries_bn3, device=self.device)
-            n = q.shape[1]
-            chunk = min(cfg.track.max_queries, n)
-            n_chunks = -(-n // chunk)
-            pad = n_chunks * chunk - n
-            if pad:  # padding queries, sliced off the emissions (as run_track_chunked pads)
-                q = torch.cat([q, q.new_zeros((q.shape[0], pad, 3))], dim=1)
-            self._n_queries = n
-            self._q0 = list(q.split(chunk, dim=1))
+            self._n_queries = q.shape[1]
+            self._q0 = query_chunks(q, cfg.track.max_queries)
 
     # -- one window --------------------------------------------------------
 
@@ -135,51 +131,18 @@ class StreamingL4P:
         hooks, final = enc["hooks"], enc["final"][0]
         del enc
         chunk = cfg.dense_window_chunk
-        dense = {t: run_dense_head(model.task_heads[t], hooks, img_info, chunk)[0] for t in tasks if t in DENSE_TASKS}
+        cur = {t: run_dense_head(model.task_heads[t], hooks, img_info, chunk)[0] for t in tasks if t in DENSE_TASKS}
         prev = self._carry or {}
         carry: Dict = {}
-        emit: Dict[str, torch.Tensor] = {"t0": w * s}
         if "camray" in tasks:
             rays = run_dense_head(model.task_heads["camray"], hooks, img_info, chunk)[0]
             k_in = None if intr is None else torch.as_tensor(intr, device=dev)
-            pose, k_out, carry["k0"] = window_cameras(rays, heads["camray"], img_info, k_in, w, None, prev.get("k0"),
-                                                      self.draws)
+            cur["pose"], cur["intrinsics"], carry["k0"] = window_cameras(rays, heads["camray"], img_info, k_in, w, None,
+                                                                         prev.get("k0"), self.draws)
             del rays
         del hooks
-
-        if self.joint:
-            d, p = dense["depth"], pose
-            if w > 0:
-                d, p = joint_align_step((prev["depth_prev"], prev["pose_prev"], prev["intr_prev"]), (d, p, k_out), s,
-                                        w, self.draws, cfg.sim3_num_trials, cfg.sim3_min_samples)
-            carry.update(depth_prev=d, pose_prev=p, intr_prev=k_out)
-            emit[f"{heads['depth'].task_name}_est_b1thw"] = d[:, :, :s]
-            name = heads["camray"].task_name
-            emit[f"{name}_est_b16t"] = p[:, :, :s]
-            emit[f"{name}_intrinsics_est_b16t"] = k_out[:, :, :s]
-        else:
-            if "depth" in tasks:
-                d = dense["depth"]
-                if w > 0:
-                    d = depth_align_step(prev["depth_prev"], d, s, heads["depth"])
-                carry["depth_prev"] = d
-                emit[f"{heads['depth'].task_name}_est_b1thw"] = d[:, :, :s]
-            if "camray" in tasks:
-                name = heads["camray"].task_name
-                carry.update(pose_prev=pose, intr_prev=k_out)
-                emit[f"{name}_est_b16t"] = pose[:, :, :s]
-                if not heads["camray"].use_intrinsics:
-                    emit[f"{name}_intrinsics_est_b16t"] = k_out[:, :, :s]
-        if "dyn_mask" in tasks:
-            carry["dyn_prev"] = dense["dyn_mask"]
-            emit[f"{heads['dyn_mask'].task_name}_est_b1thw"] = dense["dyn_mask"][:, :, :s]
-        if "flow_2d_backward" in tasks:
-            cur = dense["flow_2d_backward"]
-            # windows after the first do not write their frame 0 (the flow skip): frame w * s
-            # is the previous window's frame s
-            first = cur[:, :, :1] if w == 0 else prev["flow_prev"][:, :, s: s + 1]
-            carry["flow_prev"] = cur
-            emit[f"{heads['flow_2d_backward'].task_name}_est_b2thw"] = torch.cat([first, cur[:, :, 1:s]], dim=2)
+        carry["aligned"] = align_window(cfg, self._dense_tasks, cur, prev.get("aligned"), w, s, self.draws)
+        emit = {"t0": w * s, **window_frames(carry["aligned"], prev.get("aligned"), s, flow_key(cfg))}
         if self._q0 is not None:
             tcfg, head = cfg.track, model.task_heads["track_2d"]
             chunks = prev.get("track") or [init_track_carry(head, tcfg, q, final.shape[1], final.dtype)
@@ -266,21 +229,10 @@ class StreamingL4P:
             raise ValueError(f"{leftover} trailing frames do not tile the window grid "
                              f"(window {self.ws} / stride {self.stride}); pad the stream")
         self._flushed = True
-        s, carry, heads = self.stride, self._carry, self.cfg.head_dict
-        emit: Dict[str, torch.Tensor] = {"t0": self._w * s}
-        if "depth" in self.tasks:
-            emit[f"{heads['depth'].task_name}_est_b1thw"] = carry["depth_prev"][:, :, s:]
-        if "camray" in self.tasks:
-            name = heads["camray"].task_name
-            emit[f"{name}_est_b16t"] = carry["pose_prev"][:, :, s:]
-            if self.joint or not heads["camray"].use_intrinsics:
-                emit[f"{name}_intrinsics_est_b16t"] = carry["intr_prev"][:, :, s:]
-        if "dyn_mask" in self.tasks:
-            emit[f"{heads['dyn_mask'].task_name}_est_b1thw"] = carry["dyn_prev"][:, :, s:]
-        if "flow_2d_backward" in self.tasks:
-            emit[f"{heads['flow_2d_backward'].task_name}_est_b2thw"] = carry["flow_prev"][:, :, s:]
+        s, carry = self.stride, self._carry
+        emit = {"t0": self._w * s, **window_tail(carry["aligned"], s)}
         if self._q0 is not None:
-            emit.update(self._track_emit([{k: c[k][..., s:] for k in TRACK_BUFFERS} for c in carry["track"]]))
+            emit.update(self._track_emit([track_tail(c, s) for c in carry["track"]]))
         return emit
 
     def warmup(self, batch_size: int = 1, with_intrinsics: bool = True) -> None:

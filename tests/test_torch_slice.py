@@ -130,8 +130,10 @@ def test_stitch_depth_aligned_matches_jax(align_type, pre_inverse):
     jcfg, _, pcfg, _ = tiny_models()
     jh = dataclasses.replace(jcfg.head_dict["depth"], align_type=align_type, align_pre_inverse=pre_inverse)
     ph = dataclasses.replace(pcfg.head_dict["depth"], align_type=align_type, align_pre_inverse=pre_inverse)
+    pcfg = dataclasses.replace(pcfg, heads=tuple((n, ph if n == "depth" else h) for n, h in pcfg.heads))
     w = rand((4, 2, 1, 4, 3, 5), 0, 0.5, 5.0)  # stride 2 -> T = 10
-    out = PL.stitch_depth_aligned(torch.from_numpy(w), 2, 10, ph)
+    # the port's depth chain is align_window's depth step inside stitch_dense_outputs
+    out = PL.stitch_dense_outputs(pcfg, ("depth",), {"depth": torch.from_numpy(w)}, 2, 10)[f"{ph.task_name}_est_b1thw"]
     check(out, stitch_depth_aligned(jnp.asarray(w), 2, 10, jh), 7.5e-7)  # measured <= 3.7e-7
 
 

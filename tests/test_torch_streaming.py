@@ -69,7 +69,7 @@ def jax_stream(t, n, seed, tasks, chunks, fixed=True):
 
 def port_stream(cfg, model, data, tasks, chunks, draws=None):
     s = StreamingL4P(model, cfg, tasks, "cpu", data.get("track_2d_pointquerries_bn3"),
-                     data.get("track_2d_pointlabels_bn"), draws=draws or JaxStreamDraws.for_session())
+                     draws=draws or JaxStreamDraws.for_session())
     emits, t0 = [], 0
     for c in chunks:
         emits += s.push(data["rgb_u8_bthw3"][:, t0: t0 + c], data["intrinsics_b44t"][..., t0: t0 + c])
