@@ -106,12 +106,31 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      flow, dyn_mask within SLICE_TOL, the tracks within TRACK_BANDS, depth
      and the camray outputs finite with their difference printed, as in
      phase 12) and equal bit for bit to the same session's kernel path;
-     printed beside the default offline session; whole-video times of both.
+     printed beside the default offline session; whole-video times of both;
+ 19. the model end to end in bf16 against fp32: BF16_WINDOWS 16-frame
+     windows of QUERY_CHUNK queries through forward_single_window, each (a)
+     in bf16 with every kernel, (b) in bf16 on the plain path and (c) in
+     fp32 on the plain path from the same weights upcast; flow, depth,
+     dyn_mask, camray's raw ray map and the tracks compared, (a) within
+     BF16_ENVELOPE of (c) wherever (b) is and no farther from (c) than (b)
+     on average (WITNESS_SLACK); each run's camera solve printed;
+ 20. run_sequence on bench.py's request (numpy in, numpy out,
+     write_artifacts=False), offline in turns with the session and then
+     streamed: launch counts, the streamed outputs against the offline ones
+     by phase 18's rules, wall times;
+ 21. the data pipeline at DAVIS's 480 x 854 (resize, centre crop, queries,
+     collate) into run_sequence; the point maps on the card against the CPU
+     (POINT_MAP_TOL); the point-cloud, camera and 3D-track PLYs and their
+     vertex counts; panel frames for flow, depth and dyn_mask (the track
+     panel and the mp4 need cv2, which this phase never calls);
+ 22. `python3 -m l4p_tpu_torch.stream_bench --windows 8` in a subprocess,
+     its line checked; the native preprocessing library built with g++,
+     each entry point against its numpy version.
 Every line with a number names the card and its power limit. The last two
 lines are the kernels' record and {"ok": true, "device": {...}}. A kernel's
 `launches` is its count over bench.py's request (phase 10's first point,
 the counts set to 0 just before it), fused_encoder_blocks' over the fused
-point, the path that runs it (phases 16-18 check their own counts); fused_encoder_blocks' entry also holds
+point, the path that runs it (phases 16-18 and 20 check their own counts); fused_encoder_blocks' entry also holds
 `products`, each block product's kernel ms beside torch.matmul's and the
 gemm_nt wrapper's.
 """
@@ -119,6 +138,7 @@ gemm_nt wrapper's.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import subprocess
@@ -219,6 +239,17 @@ PADDED_QUERIES = 160  # two chunks of 128, the second padded
 DENSE_KEYS = {"flow_2d_backward_est_b2thw": 2, "depth_est_b1thw": 1, "dyn_mask_est_b1thw": 1}
 TRACK_KEYS = {"track_2d_traj_est_bn2t": 2, "track_2d_vis_est_bn1t": 1, "track_2d_depth_est_bn1t": 1}
 CAMRAY_KEYS = {"traj3d_est_b16t": 16, "traj3d_intrinsics_est_b16t": 16}
+# phase 19: the bf16 model against fp32, per output: the reference's envelope
+# for its bf16 model against the fp32 torch oracle (PARITY.md), over
+# BF16_WINDOWS windows
+BF16_ENVELOPE = 1e-2
+BF16_WINDOWS = 3
+# phases 21-22: DAVIS's frame size, the pipeline's frames (two windows), and
+# the point maps on the card against the CPU (fp32, TF32 off), relative to
+# the largest CPU value
+DAVIS_HW = (480, 854)
+PIPELINE_FRAMES = 24
+POINT_MAP_TOL = 1e-5
 # NVIDIA's H100 SXM data sheet: dense bf16 tensor-core rate, HBM3 rate
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -705,6 +736,26 @@ def spread_queries(n: int, frames: int, hw, gen, dev) -> dict:
             "track_2d_pointlabels_bn": torch.ones((1, n), device=dev)}
 
 
+def hold_outputs(log, checks, key: str, out: torch.Tensor, ref: torch.Tensor, what: str,
+                 pair: str = "kernel path - plain path") -> None:
+    """`out` against `ref` (by default the kernel path against the plain
+    path): SLICE_TOL, or TRACK_BANDS for the track outputs."""
+    diff = (out.float() - ref.float()).abs()
+    err, scale = diff.max().item(), ref.float().abs().max().item()
+    text = f"{what} {key}: max|{pair}| {err:.4g}"
+    if key in TRACK_BANDS:
+        band, p99_band = (b * scale for b in TRACK_BANDS[key])
+        p99 = diff.flatten().quantile(0.99).item()
+        log(f"{text} (band {band:.3g}), median {diff.median().item():.4g}, 99th pct {p99:.4g} "
+            f"(band {p99_band:.3g}), output max {scale:.4g}")
+        ok = math.isfinite(err) and err <= band and p99 <= p99_band
+    else:
+        band = SLICE_TOL * scale
+        log(f"{text} (band {band:.3g}, output max {scale:.4g})")
+        ok = math.isfinite(err) and err <= band
+    checks.expect(ok, f"{what} {key}: {pair} differ by {err}")
+
+
 def run_bench(log, checks, cfg) -> None:
     """Phase 15: the port's bench.py in its own process; its line checked."""
     from l4p_tpu_torch.utils.flops import alltask_video_flops
@@ -732,6 +783,289 @@ def run_bench(log, checks, cfg) -> None:
     checks.expect(d.get("model_tflops_per_video") == flop,
                   f"bench model_tflops_per_video {d.get('model_tflops_per_video')}, the flops module {flop}")
     checks.expect("error" not in d.get("secondary", {"error": "absent"}), f"bench secondary: {d.get('secondary')}")
+
+
+def bf16_against_fp32(P, model, cfg, dev, log, checks, requests: int = BF16_WINDOWS) -> None:
+    """Phase 19: the model end to end in bf16 against fp32. Each of
+    `requests` 16-frame windows (its own uint8 video, QUERY_CHUNK queries)
+    goes through forward_single_window three times: (a) bf16 with every
+    kernel, (b) bf16 on the plain path, (c) fp32 on the plain path with the
+    same weights upcast (TF32 off). The camray head is read as camera_rays,
+    so its raw ray map is compared; the camera solve of each run's rays is
+    printed only, as a bf16 step moves the RANSAC's choice. Per output and
+    window, (a) stays within BF16_ENVELOPE of (c) wherever (b) does; over
+    the windows, (a)'s mean |error| stays within WITNESS_SLACK of (b)'s."""
+    import copy
+
+    from l4p_tpu_torch.models.ingest import IMAGENET_MEAN, IMAGENET_STD
+    from l4p_tpu_torch.models.l4p import forward_single_window, window_cameras
+    from l4p_tpu_torch.ops.flash_attention import flash_attention_plain
+
+    rays_head = dataclasses.replace(cfg.head_dict["camray"], kind="camera_rays")
+    cfg_rays = dataclasses.replace(cfg, heads=tuple((n, rays_head if n == "camray" else h) for n, h in cfg.heads))
+    tasks = (*P.DENSE_TASKS, "camray", "track_2d")
+    img_info = tuple(cfg.window_size)
+    ws, hw = img_info[0], img_info[1:]
+    plain = dict(attention=flash_attention_plain, track_kernels=P.PLAIN)
+    runs = {"a": (model, {}), "b": (model, plain), "c": (copy.deepcopy(model).float(), plain)}
+    mean = torch.tensor(IMAGENET_MEAN, device=dev)[None, :, None, None, None]
+    std = torch.tensor(IMAGENET_STD, device=dev)[None, :, None, None, None]
+    sums = {}
+    for r in range(requests):
+        gen = torch.Generator(device=dev).manual_seed(200 + r)
+        u8 = torch.randint(0, 256, (1, 3, ws, *hw), generator=gen, device=dev, dtype=torch.uint8)
+        data = {"rgb_b3thw": (u8.float() / 255 - mean) / std, **track_queries(QUERY_CHUNK, ws, hw, gen, dev)}
+        outs, secs = {}, {}
+        for name, (m, kw) in runs.items():
+            t0 = time.perf_counter()
+            outs[name] = forward_single_window(m, cfg_rays, data, tasks, dev, **kw)
+            torch.cuda.synchronize()
+            secs[name] = time.perf_counter() - t0
+        log(f"bf16 against fp32, window {r} ({ws} frames x {QUERY_CHUNK} queries through forward_single_window): "
+            f"(a) bf16 kernels {secs['a']:.4f} s, (b) bf16 plain {secs['b']:.4f} s, (c) fp32 plain {secs['c']:.4f} s")
+        ref = outs["c"]
+        for key in ref:
+            diff = {name: (outs[name][key].float() - ref[key].float()).abs() for name in ("a", "b")}
+            top = {name: d.max().item() for name, d in diff.items()}
+            scale = ref[key].float().abs().max().item()
+            acc = sums.setdefault(key, {"mean a": 0.0, "mean b": 0.0, "max a": 0.0, "max b": 0.0, "scale": 0.0})
+            for name in ("a", "b"):
+                acc[f"mean {name}"] += diff[name].mean().item() / requests
+                acc[f"max {name}"] = max(acc[f"max {name}"], top[name])
+            acc["scale"] = max(acc["scale"], scale)
+            inside = top["b"] <= BF16_ENVELOPE
+            log(f"bf16 against fp32, window {r} {key}: max|(a) - (c)| {top['a']:.4g}, max|(b) - (c)| {top['b']:.4g} "
+                f"(the plain bf16 path {'meets' if inside else 'misses'} the {BF16_ENVELOPE} envelope), output max "
+                f"{scale:.4g}")
+            checks.expect(math.isfinite(top["a"]) and (top["a"] <= BF16_ENVELOPE or not inside),
+                          f"bf16 kernel path {key} is {top['a']} from fp32 where the plain bf16 path is within "
+                          f"{BF16_ENVELOPE} ({top['b']})")
+        for name, out in outs.items():
+            pose, k, _ = window_cameras(out[f"{rays_head.task_name}_est_b6thw"].float(), cfg.head_dict["camray"],
+                                        img_info, None, 0, 1, None, P.RandomDraws())
+            focal = [round(k[0, i, 0].item(), 3) for i in (0, 5)]
+            log(f"bf16 against fp32, window {r}, the camera solve of ({name})'s rays: frame-0 pose rows "
+                f"{[round(v, 4) for v in pose[0, :12, 0].tolist()]}, fx, fy {focal}, "
+                f"finite {bool(torch.isfinite(pose).all() and torch.isfinite(k).all())}")
+        del outs, data
+    for key, acc in sums.items():
+        ratio = acc["mean a"] / max(acc["mean b"], 1e-30)
+        log(f"bf16 against fp32 over {requests} windows, {key}: mean|error| (a) bf16 kernels {acc['mean a']:.4g}, "
+            f"(b) bf16 plain {acc['mean b']:.4g} (ratio {ratio:.3g}, within {WITNESS_SLACK}); max|error| (a) "
+            f"{acc['max a']:.4g}, (b) {acc['max b']:.4g}; output max {acc['scale']:.4g}")
+        checks.expect(math.isfinite(ratio) and ratio <= WITNESS_SLACK,
+                      f"bf16 kernel path {key} is farther from fp32 than the plain bf16 path: {acc}")
+    del runs
+    torch.cuda.empty_cache()
+
+
+def run_sequence_phase(P, model, cfg, dev, log, checks, reset_counts, counts, expected) -> None:
+    """Phase 20: run_sequence on bench.py's request (TRACK_FRAMES frames,
+    QUERY_CHUNK queries, five tasks; numpy on the host, as a collated batch
+    is) with write_artifacts=False, offline in turns with the session on the
+    same request already on the card, then streamed: each kernel's launches
+    against the session's formula, the streamed outputs against the offline
+    ones by phase 18's rules, the wall times."""
+    from l4p_tpu_torch.bench import bench_request
+    from l4p_tpu_torch.inference import run_sequence
+    from l4p_tpu_torch.models.l4p import num_windows
+
+    n_q, hw = QUERY_CHUNK, tuple(cfg.window_size[1:])
+    batch = bench_request(cfg, P.ALL_TASKS, TRACK_FRAMES, n_q)
+    data = {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+    sess = P.InferenceSession(cfg, P.ALL_TASKS, dev)
+    run_sequence(model, cfg, P.ALL_TASKS, batch, "", "warm-up", device=dev, write_artifacts=False)
+    times, outs = {"session": [], "run_sequence": []}, {}
+    for which in ("session", "run_sequence", "run_sequence", "session"):
+        reset_counts()
+        t0 = time.perf_counter()
+        if which == "session":
+            sess(model, data)
+            torch.cuda.synchronize()
+        else:  # returns numpy arrays: ends on the host
+            outs["offline"] = run_sequence(model, cfg, P.ALL_TASKS, batch, "", "bench request", device=dev,
+                                           write_artifacts=False)
+        times[which].append(time.perf_counter() - t0)
+        got, want = counts(), expected(n_q, False)
+        checks.expect(got == want, f"{which} launches {got} on bench.py's request, expected {want}")
+    reset_counts()
+    t0 = time.perf_counter()
+    outs["streamed"] = run_sequence(model, cfg, P.ALL_TASKS, batch, "", "bench request", device=dev,
+                                    write_artifacts=False, stream=True)
+    stream_s = time.perf_counter() - t0
+    got = counts()
+    want = {**expected(n_q, False), "flash_attention": cfg.encoder.depth * num_windows(cfg, TRACK_FRAMES)}
+    checks.expect(got == want, f"streamed run_sequence launches {got}, expected {want}")
+    log(f"run_sequence on bench.py's request ({TRACK_FRAMES} frames x {n_q} queries, five tasks), in turns with the "
+        f"session: session {', '.join(f'{t:.4f}' for t in times['session'])} s, run_sequence offline "
+        f"{', '.join(f'{t:.4f}' for t in times['run_sequence'])} s; run_sequence streamed {stream_s:.4f} s "
+        f"(launches {got})")
+    outs = {name: {k: torch.from_numpy(v) for k, v in out.items()} for name, out in outs.items()}
+    for out in outs.values():
+        check_outputs(out, {**DENSE_KEYS, **TRACK_KEYS, **CAMRAY_KEYS}, TRACK_FRAMES, hw, checks,
+                      data["track_2d_pointquerries_bn3"].cpu())
+    for key, ref in outs["offline"].items():
+        got_t = outs["streamed"][key]
+        if key in ("depth_est_b1thw", *CAMRAY_KEYS):
+            # the RANSACs pick among hypotheses by inlier counts, which a bf16 step can change (phase 12)
+            err, scale = rel_diff(got_t, ref)
+            log(f"run_sequence streamed {key} (joint Sim(3) chain) against offline: max|diff| {err:.4g} = "
+                f"{err / max(scale, 1e-30):.3g} x max|offline|, both finite: {bool(torch.isfinite(ref).all())}")
+            checks.expect(bool(torch.isfinite(ref).all()), f"offline run_sequence {key} is not finite")
+        else:
+            hold_outputs(log, checks, key, got_t, ref, "run_sequence", "streamed - offline")
+
+
+def ply_vertices(path: str) -> int:
+    """A binary PLY's vertex count, checked against its size (float xyz and,
+    when declared, uchar rgb per vertex)."""
+    with open(path, "rb") as f:
+        raw = f.read()
+    end = raw.index(b"end_header\n") + len(b"end_header\n")
+    header = raw[:end].decode().splitlines()
+    n = int(next(ln for ln in header if ln.startswith("element vertex")).split()[-1])
+    if len(raw) - end != n * (15 if "property uchar red" in header else 12):
+        raise ValueError(f"{path}: {len(raw) - end} bytes of data for {n} vertices")
+    return n
+
+
+def pipeline_phase(P, model, cfg, dev, log, checks) -> None:
+    """Phase 21: the data pipeline and the writers that need no cv2. Seeded
+    uint8 frames at DAVIS's 480 x 854 through an in-memory L4PDataset (the
+    short side resized to the model's 224, the centre cropped to 224 x 224,
+    128 random queries, collate), then
+    run_sequence on the card; the point maps on the card against the CPU
+    (POINT_MAP_TOL); the point-cloud, camera and 3D-track PLYs written to a
+    temporary directory, their vertex counts checked; `panel_frames` for
+    flow, depth and dyn_mask. The track panel and the mp4 need cv2, which
+    this machine may lack: they are never called here."""
+    import tempfile
+
+    import numpy as np
+
+    from l4p_tpu_torch.data.dataset import L4PData, L4PDataset, collate
+    from l4p_tpu_torch.geometry.core import generate_3d_track_point_map, generate_point_map
+    from l4p_tpu_torch.inference import run_sequence
+    from l4p_tpu_torch.utils import vis
+
+    class Frames(L4PDataset):
+        """One video (3, T, H, W) in [0, 1] with a source's dummy K."""
+
+        def __init__(self, rgb, **kw):
+            super().__init__(**kw)
+            self.rgb = rgb
+
+        def __len__(self):
+            return 1
+
+        def getitem_helper(self, index):
+            _, t, h, w = self.rgb.shape
+            k = np.array([[min(h, w), 0, w / 2, 0], [0, min(h, w), h / 2, 0], [0, 0, 1, 0], [0, 0, 0, 1]], np.float32)
+            return L4PData(rgb_b3thw=self.rgb, intrinsics_b44t=np.tile(k[:, :, None], (1, 1, t)), seq_name="frames")
+
+    rng = np.random.default_rng(21)
+    u8 = rng.integers(0, 256, (3, PIPELINE_FRAMES, *DAVIS_HW), dtype=np.uint8)
+    hw = tuple(cfg.window_size[1:])
+    # the short side resized to the model's, then the centre cropped to its square
+    resized = (hw[0], round(DAVIS_HW[1] * hw[0] / DAVIS_HW[0]))
+    t0 = time.perf_counter()
+    batch = collate(Frames(u8.astype(np.float32) / 255, resize_size=resized, crop_size=(PIPELINE_FRAMES, *hw),
+                           center_crop=True, rng=np.random.default_rng(0))[0])
+    prep_s = time.perf_counter() - t0
+    checks.expect(batch["rgb_u8_bthw3"].shape == (1, PIPELINE_FRAMES, *hw, 3)
+                  and batch["track_2d_pointquerries_bn3"].shape == (1, 128, 3),
+                  f"the pipeline's batch: frames {batch['rgb_u8_bthw3'].shape}, queries "
+                  f"{batch['track_2d_pointquerries_bn3'].shape}")
+    t0 = time.perf_counter()
+    out = run_sequence(model, cfg, P.ALL_TASKS, batch, "", "frames", device=dev, write_artifacts=False)
+    run_s = time.perf_counter() - t0
+    check_outputs({k: torch.from_numpy(v) for k, v in out.items()}, {**DENSE_KEYS, **TRACK_KEYS, **CAMRAY_KEYS},
+                  PIPELINE_FRAMES, hw, checks, torch.from_numpy(batch["track_2d_pointquerries_bn3"]))
+    t = PIPELINE_FRAMES
+    cams = [torch.from_numpy(out[k]).reshape(1, 4, 4, t) for k in ("traj3d_intrinsics_est_b16t", "traj3d_est_b16t")]
+    maps = {"generate_point_map": (generate_point_map, (torch.from_numpy(out["depth_est_b1thw"]), *cams)),
+            "generate_3d_track_point_map": (generate_3d_track_point_map,
+                                            (torch.from_numpy(out["track_2d_traj_est_bn2t"]),
+                                             torch.from_numpy(out["track_2d_depth_est_bn1t"]), *cams))}
+    for name, (fn, args) in maps.items():
+        err, scale = rel_diff(fn(*(a.to(dev) for a in args)), fn(*args))
+        log(f"{name} on the card against the CPU: max|diff| {err:.4g} = {err / max(scale, 1e-30):.3g} x max|CPU| "
+            f"(tolerance {POINT_MAP_TOL})")
+        checks.expect(math.isfinite(err) and err <= POINT_MAP_TOL * scale, f"{name} card against CPU: {err}")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        clouds = vis.generate_4d_visualization(batch, out, tmp, stride=4, device=dev)
+        cameras = vis.generate_camera_trajectory_ply(out, f"{tmp}/cameras.ply", hw)
+        tracks = vis.generate_3d_track_ply(batch, out, tmp, device=dev)
+        ply_s = time.perf_counter() - t0
+        depth = out["depth_est_b1thw"][0, 0]
+        want = [int(((depth[i] > 0.05) & (depth[i] < 20.0)).sum()) for i in range(0, t, 4)]
+        want_tracks = [int((out["track_2d_vis_est_bn1t"][0, :, 0, i] > 0).sum()) for i in range(t)]
+        got = ([ply_vertices(p) for p in clouds], ply_vertices(cameras), [ply_vertices(p) for p in tracks])
+        log(f"PLYs: {len(clouds)} point clouds ({got[0]} vertices), cameras ({got[1]}), {len(tracks)} track frames "
+            f"({sum(got[2])} vertices in all) in {ply_s:.3f} s")
+        checks.expect(got == (want, t * (1 + 8 * 12), want_tracks),
+                      f"PLY vertex counts {got}, expected {(want, t * 97, want_tracks)}")
+    t0 = time.perf_counter()
+    frames = vis.panel_frames(batch, out, ("flow_2d_backward", "depth", "dyn_mask"))
+    panel_s = time.perf_counter() - t0
+    checks.expect(frames.shape == (t, hw[0], 4 * hw[1], 3) and frames.dtype == np.uint8,
+                  f"panel frames {frames.shape} {frames.dtype}")
+    log(f"data pipeline: {PIPELINE_FRAMES} frames of {DAVIS_HW} (resized to {resized}, cropped to {hw}) to a batch "
+        f"in {prep_s:.3f} s (host), run_sequence "
+        f"{run_s:.4f} s, panel frames {frames.shape} in {panel_s:.3f} s (host)")
+
+
+def tools_phase(log, checks) -> None:
+    """Phase 22: `python3 -m l4p_tpu_torch.stream_bench --windows 8` in its
+    own process (its line checked), then the native preprocessing library
+    built with g++ and each entry point held against its numpy version at
+    DAVIS's frame size."""
+    import numpy as np
+
+    from l4p_tpu_torch.native import lib as NL
+
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "l4p_tpu_torch.stream_bench", "--windows", "8"], capture_output=True,
+                          text=True, timeout=600)
+    log(f"python3 -m l4p_tpu_torch.stream_bench --windows 8: exit {proc.returncode} in "
+        f"{time.perf_counter() - t0:.1f} s")
+    try:
+        line = json.loads(proc.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        checks.expect(False, f"stream_bench printed no JSON line: {proc.stdout[-500:]} {proc.stderr[-1500:]}")
+        line = None
+    if line is not None:
+        log(f"stream_bench line: {json.dumps(line)}")
+        want = {"metric", "value", "unit", "sustained_input_fps", "latency_frames", "compile_s", "device", "card"}
+        numbers = [line.get("value"), line.get("sustained_input_fps"), *line.get("compile_s", {}).values()]
+        checks.expect(proc.returncode == 0 and want <= set(line),
+                      f"stream_bench failed or lacks keys {want - set(line)}")
+        checks.expect(all(isinstance(x, float) and math.isfinite(x) and x > 0 for x in numbers),
+                      f"stream_bench numbers {numbers}")
+    t0 = time.perf_counter()
+    NL.build()
+    log(f"native preprocessing library built with g++ in {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(22)
+    frames = rng.integers(0, 256, (PIPELINE_FRAMES, *DAVIS_HW, 3), dtype=np.uint8)
+    planes = rng.standard_normal((3 * PIPELINE_FRAMES, *DAVIS_HW)).astype(np.float32)
+    video = rng.standard_normal((3, PIPELINE_FRAMES, 224, 224)).astype(np.float32)
+    mean, std = np.array([0.485, 0.456, 0.406], np.float32), np.array([0.229, 0.224, 0.225], np.float32)
+    # normalize as tests/test_native.py; bilinear: the same float32 positions, products fused or not by g++
+    cases = {"normalize_video": ((frames, mean, std), 1e-5), "resize_planes bilinear": ((planes, (224, 224)), 1e-5),
+             "resize_planes nearest": ((planes, (224, 224), "nearest"), 0.0), "mirror_pad_time": ((video,), 0.0)}
+    for name, (args, tol) in cases.items():
+        fn = name.split()[0]
+        times = {}
+        for which in ("", "_plain"):
+            t0 = time.perf_counter()
+            times[which] = (getattr(NL, fn + which)(*args), time.perf_counter() - t0)
+        got, ref = times[""][0], times["_plain"][0]
+        ok = got.shape == ref.shape and bool(np.all(np.abs(got - ref) <= tol + tol * np.abs(ref)))
+        log(f"native {name} {args[0].shape}: max|native - numpy| {float(np.abs(got - ref).max()):.3g} (tolerance "
+            f"{tol} absolute + relative); native {times[''][1] * 1e3:.1f} ms, numpy {times['_plain'][1] * 1e3:.1f} ms "
+            f"(host)")
+        checks.expect(ok, f"native {name} disagrees with its numpy version")
 
 
 def main() -> int:
@@ -897,23 +1231,7 @@ def main() -> int:
         del enc, dense
     log(f"48-frame dense stages: encode {t1 - t0:.4f} s, dense heads {t2 - t1:.4f} s, stitch {t3 - t2:.4f} s")
 
-    def hold(key: str, out: torch.Tensor, ref: torch.Tensor, what: str) -> None:
-        """The kernel path against the plain path: SLICE_TOL, or TRACK_BANDS
-        for the track outputs."""
-        diff = (out.float() - ref.float()).abs()
-        err, scale = diff.max().item(), ref.float().abs().max().item()
-        text = f"{what} {key}: max|kernel path - plain path| {err:.4g}"
-        if key in TRACK_BANDS:
-            band, p99_band = (b * scale for b in TRACK_BANDS[key])
-            p99 = diff.flatten().quantile(0.99).item()
-            log(f"{text} (band {band:.3g}), median {diff.median().item():.4g}, 99th pct {p99:.4g} "
-                f"(band {p99_band:.3g}), output max {scale:.4g}")
-            ok = math.isfinite(err) and err <= band and p99 <= p99_band
-        else:
-            band = SLICE_TOL * scale
-            log(f"{text} (band {band:.3g}, output max {scale:.4g})")
-            ok = math.isfinite(err) and err <= band
-        checks.expect(ok, f"{what} {key}: kernel path differs from the plain path by {err}")
+    hold = functools.partial(hold_outputs, log, checks)
 
     # 6. the kernel path against the plain-attention path
     before = FA.flash_attention.launches
@@ -1333,6 +1651,16 @@ def main() -> int:
         log(f"streaming {key} against the default offline session: max|diff| {err:.4g} = "
             f"{err / max(scale, 1e-30):.3g} x max|offline|")
     del offline, streamed, emits, stream
+    torch.cuda.empty_cache()
+
+    # 19. the model in bf16, kernels on and off, against fp32
+    bf16_against_fp32(P, model, cfg, dev, log, checks)
+    # 20. run_sequence, offline and streamed, on bench.py's request
+    run_sequence_phase(P, model, cfg, dev, log, checks, reset_counts, counts, expected)
+    # 21. the data pipeline and the writers that need no cv2
+    pipeline_phase(P, model, cfg, dev, log, checks)
+    # 22. stream_bench in its own process; the native preprocessing library
+    tools_phase(log, checks)
 
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     if checks.failed:

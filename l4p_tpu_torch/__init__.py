@@ -14,7 +14,12 @@ ops/fused_upscale.py). Besides the session: the model factory
 tracking (`track_bidirectional`, or `estimation_directions` in the session),
 one unstitched window (`forward_single_window`), online serving
 (`StreamingL4P`) and bench.py's measurement (`python3 -m
-l4p_tpu_torch.bench`). It imports torch and never jax or l4p_tpu.
+l4p_tpu_torch.bench`). The artefact-writing entry points run a video end to
+end: `run_sequence` (panel video and 4D PLYs, utils/vis.py), the demo
+(`python3 -m l4p_tpu_torch.demo`), the CLI's predict (`python3 -m
+l4p_tpu_torch.main predict`), the numpy data pipeline (data/), the host
+preprocessing library (native/) and streaming latency (`python3 -m
+l4p_tpu_torch.stream_bench`). It imports torch and never jax or l4p_tpu.
 """
 
 from l4p_tpu_torch.checkpoint import load_video_encoder_ckpt, params_from_jax, prepare_model
@@ -29,7 +34,7 @@ from l4p_tpu_torch.config import (
     default_dense_heads,
     load_model_config,
 )
-from l4p_tpu_torch.inference import ALL_TASKS, DENSE_TASKS, SLICE_TASKS, InferenceSession
+from l4p_tpu_torch.inference import ALL_TASKS, DENSE_TASKS, SLICE_TASKS, InferenceSession, run_sequence
 from l4p_tpu_torch.models.l4p import L4P, Draws, RandomDraws, forward_single_window, track_bidirectional
 from l4p_tpu_torch.models.sam import KERNELS, PLAIN, TrackKernels
 from l4p_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
@@ -44,5 +49,5 @@ __all__ = [
     "TrackKernels", "assemble_emissions", "default_dense_heads", "flash_attention", "flash_attention_plain",
     "forward_single_window", "fused_encoder_blocks", "fused_encoder_blocks_plain", "fused_upscale_hypernet",
     "fused_upscale_hypernet_plain", "i2t_ln_t2i", "i2t_ln_t2i_plain", "load_model_config", "load_video_encoder_ckpt",
-    "params_from_jax", "prepare_model", "t2i_flash", "t2i_flash_plain", "track_bidirectional",
+    "params_from_jax", "prepare_model", "run_sequence", "t2i_flash", "t2i_flash_plain", "track_bidirectional",
 ]

@@ -1,7 +1,7 @@
-"""Camera geometry the camray head needs: RANSAC sample indices, intrinsics
-normalisation, the pixel grid and Plucker rays (counterpart of
-l4p_tpu/geometry/core.py:17-59, :232-242; reference geometry_utils.py).
-fp32 throughout, as the reference forces there too.
+"""Camera geometry: RANSAC sample indices, intrinsics normalisation, the
+pixel grid, Plucker rays and the world point maps of depth and of 2D tracks
+(counterpart of l4p_tpu/geometry/core.py:17-107, :232-242; reference
+geometry_utils.py). fp32 throughout, as the reference forces there too.
 """
 
 from __future__ import annotations
@@ -72,3 +72,37 @@ def plucker_to_point_direction(camray_b6thw: torch.Tensor,
     if normalize_moment:
         moment = moment / torch.linalg.vector_norm(direction, dim=1, keepdim=True)
     return torch.linalg.cross(direction, moment, dim=1), direction
+
+
+def generate_point_map(depth_b1thw: torch.Tensor, intrinsics_b44t: torch.Tensor,
+                       world_T_cam_b44t: torch.Tensor) -> torch.Tensor:
+    """Depth unprojected into world points, (B, 3, T, H, W) in depth's dtype
+    (geometry_utils.py:13-53; l4p_tpu/geometry/core.py:62-77)."""
+    _, _, _, h, w = depth_b1thw.shape
+    k_inv = torch.linalg.inv(intrinsics_b44t[:, :3, :3].float().permute(0, 3, 1, 2))  # (B, T, 3, 3)
+    rays = torch.einsum("btmn,hwn->bmthw", k_inv, _pixel_grid(h, w, device=depth_b1thw.device))
+    pts = rays * depth_b1thw.float()
+    pts_h = torch.cat([pts, torch.ones_like(pts[:, :1])], dim=1)
+    out = torch.einsum("bmnt,bnthw->bmthw", world_T_cam_b44t.float(), pts_h)
+    return out[:, :3].to(depth_b1thw.dtype)
+
+
+def unproject_2d_track_to_3d(track_xy_bn2t: torch.Tensor, track_z_bn1t: torch.Tensor,
+                             intrinsics_b44t: torch.Tensor) -> torch.Tensor:
+    """2D tracks (x, y pixels) and their depth -> camera XYZ (B, N, 3, T)
+    (geometry_utils.py:56-81)."""
+    fx, fy = intrinsics_b44t[:, 0:1, 0:1, :], intrinsics_b44t[:, 1:2, 1:2, :]
+    cx, cy = intrinsics_b44t[:, 0:1, 2:3, :], intrinsics_b44t[:, 1:2, 2:3, :]
+    x = (track_xy_bn2t[:, :, 0:1, :] - cx) * track_z_bn1t / fx
+    y = (track_xy_bn2t[:, :, 1:2, :] - cy) * track_z_bn1t / fy
+    return torch.cat([x, y, track_z_bn1t], dim=-2)
+
+
+def generate_3d_track_point_map(track_2d_traj_bn2t: torch.Tensor, track_2d_depth_bn1t: torch.Tensor,
+                                intrinsics_b44t: torch.Tensor, world_T_cam_b44t: torch.Tensor) -> torch.Tensor:
+    """2D tracks and their depth -> world XYZ (B, N, 3, T)
+    (geometry_utils.py:84-107)."""
+    xyz_b3tn = unproject_2d_track_to_3d(track_2d_traj_bn2t, track_2d_depth_bn1t, intrinsics_b44t).permute(0, 2, 3, 1)
+    xyz_b4tn = torch.cat([xyz_b3tn, torch.ones_like(xyz_b3tn[:, :1])], dim=1)
+    xyz_b4tn = torch.einsum("bmnt,bntp->bmtp", world_T_cam_b44t, xyz_b4tn)
+    return xyz_b4tn[:, :3].permute(0, 3, 1, 2)

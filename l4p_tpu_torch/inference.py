@@ -19,12 +19,20 @@ numpy arrays. The stages run in the order of l4p_tpu/inference.py:157-181:
 encode, dense heads, camray rays and the camera solve, stitch, track; with
 the backward direction, the time-flipped video is encoded once more after
 the forward tracks (l4p_tpu/models/l4p.py:735-766).
+
+`run_sequence` (counterpart of l4p_tpu/inference.py:211-299) is the entry
+point of the demo and the CLI's `predict`: one collated sequence through a
+cached session, or frame by frame through StreamingL4P, then the panel mp4
+and the 4D PLY exports.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence, Union
+import os
+import time
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 import torch.nn as nn
 
@@ -163,3 +171,90 @@ class InferenceSession:
                 fwd = merge_directions(fwd, {k: v.flip(-1) for k, v in bwd.items()}, queries, t)
             out.update(fwd)
         return out
+
+
+_SESSIONS: Dict[Tuple, Tuple[L4PConfig, Optional[Draws], InferenceSession]] = {}
+
+
+def get_session(cfg: L4PConfig, tasks: Sequence[str], device: Union[str, torch.device] = "cuda",
+                draws: Optional[Draws] = None) -> InferenceSession:
+    """One session per (cfg, tasks, device, draws), reused across sequences
+    so that a state dict is loaded into a model once (counterpart of
+    l4p_tpu/inference.py:184-208 get_forward_fn). The cache holds `cfg` and
+    `draws` themselves, so the ids in its key are never recycled by other
+    objects."""
+    key = (id(cfg), tuple(tasks), torch.device(device), id(draws))
+    hit = _SESSIONS.get(key)
+    if hit is None or hit[0] is not cfg or hit[1] is not draws:
+        hit = (cfg, draws, InferenceSession(cfg, tasks, device, draws=draws))
+        _SESSIONS[key] = hit
+    return hit[2]
+
+
+def run_sequence(model_or_state: Union[nn.Module, Mapping[str, torch.Tensor]], cfg: L4PConfig, tasks: Sequence[str],
+                 batch: Dict[str, np.ndarray], out_dir: str, seq_name: str, device: Union[str, torch.device] = "cuda",
+                 dtype: torch.dtype = torch.bfloat16, write_artifacts: bool = True, stream: bool = False,
+                 draws: Optional[Draws] = None) -> Dict[str, np.ndarray]:
+    """All-task inference on one collated sequence (numpy arrays with the
+    batch dimension, as `data.dataset.collate` makes them), then the demo's
+    artefacts: `{seq}_panels.mp4` and, with depth and poses, per-frame point
+    clouds (every 4th frame), the camera frusta and the 3D track points as
+    PLYs under `{out_dir}/{seq}/` (reference demo/demo.py:78, :151). Returns
+    the outputs as float32 numpy arrays.
+
+    Offline, the sequence runs through `get_session`'s session. With
+    `stream`, its uint8 frames go through StreamingL4P as a camera would
+    send them, the first window and then one stride a push, and the
+    emissions are assembled at the end. `rgb_u8_bthw3` is preferred where
+    the batch has it (normalised on the device); otherwise `rgb_b3thw` goes
+    to the device in `dtype`. The mp4 needs cv2 (`utils.vis`)."""
+    from l4p_tpu_torch.utils import vis
+
+    use_u8 = "rgb_u8_bthw3" in batch
+    if stream and not use_u8:
+        raise ValueError("streaming needs uint8 frames (rgb_u8_bthw3; the dataset's emit_uint8)")
+    dev = torch.device(device)
+    t0 = time.time()
+    if stream:
+        from l4p_tpu_torch.streaming import StreamingL4P, assemble_emissions
+
+        s = StreamingL4P(model_or_state, cfg, tasks, dev, batch.get("track_2d_pointquerries_bn3"), draws=draws)
+        rgb, intr = batch["rgb_u8_bthw3"], batch.get("intrinsics_b44t")
+        ws, stride = cfg.window_size[0], cfg.window_stride_t
+        emits, lo = [], 0
+        while lo < rgb.shape[1]:
+            hi = min(lo + (ws if lo == 0 else stride), rgb.shape[1])
+            emits += s.push(rgb[:, lo:hi], None if intr is None else intr[..., lo:hi])
+            lo = hi
+        emits.append(s.flush())
+        out = assemble_emissions(emits)
+    else:
+        keys = ("rgb_u8_bthw3" if use_u8 else "rgb_b3thw", "intrinsics_b44t", "track_2d_pointquerries_bn3",
+                "track_2d_pointlabels_bn")
+        data = {k: torch.as_tensor(batch[k], device=dev, dtype=dtype if k == "rgb_b3thw" else None)
+                for k in keys if isinstance(batch.get(k), np.ndarray)}
+        out = get_session(cfg, tasks, dev, draws)(model_or_state, data)
+    out_np = {k: v.float().cpu().numpy() for k, v in out.items()}
+    dt = time.time() - t0
+    t_frames = batch["rgb_u8_bthw3"].shape[1] if use_u8 else batch["rgb_b3thw"].shape[2]
+    mode = "streamed" if stream else "in"
+    print(f"[{seq_name}] {t_frames} frames {mode} {dt:.2f}s ({t_frames / dt:.1f} fps incl. compile)")
+    print(f"[{seq_name}] outputs: {sorted(out_np.keys())}")
+    if not write_artifacts:
+        return out_np
+
+    os.makedirs(out_dir, exist_ok=True)
+    vis_path = vis.generate_video_visualizations(batch, out_np, tasks, os.path.join(out_dir, f"{seq_name}_panels.mp4"))
+    print(f"[{seq_name}] wrote {vis_path}")
+    if "depth_est_b1thw" in out_np and "traj3d_est_b16t" in out_np:
+        seq_dir = os.path.join(out_dir, seq_name)
+        n_ply = len(vis.generate_4d_visualization(batch, out_np, seq_dir, stride=4, device=dev))
+        if "traj3d_intrinsics_est_b16t" in out_np:  # absent where the camray head uses the input K
+            vis.generate_camera_trajectory_ply(out_np, os.path.join(seq_dir, "cameras.ply"))
+            n_ply += 1
+        if "track_2d_traj_est_bn2t" in out_np and "track_2d_depth_est_bn1t" in out_np:
+            n_ply += len(vis.generate_3d_track_ply(batch, out_np, seq_dir, device=dev))
+        print(f"[{seq_name}] wrote {n_ply} point clouds (view: python -c "
+              f"\"from l4p_tpu_torch.utils.vis import serve_point_clouds; "
+              f"serve_point_clouds('{seq_dir}').serve_forever()\")")
+    return out_np

@@ -821,3 +821,107 @@ def test_device_peak_flops_knows_the_h100(cuda):
     name = torch.cuda.get_device_name(cuda)
     assert device_peak_flops(cuda) == (989e12 if name == "NVIDIA H100 80GB HBM3" else None), name
     assert device_peak_flops("cpu") is None
+
+
+@pytest.mark.gpu
+def test_point_maps_on_card_match_cpu(cuda):
+    """generate_point_map and generate_3d_track_point_map (fp32; PyTorch
+    keeps TF32 off in matmuls by default) on the card against the CPU,
+    within 1e-5 of the largest CPU value."""
+    from l4p_tpu_torch.geometry.core import generate_3d_track_point_map, generate_point_map
+
+    g = torch.Generator().manual_seed(4)
+    t, h, w, n = 6, 24, 40, 9
+    k = torch.diag(torch.tensor([40.0, 40.0, 1.0, 1.0]))
+    k[0, 2], k[1, 2] = 20.0, 12.0
+    k = (k[None, :, :, None] + 0.5 * torch.rand((1, 4, 4, t), generator=g) * torch.tensor([1, 1, 0, 0.0])[:, None, None]
+         ).contiguous()
+    q = torch.linalg.qr(torch.randn((t, 3, 3), generator=g))[0]
+    pose = torch.eye(4).repeat(t, 1, 1)
+    pose[:, :3, :3], pose[:, :3, 3] = q, torch.randn((t, 3), generator=g)
+    pose = pose.permute(1, 2, 0)[None].contiguous()
+    cases = [(generate_point_map, (0.5 + 4 * torch.rand((1, 1, t, h, w), generator=g), k, pose)),
+             (generate_3d_track_point_map, (40 * torch.rand((1, n, 2, t), generator=g),
+                                            0.5 + torch.rand((1, n, 1, t), generator=g), k, pose))]
+    for fn, args in cases:
+        cpu = fn(*args)
+        card = fn(*(a.to(cuda) for a in args)).cpu()
+        assert card.shape == cpu.shape
+        assert (card - cpu).abs().max().item() <= 1e-5 * cpu.abs().max().item(), fn.__name__
+
+
+def head_dim_64_cfg():
+    """tiny_cfg with an encoder of 2 heads of 64 (E = 128), the track head
+    at its width and the camray rays at the window's 4 frames."""
+    import dataclasses
+
+    from l4p_tpu_torch.config import SamConfig
+
+    cfg = tiny_cfg()
+    heads = tuple((n, dataclasses.replace(h, dpt=dataclasses.replace(
+        h.dpt, dim_tokens=128, **({"output_size": (4, 8, 8)} if n == "camray" else {})))) for n, h in cfg.heads)
+    track = dataclasses.replace(cfg.track, sam=SamConfig(embed_dim=128, image_embedding_size=(2, 2, 2),
+                                                         input_image_size=(4, 28, 28)))
+    return dataclasses.replace(cfg, heads=heads, track=track,
+                               encoder=dataclasses.replace(cfg.encoder, embed_dim=128, num_heads=2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("stream", [False, True])
+def test_run_sequence_on_card_reaches_the_kernels(cuda, stream):
+    """run_sequence's five tasks on a bf16 model with D = 64 heads, numpy in
+    and out: the attention and the three track kernels launch, and the
+    outputs hold against run_sequence on the CPU (plain versions) within
+    chip_smoke.py's band; the RANSAC-chosen poses, K and depth are finite."""
+    import copy
+
+    import numpy as np
+
+    from l4p_tpu_torch import ALL_TASKS, L4P
+    from l4p_tpu_torch.inference import run_sequence
+
+    cfg = head_dim_64_cfg()
+    g = torch.Generator(device=cuda).manual_seed(5)
+    model = L4P(cfg, device=cuda, dtype=torch.bfloat16).eval()
+    model.init_weights(g)
+    t, n = 8, 11
+    rng = np.random.default_rng(5)
+    k = np.tile(np.diag([28.0, 28.0, 1, 1]).astype(np.float32)[None, :, :, None], (1, 1, 1, t))
+    k[:, 0, 2] = k[:, 1, 2] = 14.0
+    batch = {"rgb_u8_bthw3": rng.integers(0, 256, (1, t, 28, 28, 3), dtype=np.uint8), "intrinsics_b44t": k,
+             "track_2d_pointquerries_bn3": np.stack([np.full(n, 0.5), rng.uniform(2, 26, n), rng.uniform(2, 26, n)],
+                                                    -1)[None].astype(np.float32),
+             "track_2d_pointlabels_bn": np.ones((1, n), np.float32)}
+    counters = (flash_attention, FK.t2i_flash, FK.i2t_ln_t2i, FU.fused_upscale_hypernet)
+    before = [f.launches for f in counters]
+    out = run_sequence(model, cfg, ALL_TASKS, batch, "", "card", device=cuda, write_artifacts=False, stream=stream)
+    assert all(f.launches > b for f, b in zip(counters, before)), [f.launches - b for f, b in zip(counters, before)]
+    ref = run_sequence(copy.deepcopy(model).cpu(), cfg, ALL_TASKS, batch, "", "cpu", device="cpu",
+                       write_artifacts=False, stream=stream)
+    assert set(out) == set(ref)
+    for key, r in ref.items():
+        assert out[key].shape == r.shape and np.isfinite(out[key]).all() and np.isfinite(r).all(), key
+        if key != "depth_est_b1thw" and not key.startswith("traj3d"):
+            assert np.abs(out[key] - r).max() <= 3e-2 * np.abs(r).max(), key
+
+
+@pytest.mark.gpu
+def test_native_library_builds_on_the_card_machine(cuda):
+    """The host preprocessing library builds with this machine's g++ and
+    agrees with its numpy versions."""
+    import numpy as np
+
+    from l4p_tpu_torch.native import lib as NL
+
+    rng = np.random.default_rng(6)
+    frames = rng.integers(0, 256, (4, 48, 80, 3), dtype=np.uint8)
+    mean, std = np.array([0.485, 0.456, 0.406], np.float32), np.array([0.229, 0.224, 0.225], np.float32)
+    np.testing.assert_allclose(NL.normalize_video(frames, mean, std), NL.normalize_video_plain(frames, mean, std),
+                               rtol=1e-5, atol=1e-5)
+    planes = rng.standard_normal((6, 48, 80)).astype(np.float32)
+    np.testing.assert_allclose(NL.resize_planes(planes, (28, 28)), NL.resize_planes_plain(planes, (28, 28)),
+                               rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(NL.resize_planes(planes, (28, 28), "nearest"),
+                                  NL.resize_planes_plain(planes, (28, 28), "nearest"))
+    video = rng.standard_normal((3, 5, 8, 8)).astype(np.float32)
+    np.testing.assert_array_equal(NL.mirror_pad_time(video), NL.mirror_pad_time_plain(video))
