@@ -53,11 +53,20 @@ def _encoder_state(p: Mapping, cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
         "mlp.fc1.weight": "fc1_w", "mlp.fc1.bias": "fc1_b",
         "mlp.fc2.weight": "fc2_w", "mlp.fc2.bias": "fc2_b",
     }
+    if cfg.cos_attn:
+        names["attn.scale"] = "attn_scale"
+    if cfg.init_values > 0:
+        names.update(gamma_1="gamma_1", gamma_2="gamma_2")
     for i in range(cfg.depth):
         pre = f"blocks.{i}."
         sd[pre + "attn.qkv.weight"] = blocks["qkv_w"][i].reshape(3 * e, e)  # (3, E, E) -> fused (3E, E)
         for ours, theirs in names.items():
             sd[pre + ours] = blocks[theirs][i]
+    if cfg.use_learnable_pos_emb:
+        sd["pos_embed"] = _t(p["pos_embed"])
+    if cfg.cam_emb_placed_at is not None:
+        sd["cam_emb.cam_emb_proj.weight"] = _t(p["cam_emb"]["weight"])
+        sd["cam_emb.cam_emb_proj.bias"] = _t(p["cam_emb"]["bias"])
     return sd
 
 
@@ -159,8 +168,14 @@ def released_state_dict(state_dict: Mapping[str, torch.Tensor], cfg: L4PConfig) 
     """A Lightning checkpoint's `state_dict` -> the port's keys: the
     `l4p_model.` prefix stripped (other keys kept, for the strict load to
     refuse). A configured head without a key raises KeyError naming it, as
-    l4p_tpu.config.convert_l4p does (config.py:192-200)."""
+    l4p_tpu.config.convert_l4p does (config.py:192-200). A learnable
+    `pos_embed` longer than the encoder's tokens (a checkpoint of more
+    frames) is cut to them, as convert_encoder does (l4p_tpu/checkpoint.py:
+    124-125)."""
     sd = {k[len(LIGHTNING_PREFIX):] if k.startswith(LIGHTNING_PREFIX) else k: v for k, v in state_dict.items()}
+    pos = "video_encoder.pos_embed"
+    if cfg.encoder.use_learnable_pos_emb and pos in sd:
+        sd[pos] = sd[pos][:, : cfg.encoder.num_tokens]
     prefixes = {name: f"task_heads.{name}.task_head." for name, _ in cfg.heads}
     if cfg.track is not None:
         prefixes["track_2d"] = "task_heads.track_2d."
@@ -177,8 +192,11 @@ def load_video_encoder_ckpt(encoder: VideoEncoder, path: Union[str, os.PathLike]
     or 'module'; an 'encoder.' prefix (MAE pretraining) is dropped. Present
     tensors of the parameter's shape overlay it; a missing or mismatched one
     keeps the init, and a per-block tensor loads only when every block has
-    it, as the JAX package stacks them. Extra keys are ignored. A directory
-    is the JAX package's own (orbax) checkpoint format, which needs JAX."""
+    it, as the JAX package stacks them. Extra keys are ignored. The options'
+    tensors (cosine logit scales, LayerScale gains, a learnable `pos_embed`,
+    cut to the encoder's tokens, and the camera projection) overlay by the
+    same rules (l4p_tpu/checkpoint.py:182-201). A directory is the JAX
+    package's own (orbax) checkpoint format, which needs JAX."""
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory: orbax checkpoints (scripts/pretrain_mae.py) are read by the JAX package; "
@@ -190,6 +208,8 @@ def load_video_encoder_ckpt(encoder: VideoEncoder, path: Union[str, os.PathLike]
             break
     if not any(k.startswith("blocks.") for k in ckpt) and any(k.startswith("encoder.blocks.") for k in ckpt):
         ckpt = {k[len("encoder."):]: v for k, v in ckpt.items() if k.startswith("encoder.")}
+    if encoder.cfg.use_learnable_pos_emb and "pos_embed" in ckpt:
+        ckpt = {**ckpt, "pos_embed": ckpt["pos_embed"][:, : encoder.cfg.num_tokens]}
     params = encoder.state_dict()
 
     def fits(k: str) -> bool:

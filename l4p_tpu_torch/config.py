@@ -32,6 +32,10 @@ _CAMRAY_DPT_DEFAULTS = dict(
 )
 
 
+CAM_EMB_PLACES = (None, "input", "output")  # the Plucker camera embedding: none, after the positions, on the outputs
+CAM_EMB_TYPES = ("add", "concat")
+
+
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
     """ViT-giant video encoder (reference l4p_videomae.py:163-186)."""
@@ -46,9 +50,27 @@ class EncoderConfig:
     tubelet_size: int = 2
     all_frames: int = 16
     ln_eps: float = 1e-6
+    # the option branches (l4p_tpu/models/encoder.py:48-59, :79-81), with
+    # the JAX defaults: cosine attention with a learnable clamped logit
+    # scale; learnable positions (a persistent `pos_embed`); LayerScale
+    # gammas when init_values > 0; stochastic depth, which acts only in
+    # training; the Plucker camera embedding at the 'input' or on the
+    # 'output' features, added ('add') or projected with them ('concat')
+    cos_attn: bool = False
+    use_learnable_pos_emb: bool = False
+    init_values: float = 0.0
+    drop_path_rate: float = 0.0
+    cam_emb_placed_at: Optional[str] = None
+    cam_emb_type: str = "add"
     # all blocks on ops/fused_encoder.py's kernels, with every window of a
     # request in one batch (l4p_tpu/models/encoder.py:91)
     fused_encoder: bool = False
+
+    def __post_init__(self):
+        if self.cam_emb_placed_at not in CAM_EMB_PLACES:
+            raise ValueError(f"cam_emb_placed_at {self.cam_emb_placed_at!r}: expected one of {CAM_EMB_PLACES}")
+        if self.cam_emb_type not in CAM_EMB_TYPES:
+            raise ValueError(f"cam_emb_type {self.cam_emb_type!r}: expected one of {CAM_EMB_TYPES}")
 
     @property
     def tokens_thw(self) -> Tuple[int, int, int]:
@@ -73,6 +95,12 @@ class EncoderConfig:
 
 
 GIANT = EncoderConfig()
+
+# JAX encoder keys that steer only XLA's compilation (the flash-kernel
+# switch, scan unrolling, matmul output dtype, rematerialisation, Pallas
+# interpret mode): the YAML reader accepts and drops them
+XLA_ONLY_ENCODER_KEYS = frozenset(
+    {"use_flash_attention", "unroll_blocks", "matmul_out_compute_dtype", "remat_blocks", "flash_interpret"})
 
 
 @dataclasses.dataclass(frozen=True)
@@ -302,6 +330,18 @@ def _track_from_yaml(args: Mapping[str, Any]) -> TrackConfig:
     )
 
 
+def _encoder_from_yaml(args: Mapping[str, Any]) -> EncoderConfig:
+    """The `encoder:` mapping -> EncoderConfig, as the JAX reader's
+    `EncoderConfig(**m["encoder"])` (l4p_tpu/config.py:133-135) minus the
+    XLA-only keys; any other key the port does not know raises ValueError
+    naming it."""
+    known = {f.name for f in dataclasses.fields(EncoderConfig)}
+    unknown = sorted(set(args) - known - XLA_ONLY_ENCODER_KEYS)
+    if unknown:
+        raise ValueError(f"unknown encoder key(s) {unknown}; the encoder takes {sorted(known)}")
+    return EncoderConfig(**{k: v for k, v in args.items() if k in known})
+
+
 def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
     """Parse a reference-schema model YAML into (L4PConfig, tasks).
 
@@ -326,10 +366,7 @@ def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
             track = _track_from_yaml(args)
         else:
             raise ValueError(f"unknown head class {cls}")
-    enc_args = dict(m.get("encoder") or {})
-    if enc_args.pop("cam_emb_placed_at", None) is not None:
-        raise NotImplementedError("the Plucker camera embedding (encoder.cam_emb_placed_at) is not ported")
-    enc = EncoderConfig(**enc_args) if "encoder" in m else GIANT
+    enc = _encoder_from_yaml(m["encoder"] or {}) if "encoder" in m else GIANT
     cfg = L4PConfig(
         encoder=enc,
         window_size=tuple(m.get("window_size", (16, 224, 224))),

@@ -13,7 +13,8 @@ in time, backward or both as `estimation_directions` says. With
 `joint_alignment`, depth and camray are stitched together by the Sim(3)
 chain. `data` holds `rgb_u8_bthw3` (uint8, normalised on the device) or
 `rgb_b3thw` (normalised float), `intrinsics_b44t` (B, 4, 4, T) in pixels
-for camray, and for tracking `track_2d_pointquerries_bn3` (B, N, 3) as
+for camray, `extrinsics_b44t` (B, 4, 4, T, cam_T_world) with intrinsics for
+an encoder with the Plucker camera embedding, and for tracking `track_2d_pointquerries_bn3` (B, N, 3) as
 (t, x, y) in frames and pixels and `track_2d_pointlabels_bn`, as tensors or
 numpy arrays. The stages run in the order of l4p_tpu/inference.py:157-181:
 encode, dense heads, camray rays and the camera solve, stitch, track; with
@@ -111,8 +112,9 @@ class InferenceSession:
             self._loaded = (model_or_state, model.eval())
         return self._loaded[1]
 
-    def _encode(self, model: L4P, rgb, rgb_u8, hooks=None) -> Dict[str, object]:
-        return encode_windows(model.video_encoder, self.cfg, rgb, rgb_u8, self.attention, self.encoder_blocks, hooks)
+    def _encode(self, model: L4P, rgb, rgb_u8, intr, ext, hooks=None) -> Dict[str, object]:
+        return encode_windows(model.video_encoder, self.cfg, rgb, rgb_u8, self.attention, self.encoder_blocks, hooks,
+                              intr, ext)
 
     @torch.inference_mode()
     def __call__(self, model_or_state, data: Mapping) -> Dict[str, torch.Tensor]:
@@ -128,10 +130,10 @@ class InferenceSession:
         if tuple(hw) != tuple(cfg.window_size[1:]):
             raise ValueError(f"frames are {tuple(hw)}, the model takes {tuple(cfg.window_size[1:])} only")
 
-        intr = data.get("intrinsics_b44t")
-        intr = None if intr is None else torch.as_tensor(intr, device=self.device)
+        intr, ext = (None if data.get(k) is None else torch.as_tensor(data[k], device=self.device)
+                     for k in ("intrinsics_b44t", "extrinsics_b44t"))
 
-        enc = self._encode(model, rgb, rgb_u8)
+        enc = self._encode(model, rgb, rgb_u8, intr, ext)
         hooks, final = enc["hooks"], enc["final"]
         del enc
         img_info = tuple(cfg.window_size)
@@ -161,10 +163,11 @@ class InferenceSession:
             fwd = run_track_chunked(head, final, queries, labels, stride, self.track_kernels) if 1 in dirs else None
             del final  # freed before the flipped video is encoded, so peak memory does not double
             if -1 in dirs:
-                # the backward pass encodes the time-flipped video (the encoder is not symmetric in
-                # time) and tracks forward in it (reference sparse_heads.py:242-245)
-                flipped = self._encode(model, None if rgb is None else rgb.flip(2),
-                                       None if rgb_u8 is None else rgb_u8.flip(1), hooks=())["final"]
+                # the backward pass encodes the time-flipped video, its cameras flipped with it (the
+                # encoder is not symmetric in time), and tracks forward in it (reference
+                # sparse_heads.py:242-245; l4p_tpu/models/l4p.py:743-752)
+                flipped = self._encode(model, *(None if v is None else v.flip(d) for v, d in
+                                                ((rgb, 2), (rgb_u8, 1), (intr, 3), (ext, 3))), hooks=())["final"]
                 bwd = run_track_chunked(head, flipped, flip_query_times(queries, t), labels, stride,
                                         self.track_kernels)
                 del flipped
@@ -229,8 +232,8 @@ def run_sequence(model_or_state: Union[nn.Module, Mapping[str, torch.Tensor]], c
         emits.append(s.flush())
         out = assemble_emissions(emits)
     else:
-        keys = ("rgb_u8_bthw3" if use_u8 else "rgb_b3thw", "intrinsics_b44t", "track_2d_pointquerries_bn3",
-                "track_2d_pointlabels_bn")
+        keys = ("rgb_u8_bthw3" if use_u8 else "rgb_b3thw", "intrinsics_b44t", "extrinsics_b44t",
+                "track_2d_pointquerries_bn3", "track_2d_pointlabels_bn")
         data = {k: torch.as_tensor(batch[k], device=dev, dtype=dtype if k == "rgb_b3thw" else None)
                 for k in keys if isinstance(batch.get(k), np.ndarray)}
         out = get_session(cfg, tasks, dev, draws)(model_or_state, data)

@@ -158,6 +158,8 @@ def encode_windows(
     attention: AttentionFn = flash_attention,
     encoder_blocks: EncoderBlocksFn = fused_encoder_blocks,
     hooks: Optional[Sequence[int]] = None,
+    intrinsics_b44t: Optional[torch.Tensor] = None,
+    extrinsics_b44t: Optional[torch.Tensor] = None,
 ) -> Dict[str, object]:
     """Slice the video into overlapping windows and encode them all.
     Returns {'hooks': {hook: (nw, B, P, C)}, 'final': (nw, B, P, C)} for
@@ -167,10 +169,15 @@ def encode_windows(
     normalise+patchify matmul and windows are sliced in token space. With
     `cfg.encoder.fused_encoder` every window goes into one batch and one
     `encoder_blocks` call (l4p_tpu/models/l4p.py:259-269), else
-    `enc_window_chunk` windows per encoder call."""
+    `enc_window_chunk` windows per encoder call. With the camera embedding,
+    the intrinsics (pixels, normalised here) and extrinsics (B, 4, 4, T) are
+    sliced per window beside the frames (l4p_tpu/models/l4p.py:208-214)."""
     ecfg = cfg.encoder
     ws, stride, tt = cfg.window_size[0], cfg.window_stride_t, ecfg.tubelet_size
-    b, t = rgb_u8_bthw3.shape[:2] if rgb_u8_bthw3 is not None else (rgb_b3thw.shape[0], rgb_b3thw.shape[2])
+    if rgb_u8_bthw3 is not None:
+        b, t, h, w = rgb_u8_bthw3.shape[:4]
+    else:
+        b, _, t, h, w = rgb_b3thw.shape
     nw = num_windows(cfg, t)
     if rgb_u8_bthw3 is not None:
         if stride % tt != 0:
@@ -184,13 +191,27 @@ def encode_windows(
         def window_tokens(starts):
             return encoder.embed(torch.cat([rgb_b3thw[:, :, s: s + ws] for s in starts]))
 
+    cams = None
+    if ecfg.cam_emb_placed_at is not None:
+        if intrinsics_b44t is None or extrinsics_b44t is None:
+            raise ValueError(f"the camera embedding (cam_emb_placed_at {ecfg.cam_emb_placed_at!r}) needs "
+                             "intrinsics_b44t and extrinsics_b44t")
+        cams = (normalize_intrinsics(intrinsics_b44t.float(), h, w), extrinsics_b44t.float())
+
+    def window_cams(starts):
+        if cams is None:
+            return {}
+        k, e = (torch.cat([c[..., s: s + ws] for s in starts]) for c in cams)
+        return {"intrinsics_b44t": k, "extrinsics_b44t": e}
+
     hooks = cfg.all_hooks if hooks is None else tuple(hooks)
     chunk = nw if ecfg.fused_encoder else cfg.enc_window_chunk
     blocks_fn = encoder_blocks if ecfg.fused_encoder else None
     chunks = []
     for c0 in range(0, nw, chunk):
         starts = [i * stride for i in range(c0, min(c0 + chunk, nw))]
-        chunks.append(encoder(window_tokens(starts), hooks, attention, blocks_fn))  # window-major batch
+        # window-major batch
+        chunks.append(encoder(window_tokens(starts), hooks, attention, blocks_fn, **window_cams(starts)))
 
     def merge(feats):
         return torch.cat(feats).unflatten(0, (nw, b))
@@ -475,15 +496,23 @@ def forward_single_window(model: L4P, cfg: L4PConfig, data: Dict, tasks: Sequenc
     822-863): the dense heads' raw window outputs, camray's window poses and,
     unless it uses the input intrinsics, its K (draws from `draws`), and the
     track head on the one window (the prompt-feature and token-memory
-    outputs dropped)."""
+    outputs dropped). With the camera embedding, the window's intrinsics
+    (pixels) and extrinsics go to the encoder, normalised as
+    `encode_windows` does."""
     dev = torch.device(device)
     rgb = torch.as_tensor(data["rgb_b3thw"], device=dev)
     img_info = tuple(rgb.shape[2:5])
+    intr, ext = (None if data.get(k) is None else torch.as_tensor(data[k], device=dev)
+                 for k in ("intrinsics_b44t", "extrinsics_b44t"))
+    cams = {}
+    if cfg.encoder.cam_emb_placed_at is not None and intr is not None and ext is not None:
+        t = img_info[0]
+        cams = {"intrinsics_b44t": normalize_intrinsics(intr[..., :t].float(), *img_info[1:]),
+                "extrinsics_b44t": ext[..., :t].float()}
     enc_model, hooks = model.video_encoder, cfg.all_hooks
-    enc = enc_model(enc_model.embed(rgb), hooks, attention, encoder_blocks if cfg.encoder.fused_encoder else None)
+    enc = enc_model(enc_model.embed(rgb), hooks, attention, encoder_blocks if cfg.encoder.fused_encoder else None,
+                    **cams)
     feats = dict(zip(hooks, enc["hooks"]))
-    intr = data.get("intrinsics_b44t")
-    intr = None if intr is None else torch.as_tensor(intr, device=dev)
     out: Dict[str, torch.Tensor] = {}
     for task in tasks:
         if task == "track_2d":

@@ -49,10 +49,16 @@ def gemm_tile_width(n: int) -> int:
 
 def fused_encoder_unsupported(cfg: EncoderConfig, dtype: torch.dtype, device: torch.device) -> Optional[str]:
     """The condition the kernel path does not meet, or None. bf16 is needed
-    only on CUDA; the shape conditions hold on every device, so a CPU run
-    refuses what the card would."""
+    only on CUDA; the option and shape conditions hold on every device, so a
+    CPU run refuses what the card would. The blocks' options are refused as
+    JAX's gate refuses them (l4p_tpu/ops/fused_encoder.py:97-98); the camera
+    embedding and learnable positions act outside the blocks."""
     if device.type == "cuda" and dtype != torch.bfloat16:
         return f"the kernels take bf16 on CUDA, got {dtype}"
+    if cfg.cos_attn:
+        return "cos_attn: the kernels run the scaled dot-product attention, not the cosine one"
+    if cfg.init_values > 0:
+        return f"init_values {cfg.init_values}: the kernels have no LayerScale gains"
     e, heads, d = cfg.embed_dim, cfg.num_heads, cfg.head_dim
     if heads * d != e:
         return f"embed_dim {e} is not num_heads {heads} x head_dim {d}"

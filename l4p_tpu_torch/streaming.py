@@ -76,8 +76,8 @@ class StreamingL4P:
 
     As in the JAX package: tracking forward in time only, queries declared
     up front, intrinsics with every push or none, the frames pushed in all
-    tiling the window grid (checked at flush), no camera_rays head. The port
-    has no Plucker camera embedding at all (its config reader refuses one).
+    tiling the window grid (checked at flush), no camera_rays head and no
+    Plucker camera embedding (pushes carry no extrinsics).
     `draws`, `attention`, `track_kernels` and `encoder_blocks` are the
     session's."""
 
@@ -91,6 +91,10 @@ class StreamingL4P:
                 raise NotImplementedError(f"the camera_rays head {t!r} has no streaming stitcher")
         if "track_2d" in tasks and cfg.track is not None and tuple(cfg.track.estimation_directions) != (1,):
             raise ValueError("streaming tracking is forward-only (causality)")
+        if cfg.encoder.cam_emb_placed_at is not None:
+            raise NotImplementedError(
+                f"streaming takes no extrinsics for the Plucker camera embedding (cam_emb_placed_at "
+                f"{cfg.encoder.cam_emb_placed_at!r}); serve such a config with the offline InferenceSession")
         # the session checks the tasks and heads and holds the model and the kernels
         self._session = InferenceSession(cfg, tasks, device, attention, track_kernels, encoder_blocks, draws)
         self.model = self._session.model(model)
