@@ -1,14 +1,17 @@
 """The CLI (counterpart of l4p_tpu/main.py; reference l4p/main.py, a
 LightningCLI):
 
-    python3 -m l4p_tpu_torch.main predict --config configs/model.yaml --video clip.mp4
-    python3 -m l4p_tpu_torch.main predict --davis-root /data/davis --stream --fp32
+    python3 -m l4p_tpu_torch.main predict  --config configs/model.yaml --video clip.mp4
+    python3 -m l4p_tpu_torch.main predict  --davis-root /data/davis --stream --fp32
+    python3 -m l4p_tpu_torch.main validate --config configs/model.yaml --ckpt l4p.ckpt --davis-root /data/davis
 
 `predict` runs each sequence of a video list, a DAVIS root or a Dycheck root
 through `run_sequence` and writes its panel video and 4D point clouds under
-`--out-dir`. A `.ckpt` loads strictly through `released_state_dict`. `fit`,
-`validate` and `test` need the training side, which is not ported yet
-(ROADMAP.md, queue 1's next item).
+`--out-dir`. `validate` and `test` run the sequences through
+`Trainer.validate` and log the averaged metrics under `scalars/val/...` or
+`scalars/test/...` in `--out-dir/scalars.jsonl`. A `.ckpt` loads strictly
+through `released_state_dict`. `fit` needs the training side, which is not
+ported yet (ROADMAP.md, queue 1's next item).
 """
 
 from __future__ import annotations
@@ -54,6 +57,8 @@ def main(argv: Sequence[str] = None) -> int:
     ap.add_argument("--davis-root", default=None)
     ap.add_argument("--dycheck-root", default=None)
     ap.add_argument("--out-dir", default="runs/default")
+    ap.add_argument("--max-steps", type=int, default=10000)
+    ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--max-queries", type=int, default=128)
     ap.add_argument("--bf16", action="store_true", default=True)
     ap.add_argument("--fp32", dest="bf16", action="store_false")
@@ -62,16 +67,26 @@ def main(argv: Sequence[str] = None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.command != "predict":
+    if args.command == "fit":
         raise NotImplementedError(
-            f"'{args.command}' needs the training side (losses, trainer, metrics and backward kernels), which the "
-            "port does not have yet: it is the next item of ROADMAP.md's queue 1; use `python -m l4p_tpu.main`")
+            "'fit' needs the training side (losses, the optimizer, the kernels' backward passes), which is the "
+            "training item of ROADMAP.md's queue 1; use `python -m l4p_tpu.main fit`")
 
     from l4p_tpu_torch.data.dataset import collate
-    from l4p_tpu_torch.inference import run_sequence
 
     model, cfg, tasks = _build(args)
     ds = _dataset(args, cfg)
+    if args.command in ("validate", "test"):
+        from l4p_tpu_torch.trainer import Trainer, TrainerConfig
+
+        trainer = Trainer(cfg, tasks, TrainerConfig(max_steps=args.max_steps, lr=args.lr, out_dir=args.out_dir),
+                          device=args.device)
+        print(trainer.validate(model, (collate(ds[i]) for i in range(len(ds))),
+                               phase="val" if args.command == "validate" else "test"))
+        return 0
+
+    from l4p_tpu_torch.inference import run_sequence
+
     for i in range(len(ds)):
         batch = collate(ds[i])
         seq = str(batch.get("seq_name", f"seq{i}"))

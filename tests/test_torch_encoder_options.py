@@ -73,9 +73,10 @@ def option_models(base, **enc_kw):
     return jcfg, jparams, pcfg, model.eval()
 
 
-# cosine attention's logit scales reach 100 and amplify fp32 rounding: against a float64 run of
-# JAX's encoder_apply, the port's hooks measured <= 7.7e-6 and JAX's own fp32 run <= 3.4e-5, so
-# the two fp32 runs are held to twice JAX's distance from float64
+# cosine attention's logit scales reach 100 and amplify fp32 rounding. Against a float64 run of
+# JAX's functions, the port's hooks measured <= 5.4e-5 (encoder_apply) and 9.5e-6
+# (encode_windows), JAX's own fp32 runs <= 5.4e-5 and 2.7e-5; the two fp32 runs differ by
+# <= 2.7e-5 and are held at 7e-5
 TOL = {"cos_attn": 7e-5}
 
 
@@ -115,7 +116,7 @@ def test_option_encoder_apply_matches_jax(option):
     with torch.no_grad():
         out = enc(enc.embed(torch.from_numpy(x)), hooks, intrinsics_b44t=torch.from_numpy(k),
                   extrinsics_b44t=torch.from_numpy(e))
-    tol = TOL.get(option, 5e-6)  # measured <= 2.4e-6 but for cos_attn
+    tol = TOL.get(option, 5e-6)  # measured <= 2.7e-6 but for cos_attn
     for h, p, r in zip(hooks, out["hooks"], ref["hooks"]):
         check(p, r, tol, f"{option} hook {h}")
     check(out["final"], ref["final"], tol, f"{option} final")
@@ -142,7 +143,7 @@ def test_option_encode_windows_matches_jax(option, source):
     with torch.no_grad():
         out = encode_windows(model.video_encoder, pcfg, **args, intrinsics_b44t=torch.from_numpy(k),
                              extrinsics_b44t=torch.from_numpy(e))
-    tol = TOL.get(option, 1.1e-5)  # measured <= 5.6e-6 but for cos_attn
+    tol = TOL.get(option, 1.5e-5)  # measured <= 7.5e-6 but for cos_attn
     for h in ref["hooks"]:
         check(out["hooks"][h], ref["hooks"][h], tol, f"{option} hook {h}")
     check(out["final"], ref["final"], tol, f"{option} final")
@@ -157,10 +158,10 @@ def test_plucker_rays_and_pose_scaling_match_jax():
         for norm in (False, True):
             ref, ref_s = C.get_rays_plucker(jnp.asarray(k), jnp.asarray(e), (3, 4), first_ref, norm)
             out, out_s = PC.get_rays_plucker(torch.from_numpy(k), torch.from_numpy(e), (3, 4), first_ref, norm)
-            check(out, ref, 2e-6, f"rays first_ref={first_ref} normalize_dist={norm}")  # measured <= 4.8e-7
+            check(out, ref, 2.5e-7, f"rays first_ref={first_ref} normalize_dist={norm}")  # measured <= 1.1e-7
             assert (out_s is None) == (ref_s is None)
             if norm:
-                check(out_s, ref_s, 1e-6, "scale")
+                check(out_s, ref_s, 2e-7, "scale")  # measured <= 8.9e-8
     rays, s = rand((2, 6, 3, 4, 5), 4), rand((2,), 5, 0.5, 2.0)
     check(PC.scale_rays_plucker(torch.from_numpy(rays), torch.from_numpy(s)),
           C.scale_rays_plucker(jnp.asarray(rays), jnp.asarray(s)), 0)
@@ -200,11 +201,11 @@ def test_all_task_session_with_the_camera_embedding_matches_jax_forward(place, d
     ref = jax.jit(lambda p, d: l4p_forward(p, jcfg, d, ALL_TASKS))(jparams, {k: jnp.asarray(v) for k, v in data.items()})
     out = InferenceSession(pcfg, ALL_TASKS, "cpu", draws=JaxDraws.for_session())(model, data)
     assert set(out) == set(ref)
-    # measured <= 2.7e-7 on the dense outputs and tracks; 8.6e-5 on the poses and 9.4e-5 on K
+    # measured <= 3.4e-7 on the dense outputs and tracks; 8.6e-5 on the poses and 9.4e-5 on K
     # (pixels), which the homography RANSAC and RQ on rays from random weights amplify
     tol = {"traj3d_est_b16t": 1.8e-4, "traj3d_intrinsics_est_b16t": 1.9e-4}
     for k in ref:
-        check(out[k], ref[k], tol.get(k, 4e-7), k)
+        check(out[k], ref[k], tol.get(k, 7e-7), k)
 
 
 def test_forward_single_window_passes_the_cameras():
@@ -273,7 +274,7 @@ def test_state_dict_with_every_optional_tensor_loads_strictly_in_both_packages()
         out = enc(enc.embed(torch.from_numpy(x)), (1, 4), intrinsics_b44t=torch.from_numpy(k),
                   extrinsics_b44t=torch.from_numpy(e))
     for p, r in zip(out["hooks"], ref["hooks"]):
-        check(p, r, 5e-6, "hook")  # measured <= 2.4e-6
+        check(p, r, 5e-6, "hook")  # measured <= 2.0e-6
 
 
 def test_encoder_checkpoint_overlay_carries_the_options(tmp_path):
@@ -334,7 +335,7 @@ def test_fused_encoder_takes_the_options_outside_the_blocks(option):
     a = InferenceSession(pcfg, ("depth", "flow_2d_backward"), "cpu")(model, data)
     b = InferenceSession(fused, ("depth", "flow_2d_backward"), "cpu")(model, data)
     for key in a:
-        check(b[key], a[key], 1e-6, key)
+        check(b[key], a[key], 1e-7, key)  # measured <= 5e-8
 
 
 def test_camera_embedding_without_extrinsics_raises():

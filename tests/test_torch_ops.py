@@ -145,23 +145,69 @@ def test_camera_dpt_head_reads_as_camera_rays_in_both_readers(tmp_path):
     assert head.dpt.fusion_scale_factors == pcfg.head_dict["camray"].dpt.fusion_scale_factors
 
 
-def test_camera_embedding_is_refused_by_the_reader(tmp_path):
-    """The Plucker camera embedding is not ported: a YAML encoder that asks
-    for it is refused, one that sets it to null is read."""
+def tiny_yaml_with_encoder(tmp_path, **keys) -> str:
+    """configs/model_tiny.yaml with `keys` set in its encoder mapping."""
     import yaml
 
     with open("configs/model_tiny.yaml") as f:
         tree = yaml.safe_load(f)
-    enc = tree["init_args"]["l4p_model"]["init_args"]["encoder"]
-    for value, ok in ((None, True), ("input", False)):
-        enc["cam_emb_placed_at"] = value
-        path = tmp_path / "model.yaml"
-        path.write_text(yaml.safe_dump(tree))
-        if ok:
-            assert PC.load_model_config(str(path))[0].encoder == PC.load_model_config("configs/model_tiny.yaml")[0].encoder
-        else:
-            with pytest.raises(NotImplementedError, match="camera embedding"):
-                PC.load_model_config(str(path))
+    tree["init_args"]["l4p_model"]["init_args"]["encoder"].update(keys)
+    path = tmp_path / "model.yaml"
+    path.write_text(yaml.safe_dump(tree))
+    return str(path)
+
+
+def test_camera_embedding_is_refused_by_the_reader(tmp_path):
+    """The reader reads the Plucker camera embedding as the JAX reader does
+    (null, 'input' or 'output', 'add' or 'concat') and refuses a placement
+    or type the encoder does not have, naming it, where the JAX encoder
+    would run without the embedding."""
+    from l4p_tpu.config import load_model_config
+
+    for place in (None, "input", "output"):
+        for kind in ("add", "concat"):
+            path = tiny_yaml_with_encoder(tmp_path, cam_emb_placed_at=place, cam_emb_type=kind)
+            enc = PC.load_model_config(path)[0].encoder
+            assert (enc.cam_emb_placed_at, enc.cam_emb_type) == (place, kind)
+            assert enc == _same(PC.EncoderConfig, load_model_config(path)[0].encoder)
+    for keys, bad in (({"cam_emb_placed_at": "middle"}, "middle"), ({"cam_emb_type": "mul"}, "mul")):
+        with pytest.raises(ValueError, match=bad):
+            PC.load_model_config(tiny_yaml_with_encoder(tmp_path, **keys))
+
+
+def _other_value(name: str, value):
+    """A value of a JAX EncoderConfig field other than `value`, valid in both readers."""
+    if name == "cam_emb_placed_at":
+        return "output"
+    if name == "cam_emb_type":
+        return "concat"
+    if isinstance(value, bool):
+        return not value
+    if isinstance(value, int):
+        return 2 * value
+    return value + 0.25
+
+
+def test_every_jax_encoder_key_reads_as_the_jax_reader_reads_it(tmp_path):
+    """For each field of JAX's EncoderConfig, a YAML setting it read by both
+    readers: the port's config equals JAX's on every shared field, the
+    XLA-only keys are dropped, and an unknown key raises ValueError naming it."""
+    from l4p_tpu.config import load_model_config
+    from l4p_tpu.models.encoder import EncoderConfig as JaxEncoderConfig
+
+    port_fields = {f.name for f in dataclasses.fields(PC.EncoderConfig)}
+    jax_fields = [f.name for f in dataclasses.fields(JaxEncoderConfig)]
+    assert set(jax_fields) == port_fields | PC.XLA_ONLY_ENCODER_KEYS
+    tiny = load_model_config("configs/model_tiny.yaml")[0].encoder
+    for name in jax_fields:
+        path = tiny_yaml_with_encoder(tmp_path, **{name: _other_value(name, getattr(tiny, name))})
+        ref = load_model_config(path)[0].encoder
+        out = PC.load_model_config(path)[0].encoder
+        assert getattr(ref, name) != getattr(tiny, name)
+        for f in port_fields:
+            assert getattr(out, f) == getattr(ref, f), (name, f)
+    with pytest.raises(ValueError, match="use_flash_atention"):
+        PC.load_model_config(tiny_yaml_with_encoder(tmp_path, use_flash_atention=False))
 
 
 # --- conv / norm / activation ----------------------------------------------
