@@ -147,6 +147,5 @@ def test_cli_loads_a_ckpt_strictly_and_refuses_what_it_does_not_serve(tmp_path):
         cli.main(["predict", "--ckpt", str(tmp_path / "extra.ckpt"), *common])
     with pytest.raises(NotImplementedError, match="orbax"):
         cli.main(["predict", "--ckpt", str(tmp_path), *common])
-    for command in ("fit", "validate", "test"):
-        with pytest.raises(NotImplementedError, match="training side"):
-            cli.main([command, *common])
+    with pytest.raises(NotImplementedError, match="training side"):
+        cli.main(["fit", *common])
