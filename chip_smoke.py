@@ -125,7 +125,24 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      panel and the mp4 need cv2, which this phase never calls);
  22. `python3 -m l4p_tpu_torch.stream_bench --windows 8` in a subprocess,
      its line checked; the native preprocessing library built with g++,
-     each entry point against its numpy version.
+     each entry point against its numpy version;
+ 23. the five configs of l4p_tpu_torch.eval_protocol (depth on one
+     16-frame window without the joint alignment; the dense tasks, tracks,
+     tracks + depth and all five tasks on 48 frames) on their synthetic
+     batches with QUERY_CHUNK queries: a warm-up and REPEATS timed requests
+     each, seconds and frames/s printed, every kernel's launches against the
+     formulas of phases 7 and 10, outputs checked and held against the plain
+     path (SLICE_TOL, TRACK_BANDS; the joint chain's depth and camray
+     outputs finite, as in phase 12), and the metrics finite and equal on
+     the card and on the CPU from the same outputs (EVAL_METRIC_TOL);
+ 24. the giant encoder with the option branches, two models with seeded
+     bf16 weights: (a) cosine attention, LayerScale 0.1, learnable
+     positions and the camera embedding at the input, added; (b) the
+     embedding on the outputs, concatenated. The dense tasks on 48 frames
+     with bench.py's intrinsics and a synthetic trajectory's extrinsics,
+     timed in turns with the default encoder, the attention's launches
+     counted (the kernel takes cosine attention at scale 1), each held
+     against its plain path (SLICE_TOL); fused_encoder with (a) raises.
 Every line with a number names the card and its power limit. The last two
 lines are the kernels' record and {"ok": true, "device": {...}}. A kernel's
 `launches` is its count over bench.py's request (phase 10's first point,
@@ -250,6 +267,11 @@ BF16_WINDOWS = 3
 DAVIS_HW = (480, 854)
 PIPELINE_FRAMES = 24
 POINT_MAP_TOL = 1e-5
+# phase 23: each eval metric on the card against the CPU from the same
+# outputs, |card - CPU| <= EVAL_METRIC_TOL * (1 + |CPU|): fp32 sums in
+# another order and cuSOLVER's inverses for the poses; the medians and the
+# counts are the same
+EVAL_METRIC_TOL = 1e-4
 # NVIDIA's H100 SXM data sheet: dense bf16 tensor-core rate, HBM3 rate
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -592,7 +614,8 @@ def check_outputs(out: dict, want: dict, frames: int, hw, checks, queries=None) 
             shape = (1, c, frames, *hw)
         checks.expect(tuple(x.shape) == shape, f"{key} has shape {tuple(x.shape)}, expected {shape}")
         checks.expect(bool(torch.isfinite(x).all()), f"{key} is not finite")
-    checks.expect(bool((out["depth_est_b1thw"] > 0).all()), "depth is not positive")
+    if "depth_est_b1thw" in want:
+        checks.expect(bool((out["depth_est_b1thw"] > 0).all()), "depth is not positive")
     if queries is not None:
         started = torch.arange(frames, device=queries.device) + 0.5 >= queries[0, :, :1]  # (N, T)
         checks.expect(bool((out["track_2d_depth_est_bn1t"][0, :, 0][started] > 0).all()),
@@ -1066,6 +1089,138 @@ def tools_phase(log, checks) -> None:
             f"{tol} absolute + relative); native {times[''][1] * 1e3:.1f} ms, numpy {times['_plain'][1] * 1e3:.1f} ms "
             f"(host)")
         checks.expect(ok, f"native {name} disagrees with its numpy version")
+
+
+def eval_phase(P, model, cfg, dev, log, checks, reset_counts, counts) -> None:
+    """Phase 23: the five eval configs of l4p_tpu_torch.eval_protocol on the
+    giant model, each a warm-up and REPEATS timed requests of its synthetic
+    batch (QUERY_CHUNK queries) with the counts checked, then the plain
+    path; the metrics on the card against the CPU's from the same outputs."""
+    from l4p_tpu_torch import eval_protocol as EP
+    from l4p_tpu_torch.metrics import l4p_metrics
+    from l4p_tpu_torch.models.l4p import num_windows
+    from l4p_tpu_torch.ops import flash_attention as FA
+
+    hw = tuple(cfg.window_size[1:])
+    for name, tasks, extra in EP.CONFIGS:
+        frames = EP.config_frames(cfg, extra)
+        batch = EP.synthetic_batch(frames, *hw, n_queries=QUERY_CHUNK, tasks=tasks)
+        nw = num_windows(cfg, frames)
+        per_request = {"flash_attention": cfg.encoder.depth * math.ceil(nw / cfg.enc_window_chunk),
+                       "t2i_flash": 0, "i2t_ln_t2i": 0, "fused_upscale_hypernet": 0, "fused_encoder_blocks": 0}
+        if "track_2d" in tasks:
+            per_request.update(t2i_flash=nw, i2t_ln_t2i=2 * nw, fused_upscale_hypernet=nw)  # one chunk of 128
+        reset_counts()
+        data, out, metrics = EP.run_config(model, cfg, name, tasks, batch, dev, iters=REPEATS)
+        got = counts()
+        want = {k: (REPEATS + 1) * c for k, c in per_request.items()}
+        checks.expect(got == want, f"eval {name}: launches {got}, expected {want}")
+        seconds = metrics.pop("seconds")
+        keys = {**({k: c for k, c in DENSE_KEYS.items() if k.split("_est")[0] in tasks}),
+                **(TRACK_KEYS if "track_2d" in tasks else {}), **(CAMRAY_KEYS if "camray" in tasks else {})}
+        check_outputs(out, keys, frames, hw, checks, data.get("track_2d_pointquerries_bn3"))
+        log(f"eval {name} ({frames} frames, tasks {list(tasks)}, {nw} windows, launches a request {per_request}): "
+            f"{seconds:.4f} s = {frames / seconds:.2f} frames/s (mean of {REPEATS} after a warm-up)")
+        cpu, _ = l4p_metrics({k: v.cpu() for k, v in data.items()}, {k: v.cpu() for k, v in out.items()})
+        checks.expect(set(cpu) == set(metrics) and len(metrics) > 0, f"eval {name}: metrics {sorted(metrics)}")
+        worst = 0.0
+        for k, v in metrics.items():
+            c = cpu[k].item()
+            err = abs(v - c) / (1 + abs(c))
+            worst = max(worst, err)
+            checks.expect(math.isfinite(v) and err <= EVAL_METRIC_TOL, f"eval {name} {k}: card {v}, CPU {c}")
+        log(f"eval {name} metrics on the card: {json.dumps({k: round(v, 6) for k, v in metrics.items()})}; "
+            f"largest |card - CPU| / (1 + |CPU|) {worst:.3g} (band {EVAL_METRIC_TOL})")
+        before = counts()
+        ref = P.InferenceSession(EP.config_for(cfg, name), tasks, dev, attention=FA.flash_attention_plain,
+                                 track_kernels=P.PLAIN)(model, data)
+        torch.cuda.synchronize()
+        checks.expect(counts() == before, f"eval {name}: the plain path launched a kernel")
+        for key, r in ref.items():
+            if "camray" in tasks and key in ("depth_est_b1thw", *CAMRAY_KEYS):
+                # the RANSACs pick among hypotheses by inlier counts, which a bf16 step can change (phase 12)
+                err, scale = rel_diff(out[key], r)
+                log(f"eval {name} {key} (joint Sim(3) chain): max|kernel path - plain path| {err:.4g} = "
+                    f"{err / max(scale, 1e-30):.3g} x max|plain|, both finite: {bool(torch.isfinite(r).all())}")
+                checks.expect(bool(torch.isfinite(r).all()), f"eval {name}: plain-path {key} is not finite")
+            else:
+                hold_outputs(log, checks, key, out[key], r, f"eval {name}")
+        del data, out, ref
+
+
+def synthetic_extrinsics(frames: int, dev) -> torch.Tensor:
+    """(1, 4, 4, T) cam_T_world of eval_protocol's synthetic trajectory: a
+    turn of 0.01 rad a frame about y and a drift in x and z."""
+    a = torch.arange(frames, device=dev, dtype=torch.float32) * 0.01
+    ext = torch.eye(4, device=dev).repeat(frames, 1, 1)
+    ext[:, 0, 0], ext[:, 0, 2], ext[:, 2, 0], ext[:, 2, 2] = a.cos(), a.sin(), -a.sin(), a.cos()
+    ext[:, 0, 3], ext[:, 2, 3] = 2 * a, -a
+    return ext.permute(1, 2, 0)[None].contiguous()
+
+
+def options_phase(P, cfg, video, dev, log, checks, reset_counts, counts, default_model) -> None:
+    """Phase 24: the giant encoder with the option branches in two models,
+    (a) cosine attention + LayerScale 0.1 + learnable positions + the
+    camera embedding at the input, added, and (b) the embedding on the
+    outputs, concatenated; the dense tasks at 48 frames with bench.py's
+    intrinsics and a synthetic trajectory's extrinsics, timed in turns with
+    the default encoder, launch counts checked, each held against its plain
+    path; fused_encoder with cos_attn refused."""
+    from l4p_tpu_torch.models.l4p import num_windows
+    from l4p_tpu_torch.ops import flash_attention as FA
+
+    frames = video.shape[1]
+    hw = tuple(cfg.window_size[1:])
+    nw = num_windows(cfg, frames)
+    request = {"rgb_u8_bthw3": video, "intrinsics_b44t": bench_intrinsics(frames, hw, dev),
+               "extrinsics_b44t": synthetic_extrinsics(frames, dev)}
+    options = {"(a) cos_attn + init_values 0.1 + learnable positions + input/add embedding": dict(
+                   cos_attn=True, init_values=0.1, use_learnable_pos_emb=True, cam_emb_placed_at="input",
+                   cam_emb_type="add"),
+               "(b) output/concat embedding": dict(cam_emb_placed_at="output", cam_emb_type="concat")}
+    models = {"default encoder": (cfg, default_model)}
+    for label, enc in options.items():
+        c = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, **enc))
+        m = P.L4P(c, device=dev, dtype=torch.bfloat16).eval()
+        m.init_weights(torch.Generator(device=dev).manual_seed(24))
+        models[label] = (c, m)
+    sessions = {label: P.InferenceSession(c, P.DENSE_TASKS, dev) for label, (c, _) in models.items()}
+    for label, sess in sessions.items():
+        sess(models[label][1], request)  # warm-up
+    want = cfg.encoder.depth * math.ceil(nw / cfg.enc_window_chunk)
+    times = {label: [] for label in sessions}
+    outs = {}
+    order = list(sessions) + list(reversed(sessions))
+    for label in order * 2:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs[label] = sessions[label](models[label][1], request)
+        torch.cuda.synchronize()
+        times[label].append(time.perf_counter() - t0)
+        got = counts()
+        checks.expect(got["flash_attention"] == want and sum(got.values()) == want,
+                      f"{label}: launches {got}, expected {want} attention launches")
+    for label, ts in times.items():
+        log(f"dense request {frames} frames, {label} ({nw} windows, {want} attention launches): "
+            f"{', '.join(f'{t:.4f}' for t in ts)} s (in turns); best {min(ts):.4f} s = {frames / min(ts):.2f} frames/s")
+    for label, (c, m) in models.items():
+        if label == "default encoder":
+            continue
+        check_outputs(outs[label], DENSE_KEYS, frames, hw, checks)
+        ref = P.InferenceSession(c, P.DENSE_TASKS, dev, attention=FA.flash_attention_plain)(m, request)
+        for key, r in ref.items():
+            hold_outputs(log, checks, key, outs[label][key], r, f"options {label}")
+        del ref
+    c_a, m_a = models[next(iter(options))]
+    fused = dataclasses.replace(c_a, encoder=dataclasses.replace(c_a.encoder, fused_encoder=True))
+    try:
+        P.InferenceSession(fused, P.DENSE_TASKS, dev)(m_a, request)
+        checks.expect(False, "fused_encoder with cos_attn was not refused")
+    except ValueError as e:
+        log(f"fused_encoder with cos_attn and LayerScale refused: {e}")
+        checks.expect("cos_attn" in str(e), f"fused_encoder's refusal does not name cos_attn: {e}")
+    del models, sessions, outs
 
 
 def main() -> int:
@@ -1661,6 +1816,14 @@ def main() -> int:
     pipeline_phase(P, model, cfg, dev, log, checks)
     # 22. stream_bench in its own process; the native preprocessing library
     tools_phase(log, checks)
+    # 23. the five eval configs, kernel path against plain path, metrics card against CPU
+    t0 = time.perf_counter()
+    eval_phase(P, model, cfg, dev, log, checks, reset_counts, counts)
+    torch.cuda.empty_cache()
+    # 24. the encoder's option branches at giant width and depth
+    options_phase(P, cfg, videos[TRACK_FRAMES], dev, log, checks, reset_counts, counts, model)
+    torch.cuda.empty_cache()
+    log(f"phases 23-24 took {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     if checks.failed:

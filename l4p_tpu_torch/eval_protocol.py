@@ -93,17 +93,20 @@ def config_frames(cfg: L4PConfig, extra_strides: int) -> int:
     return cfg.window_size[0] + extra_strides * cfg.window_stride_t
 
 
+def config_for(cfg: L4PConfig, name: str) -> L4PConfig:
+    """The model config a protocol config runs: depth_single_window without
+    the joint alignment, as the JAX script runs it."""
+    return dataclasses.replace(cfg, joint_alignment=False) if name == "depth_single_window" else cfg
+
+
 def run_config(model, cfg: L4PConfig, name: str, tasks: Sequence[str], batch: Dict[str, np.ndarray],
                device: torch.device, iters: int = 3,
                **session_kw) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, float]]:
     """One config on one batch: (the batch on the device, the outputs, the
     metrics as floats and the request's mean seconds under 'seconds'). A
     first request, then `iters` timed ones ending in a synchronisation of
-    the card. depth_single_window runs without the joint alignment, as the
-    JAX script runs it."""
-    if name == "depth_single_window":
-        cfg = dataclasses.replace(cfg, joint_alignment=False)
-    sess = InferenceSession(cfg, tasks, device, **session_kw)
+    the card."""
+    sess = InferenceSession(config_for(cfg, name), tasks, device, **session_kw)
     data = {k: torch.as_tensor(v, device=device) for k, v in batch.items() if not isinstance(v, str)}
 
     def sync():
@@ -128,7 +131,7 @@ def main(argv: Optional[Sequence[str]] = None) -> int:
     ap.add_argument("--model-config", default="configs/model.yaml")
     ap.add_argument("--ckpt", default=None, help="released Lightning .ckpt (strict load)")
     ap.add_argument("--queries", type=int, default=128, help="tracking queries (reference default, demo.py:24-25)")
-    ap.add_argument("--out-dir", default="runs/eval_protocol")
+    ap.add_argument("--out-dir", default="runs/eval_protocol_torch")
     ap.add_argument("--davis-root", default=None)
     ap.add_argument("--dycheck-root", default=None)
     ap.add_argument("--only", default=None, help="comma list of config names")

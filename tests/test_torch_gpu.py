@@ -925,3 +925,128 @@ def test_native_library_builds_on_the_card_machine(cuda):
                                   NL.resize_planes_plain(planes, (28, 28), "nearest"))
     video = rng.standard_normal((3, 5, 8, 8)).astype(np.float32)
     np.testing.assert_array_equal(NL.mirror_pad_time(video), NL.mirror_pad_time_plain(video))
+
+
+@pytest.mark.gpu
+def test_metrics_on_card_match_cpu(cuda):
+    """l4p_metrics on the card against the CPU on the same outputs and ground
+    truth: a 16-frame 224 x 224 depth map (802,816 values, an even count,
+    and a sparse mask with an odd one) for the medians' order statistics,
+    flow, the mask at the 0.85 threshold, 128 tracks and 16 poses."""
+    import math
+
+    from l4p_tpu_torch.metrics import l4p_metrics
+
+    g = torch.Generator().manual_seed(11)
+    t, hw, n = 16, (224, 224), 128
+
+    def pose(count):
+        q, _ = torch.linalg.qr(torch.randn((count, 3, 3), generator=g))
+        m = torch.eye(4).repeat(count, 1, 1)
+        m[:, :3, :3] = q * torch.sign(torch.linalg.det(q))[:, None, None]
+        m[:, :3, 3] = torch.randn((count, 3), generator=g)
+        return m.permute(1, 2, 0)[None]  # (1, 4, 4, T)
+
+    valid = (torch.rand((1, 1, t, *hw), generator=g) < 0.3).float()
+    if int(valid.sum()) % 2 == 0:
+        valid.view(-1)[int((valid.view(-1) == 0).nonzero()[0])] = 1.0
+    batch = {"depth_b1thw": torch.rand((1, 1, t, *hw), generator=g) * 8 + 0.5, "depth_valid_b1thw": valid,
+             "flow_2d_backward_b2thw": torch.randn((1, 2, t, *hw), generator=g),
+             "dyn_mask_b1thw": (torch.rand((1, 1, t, *hw), generator=g) > 0.5).float(),
+             "track_2d_traj_bn2t": torch.rand((1, n, 2, t), generator=g) * 224,
+             "track_2d_vis_bn1t": (torch.rand((1, n, 1, t), generator=g) > 0.3).float(),
+             "track_2d_valid_bn1t": (torch.rand((1, n, 1, t), generator=g) > 0.1).float(), "extrinsics_b44t": pose(t)}
+    out = {"depth_est_b1thw": torch.rand((1, 1, t, *hw), generator=g) * 5 + 0.2,
+           "flow_2d_backward_est_b2thw": torch.randn((1, 2, t, *hw), generator=g),
+           "dyn_mask_est_b1thw": torch.randn((1, 1, t, *hw), generator=g) + math.log(0.85 / 0.15),
+           "track_2d_traj_est_bn2t": batch["track_2d_traj_bn2t"] + torch.randn((1, n, 2, t), generator=g) * 6,
+           "track_2d_vis_est_bn1t": torch.randn((1, n, 1, t), generator=g),
+           "traj3d_est_b16t": pose(t).reshape(1, 16, t)}
+    ref, _ = l4p_metrics(batch, out)
+    got, _ = l4p_metrics({k: v.to(cuda) for k, v in batch.items()}, {k: v.to(cuda) for k, v in out.items()})
+    assert set(got) == set(ref) and len(ref) == 12
+    for k, r in ref.items():
+        assert got[k].device.type == "cuda" and torch.isfinite(got[k]), k
+        # fp32 sums in another order; the medians and the counts are the same
+        assert abs(got[k].item() - r.item()) <= 1e-5 * (1 + abs(r.item())), (k, got[k].item(), r.item())
+    for mask in (None, valid.bool()):
+        from l4p_tpu_torch.metrics import median
+
+        x = out["depth_est_b1thw"]
+        assert median(x.to(cuda), None if mask is None else mask.to(cuda)).item() == median(x, mask).item()
+
+
+def option_cfg(**enc):
+    """tiny_cfg with encoder options; MLP width 256."""
+    import dataclasses
+
+    cfg = tiny_cfg()
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, mlp_ratio=4.0, **enc))
+
+
+def camera_request(cuda, g, t=8):
+    """Pixel intrinsics and the extrinsics of a rotating, translating camera."""
+    k = torch.diag(torch.tensor([28.0, 28.0, 1.0, 1.0], device=cuda))
+    k[0, 2] = k[1, 2] = 14.0
+    ext = torch.eye(4, device=cuda).repeat(t, 1, 1)
+    a = torch.arange(t, device=cuda) * 0.05
+    ext[:, 0, 0], ext[:, 0, 2], ext[:, 2, 0], ext[:, 2, 2] = a.cos(), a.sin(), -a.sin(), a.cos()
+    ext[:, :3, 3] = torch.rand((t, 3), generator=g, device=cuda)
+    return {"intrinsics_b44t": k[None, :, :, None].expand(1, 4, 4, t).contiguous(),
+            "extrinsics_b44t": ext.permute(1, 2, 0)[None].contiguous()}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc", [dict(cos_attn=True), dict(init_values=0.1), dict(use_learnable_pos_emb=True),
+                                 dict(cam_emb_placed_at="input", cam_emb_type="add"),
+                                 dict(cam_emb_placed_at="output", cam_emb_type="concat"),
+                                 dict(cos_attn=True, init_values=0.1, use_learnable_pos_emb=True,
+                                      cam_emb_placed_at="input")],
+                         ids=["cos_attn", "layer_scale", "learnable_pos", "cam_input_add", "cam_output_concat", "all"])
+def test_option_branches_on_card_match_plain_path(cuda, enc):
+    """Each option of the tiny bf16 model on the kernel path (the attention
+    kernel, with scale 1 under cos_attn) against the plain attention: the
+    dense tasks over 3 windows, within chip_smoke.py's band."""
+    from l4p_tpu_torch import DENSE_TASKS, L4P, InferenceSession
+
+    cfg = option_cfg(**enc)
+    g = torch.Generator(device=cuda).manual_seed(6)
+    model = L4P(cfg, device=cuda, dtype=torch.bfloat16).eval()
+    model.init_weights(g)
+    data = {"rgb_u8_bthw3": torch.randint(0, 256, (1, 8, 28, 28, 3), generator=g, device=cuda, dtype=torch.uint8),
+            **camera_request(cuda, g)}
+    before = flash_attention.launches
+    out = InferenceSession(cfg, DENSE_TASKS, cuda)(model, data)
+    assert flash_attention.launches - before == 4 * 2  # 4 blocks, chunks of 2 + 1 windows
+    ref = InferenceSession(cfg, DENSE_TASKS, cuda, attention=flash_attention_plain)(model, data)
+    assert set(out) == set(ref)
+    for k, r in ref.items():
+        assert out[k].shape == r.shape and torch.isfinite(out[k]).all(), k
+        assert (out[k].float() - r.float()).abs().max().item() <= 3e-2 * r.float().abs().max().item(), k
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("enc,reason", [(dict(cos_attn=True), "cos_attn"), (dict(init_values=0.1), "init_values")])
+def test_fused_encoder_refuses_cos_attn_and_layer_scale_on_card(cuda, enc, reason):
+    """fused_encoder with an option the kernels lack raises on the card, at
+    fused_encoder_blocks and through the session; the embedding and learnable
+    positions, outside the blocks, take the kernels."""
+    from l4p_tpu_torch import L4P, InferenceSession
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    cfg = option_cfg(fused_encoder=True, **enc)
+    g = torch.Generator(device=cuda).manual_seed(7)
+    model = L4P(cfg, device=cuda, dtype=torch.bfloat16).eval()
+    model.init_weights(g)
+    x = torch.zeros((1, 8, 64), device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match=reason):
+        FE.fused_encoder_blocks(model.video_encoder.blocks, x, cfg.encoder, (4,))
+    data = {"rgb_u8_bthw3": torch.zeros((1, 4, 28, 28, 3), device=cuda, dtype=torch.uint8)}
+    with pytest.raises(ValueError, match=reason):
+        InferenceSession(cfg, ("depth",), cuda)(model, data)
+    ok = option_cfg(fused_encoder=True, use_learnable_pos_emb=True, cam_emb_placed_at="input")
+    model = L4P(ok, device=cuda, dtype=torch.bfloat16).eval()
+    model.init_weights(g)
+    before = FE.fused_encoder_blocks.launches
+    InferenceSession(ok, ("depth",), cuda)(model, {**data, **camera_request(cuda, g, t=4)})
+    assert FE.fused_encoder_blocks.launches == before + 1
