@@ -132,9 +132,15 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      batches with QUERY_CHUNK queries: a warm-up and REPEATS timed requests
      each, seconds and frames/s printed, every kernel's launches against the
      formulas of phases 7 and 10, outputs checked and held against the plain
-     path (SLICE_TOL, TRACK_BANDS; the joint chain's depth and camray
-     outputs finite, as in phase 12), and the metrics finite and equal on
-     the card and on the CPU from the same outputs (EVAL_METRIC_TOL);
+     path (SLICE_TOL; the joint chain's depth and camray outputs finite, as
+     in phase 12), and the metrics finite and equal on the card and on the
+     CPU from the same outputs (EVAL_METRIC_TOL). The tracks are held by
+     phase 9's witness: on the protocol's float noise video, with every
+     query at t = 0.5 (no -10 vis fill to scale the bands), either path
+     moves past TRACK_BANDS when only its attention goes to fp32, so the
+     kernel path's 99th percentile against its fp32-attention run must stay
+     within WITNESS_SLACK of the plain path's (the spreads against
+     TRACK_BANDS printed);
  24. the giant encoder with the option branches, two models with seeded
      bf16 weights: (a) cosine attention, LayerScale 0.1, learnable
      positions and the camera embedding at the input, added; (b) the
@@ -269,9 +275,11 @@ PIPELINE_FRAMES = 24
 POINT_MAP_TOL = 1e-5
 # phase 23: each eval metric on the card against the CPU from the same
 # outputs, |card - CPU| <= EVAL_METRIC_TOL * (1 + |CPU|): fp32 sums in
-# another order and cuSOLVER's inverses for the poses; the medians and the
-# counts are the same
-EVAL_METRIC_TOL = 1e-4
+# another order and cuSOLVER's inverses for the poses, while the medians and
+# the counts are the same; the H100 measured <= 1.05e-7 over the five
+# configs, and one pixel crossing a threshold of the 2.4 M a metric counts
+# moves it 4e-7
+EVAL_METRIC_TOL = 1e-6
 # NVIDIA's H100 SXM data sheet: dense bf16 tensor-core rate, HBM3 rate
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -1095,7 +1103,8 @@ def eval_phase(P, model, cfg, dev, log, checks, reset_counts, counts) -> None:
     """Phase 23: the five eval configs of l4p_tpu_torch.eval_protocol on the
     giant model, each a warm-up and REPEATS timed requests of its synthetic
     batch (QUERY_CHUNK queries) with the counts checked, then the plain
-    path; the metrics on the card against the CPU's from the same outputs."""
+    path, and for the tracks each path with its attention in fp32; the
+    metrics on the card against the CPU's from the same outputs."""
     from l4p_tpu_torch import eval_protocol as EP
     from l4p_tpu_torch.metrics import l4p_metrics
     from l4p_tpu_torch.models.l4p import num_windows
@@ -1132,12 +1141,27 @@ def eval_phase(P, model, cfg, dev, log, checks, reset_counts, counts) -> None:
         log(f"eval {name} metrics on the card: {json.dumps({k: round(v, 6) for k, v in metrics.items()})}; "
             f"largest |card - CPU| / (1 + |CPU|) {worst:.3g} (band {EVAL_METRIC_TOL})")
         before = counts()
-        ref = P.InferenceSession(EP.config_for(cfg, name), tasks, dev, attention=FA.flash_attention_plain,
+        run_cfg = EP.config_for(cfg, name)
+        ref = P.InferenceSession(run_cfg, tasks, dev, attention=FA.flash_attention_plain,
                                  track_kernels=P.PLAIN)(model, data)
         torch.cuda.synchronize()
         checks.expect(counts() == before, f"eval {name}: the plain path launched a kernel")
+        if "track_2d" in tasks:
+            # each path against itself with the attention in fp32 (phase 9's witness)
+            fp32 = {path: P.InferenceSession(run_cfg, tasks, dev, attention=fp32_attention, **kw)(model, data)
+                    for path, kw in (("kernel", {}), ("plain", {"track_kernels": P.PLAIN}))}
         for key, r in ref.items():
-            if "camray" in tasks and key in ("depth_est_b1thw", *CAMRAY_KEYS):
+            if key in TRACK_KEYS:
+                kernel, plain = spread(out[key], fp32["kernel"][key]), spread(r, fp32["plain"][key])
+                both = spread(out[key], r)
+                log(f"eval {name} {key}, (max, 99th pct) / output max {r.float().abs().max().item():.4g}: kernel "
+                    f"path - plain path ({both[0]:.3g}, {both[1]:.3g}) (TRACK_BANDS {TRACK_BANDS[key]}); against "
+                    f"its fp32-attention run, kernel path ({kernel[0]:.3g}, {kernel[1]:.3g}), plain path "
+                    f"({plain[0]:.3g}, {plain[1]:.3g}) (99th pct within {WITNESS_SLACK}x)")
+                checks.expect(math.isfinite(both[0]) and kernel[1] <= WITNESS_SLACK * plain[1],
+                              f"eval {name} {key}: the kernel path is farther from its fp32-attention run than the "
+                              f"plain path: {kernel} against {plain}")
+            elif "camray" in tasks and key in ("depth_est_b1thw", *CAMRAY_KEYS):
                 # the RANSACs pick among hypotheses by inlier counts, which a bf16 step can change (phase 12)
                 err, scale = rel_diff(out[key], r)
                 log(f"eval {name} {key} (joint Sim(3) chain): max|kernel path - plain path| {err:.4g} = "

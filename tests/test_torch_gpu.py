@@ -967,8 +967,11 @@ def test_metrics_on_card_match_cpu(cuda):
     assert set(got) == set(ref) and len(ref) == 12
     for k, r in ref.items():
         assert got[k].device.type == "cuda" and torch.isfinite(got[k]), k
-        # fp32 sums in another order; the medians and the counts are the same
-        assert abs(got[k].item() - r.item()) <= 1e-5 * (1 + abs(r.item())), (k, got[k].item(), r.item())
+        # fp32 sums in another order; the medians and the counts are the same. Random rotations put
+        # some relative angles near 180 degrees, where arccos turns an ulp of the trace into ~1e-3
+        # degrees: rot_deg measured 1.6e-5 relative on an H100
+        tol = 4e-5 if k == "pose/rot_deg" else 1e-5
+        assert abs(got[k].item() - r.item()) <= tol * (1 + abs(r.item())), (k, got[k].item(), r.item())
     for mask in (None, valid.bool()):
         from l4p_tpu_torch.metrics import median
 
