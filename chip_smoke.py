@@ -145,9 +145,9 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      bf16 weights: (a) cosine attention, LayerScale 0.1, learnable
      positions and the camera embedding at the input, added; (b) the
      embedding on the outputs, concatenated. The dense tasks on 48 frames
-     with bench.py's intrinsics and a synthetic trajectory's extrinsics,
-     timed in turns with the default encoder, the attention's launches
-     counted (the kernel takes cosine attention at scale 1), each held
+     with bench.py's intrinsics and the eval protocol's trajectory as
+     extrinsics, timed in turns with the default encoder, the attention's
+     launches counted (the kernel takes cosine attention at scale 1), each held
      against its plain path (SLICE_TOL); fused_encoder with (a) raises.
 Every line with a number names the card and its power limit. The last two
 lines are the kernels' record and {"ok": true, "device": {...}}. A kernel's
@@ -1172,24 +1172,15 @@ def eval_phase(P, model, cfg, dev, log, checks, reset_counts, counts) -> None:
         del data, out, ref
 
 
-def synthetic_extrinsics(frames: int, dev) -> torch.Tensor:
-    """(1, 4, 4, T) cam_T_world of eval_protocol's synthetic trajectory: a
-    turn of 0.01 rad a frame about y and a drift in x and z."""
-    a = torch.arange(frames, device=dev, dtype=torch.float32) * 0.01
-    ext = torch.eye(4, device=dev).repeat(frames, 1, 1)
-    ext[:, 0, 0], ext[:, 0, 2], ext[:, 2, 0], ext[:, 2, 2] = a.cos(), a.sin(), -a.sin(), a.cos()
-    ext[:, 0, 3], ext[:, 2, 3] = 2 * a, -a
-    return ext.permute(1, 2, 0)[None].contiguous()
-
-
 def options_phase(P, cfg, video, dev, log, checks, reset_counts, counts, default_model) -> None:
     """Phase 24: the giant encoder with the option branches in two models,
     (a) cosine attention + LayerScale 0.1 + learnable positions + the
     camera embedding at the input, added, and (b) the embedding on the
     outputs, concatenated; the dense tasks at 48 frames with bench.py's
-    intrinsics and a synthetic trajectory's extrinsics, timed in turns with
-    the default encoder, launch counts checked, each held against its plain
-    path; fused_encoder with cos_attn refused."""
+    intrinsics and the eval protocol's trajectory as extrinsics, timed in
+    turns with the default encoder, launch counts checked, each held
+    against its plain path; fused_encoder with cos_attn refused."""
+    from l4p_tpu_torch.eval_protocol import synthetic_extrinsics
     from l4p_tpu_torch.models.l4p import num_windows
     from l4p_tpu_torch.ops import flash_attention as FA
 
@@ -1197,7 +1188,7 @@ def options_phase(P, cfg, video, dev, log, checks, reset_counts, counts, default
     hw = tuple(cfg.window_size[1:])
     nw = num_windows(cfg, frames)
     request = {"rgb_u8_bthw3": video, "intrinsics_b44t": bench_intrinsics(frames, hw, dev),
-               "extrinsics_b44t": synthetic_extrinsics(frames, dev)}
+               "extrinsics_b44t": torch.as_tensor(synthetic_extrinsics(frames), device=dev)}
     options = {"(a) cos_attn + init_values 0.1 + learnable positions + input/add embedding": dict(
                    cos_attn=True, init_values=0.1, use_learnable_pos_emb=True, cam_emb_placed_at="input",
                    cam_emb_type="add"),

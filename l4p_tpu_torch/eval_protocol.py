@@ -37,6 +37,17 @@ from l4p_tpu_torch.inference import InferenceSession
 from l4p_tpu_torch.metrics import l4p_metrics
 
 
+def synthetic_extrinsics(t: int) -> np.ndarray:
+    """(1, 4, 4, t) cam_T_world of the protocol's trajectory: a turn of
+    0.01 rad a frame about y and a drift in x and z."""
+    ext = np.tile(np.eye(4, dtype=np.float32)[None, :, :, None], (1, 1, 1, t))
+    for i in range(t):
+        a = 0.01 * i
+        ext[0, :3, :3, i] = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]], np.float32)
+        ext[0, :3, 3, i] = [0.02 * i, 0.0, -0.01 * i]
+    return ext
+
+
 def synthetic_batch(t: int, h: int = 224, w: int = 224, n_queries: int = 32, seed: int = 0,
                     tasks: Sequence[str] = ("depth",)) -> Dict[str, np.ndarray]:
     """An L4PData-schema batch with ground truth for every task: the JAX
@@ -45,15 +56,10 @@ def synthetic_batch(t: int, h: int = 224, w: int = 224, n_queries: int = 32, see
     k = np.tile(np.diag([float(w), float(h), 1, 1]).astype(np.float32)[None, :, :, None], (1, 1, 1, t))
     k[:, 0, 2] = w / 2.0
     k[:, 1, 2] = h / 2.0
-    ext = np.tile(np.eye(4, dtype=np.float32)[None, :, :, None], (1, 1, 1, t))
-    for i in range(t):
-        a = 0.01 * i
-        ext[0, :3, :3, i] = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]], np.float32)
-        ext[0, :3, 3, i] = [0.02 * i, 0.0, -0.01 * i]
     batch = {
         "rgb_b3thw": rng.standard_normal((1, 3, t, h, w)).astype(np.float32) * 0.5,
         "intrinsics_b44t": k,
-        "extrinsics_b44t": ext,
+        "extrinsics_b44t": synthetic_extrinsics(t),
         "depth_b1thw": np.exp(rng.standard_normal((1, 1, t, h, w)).astype(np.float32) * 0.3),
         "flow_2d_backward_b2thw": rng.standard_normal((1, 2, t, h, w)).astype(np.float32),
         "dyn_mask_b1thw": (rng.random((1, 1, t, h, w)) > 0.5).astype(np.float32),

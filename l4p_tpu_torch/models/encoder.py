@@ -18,7 +18,7 @@ normalised intrinsics and extrinsics.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence, Tuple
+from typing import Callable, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -123,7 +123,8 @@ class Block(nn.Module):
         branch = linear(o.transpose(1, 2).reshape(b, n, e), a.proj.weight, a.proj.bias)
         x = x + (branch * self.gamma_1.to(x.dtype) if self.cfg.init_values > 0 else branch)
         h = layer_norm(x, self.norm2.weight, self.norm2.bias, eps)
-        branch = linear(gelu(linear(h, self.mlp.fc1.weight, self.mlp.fc1.bias)), self.mlp.fc2.weight, self.mlp.fc2.bias)
+        h = gelu(linear(h, self.mlp.fc1.weight, self.mlp.fc1.bias))
+        branch = linear(h, self.mlp.fc2.weight, self.mlp.fc2.bias)
         return x + (branch * self.gamma_2.to(x.dtype) if self.cfg.init_values > 0 else branch)
 
 
@@ -135,18 +136,18 @@ class CameraEmbedding(nn.Module):
 
     def __init__(self, cfg: EncoderConfig, device=None, dtype=None):
         super().__init__()
-        self.embed_type = cfg.cam_emb_type
+        self.embed_type, self.tokens_thw = cfg.cam_emb_type, cfg.tokens_thw
         in_dim = 6 + (cfg.embed_dim if cfg.cam_emb_type == "concat" else 0)
         self.cam_emb_proj = nn.Linear(in_dim, cfg.embed_dim, device=device, dtype=dtype)
 
-    def forward(self, feat_blc: torch.Tensor, emb_thw: Tuple[int, int, int], intrinsics_b44t: torch.Tensor,
+    def forward(self, feat_blc: torch.Tensor, intrinsics_b44t: torch.Tensor,
                 extrinsics_b44t: torch.Tensor) -> torch.Tensor:
         """Tokens (B, t*h*w, C) in (t, h, w) order plus the projection of
         their rays: the rays at the (h, w) patch grid, each window relative
         to its first camera, linearly resized in time from the window's
         frames to its t tubelets (align_corners False)."""
         b = intrinsics_b44t.shape[0]
-        et, eh, ew = emb_thw
+        et, eh, ew = self.tokens_thw
         camray, _ = get_rays_plucker(intrinsics_b44t, extrinsics_b44t, (eh, ew))  # (B, 6, T, h, w)
         t_full = camray.shape[2]
         m = torch.from_numpy(interp_matrix(t_full, et, align_corners=False)).to(camray.device)
@@ -203,7 +204,7 @@ class VideoEncoder(nn.Module):
                              "extrinsics_b44t")
 
         def cam(f: torch.Tensor) -> torch.Tensor:
-            return self.cam_emb(f, cfg.tokens_thw, intrinsics_b44t, extrinsics_b44t)
+            return self.cam_emb(f, intrinsics_b44t, extrinsics_b44t)
 
         if place == "input":
             x = cam(x)
