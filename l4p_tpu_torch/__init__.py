@@ -25,7 +25,7 @@ and test) and the five-config protocol (`python3 -m
 l4p_tpu_torch.eval_protocol`). The encoder's option branches (cosine
 attention, LayerScale, learnable positions, the Plucker camera embedding)
 read from the same YAML keys as the JAX package's. It imports torch and
-never jax or l4p_tpu.
+never jax or the JAX package (l4p_tpu/).
 """
 
 from l4p_tpu_torch.checkpoint import load_video_encoder_ckpt, params_from_jax, prepare_model

@@ -168,10 +168,10 @@ def released_state_dict(state_dict: Mapping[str, torch.Tensor], cfg: L4PConfig) 
     """A Lightning checkpoint's `state_dict` -> the port's keys: the
     `l4p_model.` prefix stripped (other keys kept, for the strict load to
     refuse). A configured head without a key raises KeyError naming it, as
-    l4p_tpu.config.convert_l4p does (config.py:192-200). A learnable
-    `pos_embed` longer than the encoder's tokens (a checkpoint of more
-    frames) is cut to them, as convert_encoder does (l4p_tpu/checkpoint.py:
-    124-125)."""
+    the JAX package's convert_l4p does (l4p_tpu/config.py:192-200). A
+    learnable `pos_embed` longer than the encoder's tokens (a checkpoint of
+    more frames) is cut to them, as convert_encoder does
+    (l4p_tpu/checkpoint.py:124-125)."""
     sd = {k[len(LIGHTNING_PREFIX):] if k.startswith(LIGHTNING_PREFIX) else k: v for k, v in state_dict.items()}
     pos = "video_encoder.pos_embed"
     if cfg.encoder.use_learnable_pos_emb and pos in sd:

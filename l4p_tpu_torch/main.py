@@ -70,7 +70,7 @@ def main(argv: Sequence[str] = None) -> int:
     if args.command == "fit":
         raise NotImplementedError(
             "'fit' needs the training side (losses, the optimizer, the kernels' backward passes), which is the "
-            "training item of ROADMAP.md's queue 1; use `python -m l4p_tpu.main fit`")
+            "training item of ROADMAP.md's queue 1; the JAX package's CLI (l4p_tpu/main.py) runs fit")
 
     from l4p_tpu_torch.data.dataset import collate
 

@@ -49,10 +49,11 @@ def do_data_sanity_checks(batch: Mapping) -> bool:
 
 
 class Trainer:
-    """`validate` and `predict` of l4p_tpu.trainer.Trainer on the port's
-    session. `draws` gives the camera solve's and the joint stitch's random
-    numbers (RandomDraws(0) by default), `session_kw` goes to
-    InferenceSession (the kernels, or their plain versions)."""
+    """`validate` and `predict` of the JAX package's Trainer
+    (l4p_tpu/trainer.py) on the port's session. `draws` gives the camera
+    solve's and the joint stitch's random numbers (RandomDraws(0) by
+    default), `session_kw` goes to InferenceSession (the kernels, or their
+    plain versions)."""
 
     def __init__(self, model_cfg: L4PConfig, tasks: Sequence[str], trainer_cfg: TrainerConfig = TrainerConfig(),
                  metrics_fn: Optional[Callable] = l4p_metrics, device: Union[str, torch.device] = "cuda",
@@ -109,4 +110,4 @@ class Trainer:
     def fit(self, *args, **kwargs):
         raise NotImplementedError(
             "Trainer.fit needs the training side (losses, the optimizer, the kernels' backward passes), which is "
-            "ROADMAP.md queue 1's next item, training; use l4p_tpu.trainer.Trainer.fit")
+            "ROADMAP.md queue 1's next item, training; the JAX package's Trainer.fit (l4p_tpu/trainer.py) runs it")
