@@ -115,7 +115,8 @@ class Block(nn.Module):
         if self.cfg.cos_attn:
             # JAX's order of dtypes (l4p_tpu/models/encoder.py:256-261): q and k over their fp32 norms
             # cast to the compute dtype, the logit scale in fp32, q times it in the compute dtype
-            q, k = (t / torch.linalg.vector_norm(t.float(), dim=-1, keepdim=True).to(x.dtype) for t in qkv[:2])
+            q, k = (t / torch.linalg.vector_norm(t, dim=-1, keepdim=True, dtype=torch.float32).to(x.dtype)
+                    for t in qkv[:2])
             logit_scale = torch.exp(torch.clamp(a.scale.float(), max=COS_ATTN_MAX_LOG_SCALE))
             o = attention(q * logit_scale.to(x.dtype), k, qkv[2], 1.0)
         else:
@@ -140,20 +141,23 @@ class CameraEmbedding(nn.Module):
         in_dim = 6 + (cfg.embed_dim if cfg.cam_emb_type == "concat" else 0)
         self.cam_emb_proj = nn.Linear(in_dim, cfg.embed_dim, device=device, dtype=dtype)
 
-    def forward(self, feat_blc: torch.Tensor, intrinsics_b44t: torch.Tensor,
-                extrinsics_b44t: torch.Tensor) -> torch.Tensor:
-        """Tokens (B, t*h*w, C) in (t, h, w) order plus the projection of
-        their rays: the rays at the (h, w) patch grid, each window relative
-        to its first camera, linearly resized in time from the window's
-        frames to its t tubelets (align_corners False)."""
+    def rays(self, intrinsics_b44t: torch.Tensor, extrinsics_b44t: torch.Tensor) -> torch.Tensor:
+        """Each token's ray (B, t*h*w, 6) in (t, h, w) order: the rays at the
+        (h, w) patch grid, each window relative to its first camera, linearly
+        resized in time from the window's frames to its t tubelets
+        (align_corners False)."""
         b = intrinsics_b44t.shape[0]
         et, eh, ew = self.tokens_thw
         camray, _ = get_rays_plucker(intrinsics_b44t, extrinsics_b44t, (eh, ew))  # (B, 6, T, h, w)
         t_full = camray.shape[2]
         m = torch.from_numpy(interp_matrix(t_full, et, align_corners=False)).to(camray.device)
         flat = camray.permute(0, 3, 4, 1, 2).reshape(b, -1, t_full) @ m.T.to(camray.dtype)  # (B, h*w*6, t)
-        plucker = flat.reshape(b, eh, ew, 6, et).permute(0, 4, 1, 2, 3).reshape(b, -1, 6).to(feat_blc.dtype)
-        x = torch.cat([feat_blc, plucker], -1) if self.embed_type == "concat" else plucker
+        return flat.reshape(b, eh, ew, 6, et).permute(0, 4, 1, 2, 3).reshape(b, -1, 6)
+
+    def forward(self, feat_blc: torch.Tensor, rays_bn6: torch.Tensor) -> torch.Tensor:
+        """Tokens (B, N, C) plus the projection of their rays (`rays`)."""
+        rays_bn6 = rays_bn6.to(feat_blc.dtype)
+        x = torch.cat([feat_blc, rays_bn6], -1) if self.embed_type == "concat" else rays_bn6
         return feat_blc + linear(x, self.cam_emb_proj.weight, self.cam_emb_proj.bias)
 
 
@@ -199,15 +203,13 @@ class VideoEncoder(nn.Module):
         cfg = self.cfg
         x = tokens_bne + self.pos_embed.to(tokens_bne.dtype)
         place = cfg.cam_emb_placed_at
-        if place is not None and (intrinsics_b44t is None or extrinsics_b44t is None):
-            raise ValueError(f"the camera embedding (cam_emb_placed_at {place!r}) needs intrinsics_b44t and "
-                             "extrinsics_b44t")
-
-        def cam(f: torch.Tensor) -> torch.Tensor:
-            return self.cam_emb(f, intrinsics_b44t, extrinsics_b44t)
-
+        if place is not None:
+            if intrinsics_b44t is None or extrinsics_b44t is None:
+                raise ValueError(f"the camera embedding (cam_emb_placed_at {place!r}) needs intrinsics_b44t and "
+                                 "extrinsics_b44t")
+            rays = self.cam_emb.rays(intrinsics_b44t, extrinsics_b44t)  # one ray map for every feature
         if place == "input":
-            x = cam(x)
+            x = self.cam_emb(x, rays)
         feats: Dict[int, torch.Tensor] = {0: x}
         if encoder_blocks is not None:
             ends = sorted({h for h in hooks if h > 0} | {cfg.depth})
@@ -221,8 +223,8 @@ class VideoEncoder(nn.Module):
                     feats[i + 1] = x
         final = layer_norm(x, self.norm.weight, self.norm.bias, cfg.ln_eps)
         if place == "output":
-            final = cam(final)
-            feats = {h: final if h == cfg.depth else cam(feats[h]) for h in hooks}
+            final = self.cam_emb(final, rays)
+            feats = {h: final if h == cfg.depth else self.cam_emb(feats[h], rays) for h in hooks}
         feats[cfg.depth] = final
         return {"hooks": [feats[h] for h in hooks], "final": final}
 
