@@ -13,10 +13,10 @@ in time, backward or both as `estimation_directions` says. With
 `joint_alignment`, depth and camray are stitched together by the Sim(3)
 chain. `data` holds `rgb_u8_bthw3` (uint8, normalised on the device) or
 `rgb_b3thw` (normalised float), `intrinsics_b44t` (B, 4, 4, T) in pixels
-for camray, `extrinsics_b44t` (B, 4, 4, T, cam_T_world) with intrinsics for
-an encoder with the Plucker camera embedding, and for tracking `track_2d_pointquerries_bn3` (B, N, 3) as
-(t, x, y) in frames and pixels and `track_2d_pointlabels_bn`, as tensors or
-numpy arrays. The stages run in the order of l4p_tpu/inference.py:157-181:
+for camray, cam_T_world `extrinsics_b44t` (B, 4, 4, T) beside the
+intrinsics for an encoder with the Plucker camera embedding, and for
+tracking `track_2d_pointquerries_bn3` (B, N, 3) as (t, x, y) in frames and
+pixels and `track_2d_pointlabels_bn`, as tensors or numpy arrays. The stages run in the order of l4p_tpu/inference.py:157-181:
 encode, dense heads, camray rays and the camera solve, stitch, track; with
 the backward direction, the time-flipped video is encoded once more after
 the forward tracks (l4p_tpu/models/l4p.py:735-766).
