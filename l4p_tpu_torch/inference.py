@@ -16,10 +16,11 @@ chain. `data` holds `rgb_u8_bthw3` (uint8, normalised on the device) or
 for camray, cam_T_world `extrinsics_b44t` (B, 4, 4, T) beside the
 intrinsics for an encoder with the Plucker camera embedding, and for
 tracking `track_2d_pointquerries_bn3` (B, N, 3) as (t, x, y) in frames and
-pixels and `track_2d_pointlabels_bn`, as tensors or numpy arrays. The stages run in the order of l4p_tpu/inference.py:157-181:
-encode, dense heads, camray rays and the camera solve, stitch, track; with
-the backward direction, the time-flipped video is encoded once more after
-the forward tracks (l4p_tpu/models/l4p.py:735-766).
+pixels and `track_2d_pointlabels_bn`, as tensors or numpy arrays. The
+stages run in the order of l4p_tpu/inference.py:157-181: encode, dense
+heads, camray rays and the camera solve, stitch, track; with the backward
+direction, the time-flipped video (its cameras flipped too) is encoded
+once more after the forward tracks (l4p_tpu/models/l4p.py:735-766).
 
 `run_sequence` (counterpart of l4p_tpu/inference.py:211-299) is the entry
 point of the demo and the CLI's `predict`: one collated sequence through a
