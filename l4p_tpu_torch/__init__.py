@@ -54,8 +54,9 @@ from l4p_tpu_torch.trainer import Trainer, TrainerConfig
 __all__ = [
     "ALL_TASKS", "DENSE_TASKS", "GIANT", "KERNELS", "PLAIN", "DPTConfig", "DenseHeadConfig", "Draws", "EncoderConfig",
     "InferenceSession", "L4P", "L4PConfig", "RandomDraws", "SLICE_TASKS", "SamConfig", "StreamingL4P", "TrackConfig",
-    "TrackKernels", "Trainer", "TrainerConfig", "assemble_emissions", "default_dense_heads", "flash_attention", "flash_attention_plain",
-    "forward_single_window", "fused_encoder_blocks", "fused_encoder_blocks_plain", "fused_upscale_hypernet",
-    "fused_upscale_hypernet_plain", "i2t_ln_t2i", "i2t_ln_t2i_plain", "l4p_metrics", "load_model_config", "load_video_encoder_ckpt",
-    "params_from_jax", "prepare_model", "run_sequence", "t2i_flash", "t2i_flash_plain", "track_bidirectional",
+    "TrackKernels", "Trainer", "TrainerConfig", "assemble_emissions", "default_dense_heads", "flash_attention",
+    "flash_attention_plain", "forward_single_window", "fused_encoder_blocks", "fused_encoder_blocks_plain",
+    "fused_upscale_hypernet", "fused_upscale_hypernet_plain", "i2t_ln_t2i", "i2t_ln_t2i_plain", "l4p_metrics",
+    "load_model_config", "load_video_encoder_ckpt", "params_from_jax", "prepare_model", "run_sequence", "t2i_flash",
+    "t2i_flash_plain", "track_bidirectional",
 ]

@@ -198,7 +198,8 @@ def test_all_task_session_with_the_camera_embedding_matches_jax_forward(place, d
     pcfg = dataclasses.replace(pcfg, track=dataclasses.replace(pcfg.track, estimation_directions=dirs))
     data = all_task_request()
     data["extrinsics_b44t"] = cameras(1, 12, seed=5)[1]
-    ref = jax.jit(lambda p, d: l4p_forward(p, jcfg, d, ALL_TASKS))(jparams, {k: jnp.asarray(v) for k, v in data.items()})
+    fwd = jax.jit(lambda p, d: l4p_forward(p, jcfg, d, ALL_TASKS))
+    ref = fwd(jparams, {k: jnp.asarray(v) for k, v in data.items()})
     out = InferenceSession(pcfg, ALL_TASKS, "cpu", draws=JaxDraws.for_session())(model, data)
     assert set(out) == set(ref)
     # measured <= 3.4e-7 on the dense outputs and tracks; 8.6e-5 on the poses and 9.4e-5 on K

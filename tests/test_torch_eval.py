@@ -19,7 +19,6 @@ import pytest
 import torch
 
 import jax
-import jax.numpy as jnp
 
 from l4p_tpu_torch import Trainer, TrainerConfig
 from l4p_tpu_torch.eval_protocol import CONFIGS, config_frames, synthetic_batch
