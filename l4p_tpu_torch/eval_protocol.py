@@ -106,13 +106,13 @@ def config_for(cfg: L4PConfig, name: str) -> L4PConfig:
 
 
 def run_config(model, cfg: L4PConfig, name: str, tasks: Sequence[str], batch: Dict[str, np.ndarray],
-               device: torch.device, iters: int = 3,
-               **session_kw) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, float]]:
+               device: torch.device,
+               iters: int = 3) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, float]]:
     """One config on one batch: (the batch on the device, the outputs, the
     metrics as floats and the request's mean seconds under 'seconds'). A
     first request, then `iters` timed ones ending in a synchronisation of
     the card."""
-    sess = InferenceSession(config_for(cfg, name), tasks, device, **session_kw)
+    sess = InferenceSession(config_for(cfg, name), tasks, device)
     data = {k: torch.as_tensor(v, device=device) for k, v in batch.items() if not isinstance(v, str)}
 
     def sync():

@@ -52,18 +52,17 @@ class Trainer:
     """`validate` and `predict` of the JAX package's Trainer
     (l4p_tpu/trainer.py) on the port's session. `draws` gives the camera
     solve's and the joint stitch's random numbers (RandomDraws(0) by
-    default), `session_kw` goes to InferenceSession (the kernels, or their
-    plain versions)."""
+    default)."""
 
     def __init__(self, model_cfg: L4PConfig, tasks: Sequence[str], trainer_cfg: TrainerConfig = TrainerConfig(),
                  metrics_fn: Optional[Callable] = l4p_metrics, device: Union[str, torch.device] = "cuda",
-                 draws: Optional[Draws] = None, **session_kw):
+                 draws: Optional[Draws] = None):
         self.model_cfg = model_cfg
         self.tasks = tuple(tasks)
         self.cfg = trainer_cfg
         self.metrics_fn = metrics_fn
         self.device = torch.device(device)
-        self.session = InferenceSession(model_cfg, self.tasks, self.device, draws=draws, **session_kw)
+        self.session = InferenceSession(model_cfg, self.tasks, self.device, draws=draws)
         os.makedirs(trainer_cfg.out_dir, exist_ok=True)
         self._log_path = os.path.join(trainer_cfg.out_dir, "scalars.jsonl")
         # the resolved run config (LightningCLI's save_config, reference main.py:11)
