@@ -134,13 +134,19 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      formulas of phases 7 and 10, outputs checked and held against the plain
      path (SLICE_TOL; the joint chain's depth and camray outputs finite, as
      in phase 12), and the metrics finite and equal on the card and on the
-     CPU from the same outputs (EVAL_METRIC_TOL). The tracks are held by
-     phase 9's witness: on the protocol's float noise video, with every
-     query at t = 0.5 (no -10 vis fill to scale the bands), either path
-     moves past TRACK_BANDS when only its attention goes to fp32, so the
-     kernel path's 99th percentile against its fp32-attention run must stay
-     within WITNESS_SLACK of the plain path's (the spreads against
-     TRACK_BANDS printed);
+     CPU from the same outputs (EVAL_METRIC_TOL). On the protocol's float
+     noise video, with every query at t = 0.5 (no -10 vis fill to scale the
+     bands), either path moves past TRACK_BANDS when only its attention goes
+     to fp32, so the tracks are held three ways (the spreads against
+     TRACK_BANDS printed): each track kernel's every call of one request,
+     served again bit for bit, against its plain version on the same
+     operands (KEYS_BAND, UPSCALE_BAND) and against the plain version on
+     their fp32 copies (HeldTrackKernels: the kernel no farther from it than
+     the plain version, KEYS_WITNESS_SLACK, UPSCALE_WITNESS_SLACK); the
+     kernel path against the kernel attention with the plain track kernels,
+     whose 99th percentile must stay within WITNESS_SLACK of the plain
+     path's against its fp32-attention run; and phase 9's witness, each
+     path against its own fp32-attention run (WITNESS_SLACK);
  24. the giant encoder with the option branches, two models with seeded
      bf16 weights: (a) cosine attention, LayerScale 0.1, learnable
      positions and the camera embedding at the input, added; (b) the
@@ -751,6 +757,52 @@ def track_witness(P, FA, model, cfg, dev, n_requests: int, log) -> dict:
     return rows
 
 
+class HeldTrackKernels:
+    """The track head's kernels (a TrackKernels) with every call
+    also run by their plain versions (`plain`) on the same operands and on
+    fp32 copies of them. Per kernel output it keeps the largest max|kernel -
+    plain| / max|plain| of any call and the mean |error| of the kernel and of
+    the plain version against the fp32 run, summed over the calls. The
+    kernel's result goes on, so the request follows the kernel path."""
+
+    def __init__(self, kernels, plain):
+        self.calls, self.rows = {}, {}
+        self.kernels = type(kernels)(
+            self._wrap("t2i_flash", kernels.t2i, plain.t2i, ("",), KEYS_BAND, KEYS_WITNESS_SLACK),
+            self._wrap("i2t_ln_t2i", kernels.i2t, plain.i2t, (" keys", " wsum"), KEYS_BAND, KEYS_WITNESS_SLACK),
+            self._wrap("fused_upscale_hypernet", kernels.upscale, plain.upscale, ("",), UPSCALE_BAND,
+                       UPSCALE_WITNESS_SLACK))
+
+    def _wrap(self, name, kernel, plain, parts, band, slack):
+        def call(*args):
+            out = kernel(*args)
+            ref = plain(*args)
+            exact = plain(*(a.float() if isinstance(a, torch.Tensor) else a for a in args))
+            self.calls[name] = self.calls.get(name, 0) + 1
+            tup = (lambda x: x if isinstance(x, tuple) else (x,))
+            for part, o, r, e in zip(parts, tup(out), tup(ref), tup(exact)):
+                row = self.rows.setdefault(name + part, {"band": band, "slack": slack, "max": 0.0, "kernel": 0.0,
+                                                         "plain": 0.0})
+                o, r = o.float(), r.float()
+                row["max"] = max(row["max"], (o - r).abs().max().item() / r.abs().max().item())
+                row["kernel"] += (o - e).abs().mean().item()
+                row["plain"] += (r - e).abs().mean().item()
+            return out
+        return call
+
+    def check(self, what: str, want_calls: dict, log, checks) -> None:
+        checks.expect(self.calls == want_calls, f"{what}: track kernel calls {self.calls}, expected {want_calls}")
+        for name, row in self.rows.items():
+            ratio = row["kernel"] / row["plain"] if row["plain"] else (math.inf if row["kernel"] else 1.0)
+            log(f"{what} {name} over its {self.calls[name.split()[0]]} calls: max|kernel - plain| / max|plain| "
+                f"{row['max']:.3g} (band {row['band']}); summed mean |error| against fp32 on the same operands "
+                f"kernel {row['kernel']:.4g}, plain {row['plain']:.4g} (ratio {ratio:.3g}, within {row['slack']})")
+            checks.expect(math.isfinite(row["max"]) and row["max"] <= row["band"],
+                          f"{what} {name} disagrees with its plain version: {row['max']}")
+            checks.expect(math.isfinite(ratio) and ratio <= row["slack"],
+                          f"{what} {name} is farther from fp32 than its plain version: {row}")
+
+
 def rel_diff(a: torch.Tensor, b: torch.Tensor):
     """(max |a - b|, max |b|) in fp32 on b's device."""
     a, b = a.to(b.device).float(), b.float()
@@ -1147,20 +1199,34 @@ def eval_phase(P, model, cfg, dev, log, checks, reset_counts, counts) -> None:
         torch.cuda.synchronize()
         checks.expect(counts() == before, f"eval {name}: the plain path launched a kernel")
         if "track_2d" in tasks:
+            # each track kernel call of the request held on its own operands; the request served again
+            held = HeldTrackKernels(P.KERNELS, P.PLAIN)
+            again = P.InferenceSession(run_cfg, tasks, dev, track_kernels=held.kernels)(model, data)
+            track_kernels = ("t2i_flash", "i2t_ln_t2i", "fused_upscale_hypernet")
+            held.check(f"eval {name}", {k: per_request[k] for k in track_kernels}, log, checks)
+            checks.expect(all(torch.equal(again[k], out[k]) for k in TRACK_KEYS),
+                          f"eval {name}: the held request's tracks differ from the kernel path's")
+            # the kernel attention with the plain track kernels: the paths differ only in the track kernels
+            attn_k = P.InferenceSession(run_cfg, tasks, dev, track_kernels=P.PLAIN)(model, data)
             # each path against itself with the attention in fp32 (phase 9's witness)
             fp32 = {path: P.InferenceSession(run_cfg, tasks, dev, attention=fp32_attention, **kw)(model, data)
                     for path, kw in (("kernel", {}), ("plain", {"track_kernels": P.PLAIN}))}
+            del again, held
         for key, r in ref.items():
             if key in TRACK_KEYS:
                 kernel, plain = spread(out[key], fp32["kernel"][key]), spread(r, fp32["plain"][key])
-                both = spread(out[key], r)
+                both, track = spread(out[key], r), spread(out[key], attn_k[key])
                 log(f"eval {name} {key}, (max, 99th pct) / output max {r.float().abs().max().item():.4g}: kernel "
-                    f"path - plain path ({both[0]:.3g}, {both[1]:.3g}) (TRACK_BANDS {TRACK_BANDS[key]}); against "
-                    f"its fp32-attention run, kernel path ({kernel[0]:.3g}, {kernel[1]:.3g}), plain path "
-                    f"({plain[0]:.3g}, {plain[1]:.3g}) (99th pct within {WITNESS_SLACK}x)")
+                    f"path - plain path ({both[0]:.3g}, {both[1]:.3g}) (TRACK_BANDS {TRACK_BANDS[key]}); kernel "
+                    f"path - plain track kernels ({track[0]:.3g}, {track[1]:.3g}); against its fp32-attention "
+                    f"run, kernel path ({kernel[0]:.3g}, {kernel[1]:.3g}), plain path ({plain[0]:.3g}, "
+                    f"{plain[1]:.3g}) (99th pcts within {WITNESS_SLACK}x the plain path's)")
                 checks.expect(math.isfinite(both[0]) and kernel[1] <= WITNESS_SLACK * plain[1],
                               f"eval {name} {key}: the kernel path is farther from its fp32-attention run than the "
                               f"plain path: {kernel} against {plain}")
+                checks.expect(math.isfinite(track[0]) and track[1] <= WITNESS_SLACK * plain[1],
+                              f"eval {name} {key}: the track kernels move the tracks farther than the plain "
+                              f"path's attention precision does: {track} against {plain}")
             elif "camray" in tasks and key in ("depth_est_b1thw", *CAMRAY_KEYS):
                 # the RANSACs pick among hypotheses by inlier counts, which a bf16 step can change (phase 12)
                 err, scale = rel_diff(out[key], r)

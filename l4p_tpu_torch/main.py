@@ -57,8 +57,6 @@ def main(argv: Sequence[str] = None) -> int:
     ap.add_argument("--davis-root", default=None)
     ap.add_argument("--dycheck-root", default=None)
     ap.add_argument("--out-dir", default="runs/default")
-    ap.add_argument("--max-steps", type=int, default=10000)
-    ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--max-queries", type=int, default=128)
     ap.add_argument("--bf16", action="store_true", default=True)
     ap.add_argument("--fp32", dest="bf16", action="store_false")
@@ -79,8 +77,7 @@ def main(argv: Sequence[str] = None) -> int:
     if args.command in ("validate", "test"):
         from l4p_tpu_torch.trainer import Trainer, TrainerConfig
 
-        trainer = Trainer(cfg, tasks, TrainerConfig(max_steps=args.max_steps, lr=args.lr, out_dir=args.out_dir),
-                          device=args.device)
+        trainer = Trainer(cfg, tasks, TrainerConfig(out_dir=args.out_dir), device=args.device)
         print(trainer.validate(model, (collate(ds[i]) for i in range(len(ds))),
                                phase="val" if args.command == "validate" else "test"))
         return 0
