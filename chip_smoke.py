@@ -154,7 +154,27 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      with bench.py's intrinsics and the eval protocol's trajectory as
      extrinsics, timed in turns with the default encoder, the attention's
      launches counted (the kernel takes cosine attention at scale 1), each held
-     against its plain path (SLICE_TOL); fused_encoder with (a) raises.
+     against its plain path (SLICE_TOL); fused_encoder with (a) raises;
+ 25. training (l4p_tpu_torch/train.py, trainer.py) at the giant model's
+     width: (a) each kernel's autograd Function on a training step's
+     operands (the attention at (1, 16, 2048, 88), the two-way transformer
+     and the upscale at 32 queries, the 40 fused blocks at (1, 2048,
+     1408)): its outputs hang off the Function's node, and the gradients
+     of a fit of its outputs (grad_of_fit) for every input and parameter
+     are held against the plain path (FUNCTION_GRAD_BAND) and, against the
+     plain path on fp32 copies of the same values, no farther from it than
+     the plain path (GRAD_WITNESS_SLACK); (b) configs/model.yaml's five
+     tasks on one synthetic 16-frame window with 32 queries: the first
+     step's gradients on the kernel path against the plain path (plain
+     attention and track kernels; STEP_GRAD_L2, STEP_GRAD_BAND), every
+     block's qkv.weight with a gradient, then three train steps on the
+     kernel path at the trainer's schedule, each launching the attention
+     40 times and t2i_flash, i2t_ln_t2i and fused_upscale_hypernet 1, 2
+     and 1 times, the losses finite; (c) a step on the fused encoder
+     (fused_encoder_blocks once) and three with the encoder frozen (its
+     weights bit for bit unchanged); (d) Trainer.fit for two steps with the
+     encoder frozen, its checkpoint restored into a second model bit for
+     bit; ms per step and peak memory printed.
 Every line with a number names the card and its power limit. The last two
 lines are the kernels' record and {"ok": true, "device": {...}}. A kernel's
 `launches` is its count over bench.py's request (phase 10's first point,
@@ -170,6 +190,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import subprocess
 import sys
 import time
@@ -286,6 +307,26 @@ POINT_MAP_TOL = 1e-5
 # configs, and one pixel crossing a threshold of the 2.4 M a metric counts
 # moves it 4e-7
 EVAL_METRIC_TOL = 1e-6
+# phase 25 (training): GRADIENT_QUERIES queries of one 16-frame window, as
+# scripts/train_step_tpu.py's default. (a) per kernel Function, the
+# gradients of 0.5 |out A - target|^2 (grad_of_fit) for all its inputs and
+# parameters together, the kernel path against the plain path: |kernel -
+# plain| / |plain| (L2 over every entry) <= FUNCTION_GRAD_BAND. The
+# backward recomputes the plain version, so the two differ only through the
+# forward's output (the cotangent); the H100 measured 2.2e-3 (attention),
+# 2.6e-4 (upscale), 4.1e-3 (two-way transformer), 2.2e-3 (fused encoder).
+# Against the plain path on fp32 copies of the same values, the kernel
+# path's L1 distance within GRAD_WITNESS_SLACK of the plain path's
+# (measured 0.999, 1.00, 1.04, 1.02). (b) the first train step's
+# gradients, kernel path against plain path: the L2 distance over all of
+# them <= STEP_GRAD_L2 of the plain path's (measured 5.8e-3, 6.3e-3), and the
+# median parameter's max |kernel - plain| <= STEP_GRAD_BAND of its max
+# |plain| (8.0e-3, 8.2e-3). The bands are about twice the readings
+GRADIENT_QUERIES = 32
+FUNCTION_GRAD_BAND = 1e-2
+GRAD_WITNESS_SLACK = 1.25
+STEP_GRAD_BAND = 2e-2
+STEP_GRAD_L2 = 1.5e-2
 # NVIDIA's H100 SXM data sheet: dense bf16 tensor-core rate, HBM3 rate
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -452,7 +493,7 @@ def keys_witness(FK, t2i_args, i2t_args, heads, log, checks) -> None:
 
 def upscale_operands(n, p, c, d1, d2, m, gen):
     def r(*shape, scale=1.0):
-        return (torch.randn(shape, generator=gen, device="cuda") * scale).bfloat16()
+        return (torch.randn(shape, generator=gen, device=gen.device) * scale).bfloat16()
 
     return (r(n, p, c), r(c, d1, 2, 2, 2, scale=c ** -0.5), r(d1, scale=0.1), 1.0 + r(d1, scale=0.1),
             r(d1, scale=0.1), r(d1, d2, 1, 2, 2, scale=d1 ** -0.5), r(d2, scale=0.1), r(n, m, d2, scale=0.1))
@@ -1304,6 +1345,282 @@ def options_phase(P, cfg, video, dev, log, checks, reset_counts, counts, default
     del models, sessions, outs
 
 
+def grad_of_fit(outs, leaves):
+    """The gradients of sum_i 0.5 |outs_i A_i - t_i|^2 (in fp32) for `leaves`,
+    None where an output does not depend on a leaf: A_i (last dim, last dim)
+    and t_i N(0, 1) from fixed seeds, the same on every path, as a head
+    reads the outputs. A loss on the outputs themselves measures noise: the
+    exact gradient of 0.5 |LayerNorm(x)|^2 is 0, and a bf16 backward
+    cancels it only for the forward output it recomputes (the plain path's,
+    not the kernel's)."""
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = 0
+    for i, o in enumerate(outs):
+        gen = torch.Generator(device=o.device).manual_seed(i)
+        c = o.shape[-1]
+        mix = torch.randn((c, c), generator=gen, device=o.device) / math.sqrt(c)
+        target = torch.randn(o.shape, generator=gen, device=o.device)
+        loss = loss + 0.5 * (o.float() @ mix - target).square().sum()
+    return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+
+def grad_gap(grads, ref):
+    """|grads - ref| over all their entries together, None counting as 0:
+    (the L2 norm of the difference over ref's, the L1 norm over ref's).
+    Summed over entries, so a gradient that is 0 in exact arithmetic (the
+    two-way transformer's k biases, whose softmax shift drops out) weighs
+    as little as its size."""
+    l2 = l1 = r2 = r1 = 0.0
+    for g, r in zip(grads, ref):
+        if r is None:
+            continue
+        r = r.float()
+        d = r if g is None else g.float() - r
+        l2, l1 = l2 + d.square().sum().item(), l1 + d.abs().sum().item()
+        r2, r1 = r2 + r.square().sum().item(), r1 + r.abs().sum().item()
+    return math.sqrt(l2 / r2), l1 / r1
+
+
+def hold_function_grads(name, function, run, log, checks) -> None:
+    """Phase 25 (a): run(path) -> (outputs, leaves) for path 'kernel',
+    'plain' and 'fp32' (the plain path on fp32 copies of the same values);
+    the kernel path's outputs must hang off `function`'s node and have a
+    gradient wherever the plain path's have one."""
+    grads = {}
+    for path in ("kernel", "plain", "fp32"):
+        outs, leaves = run(path)
+        if path == "kernel":
+            nodes = {type(o.grad_fn).__name__ for o in (outs if isinstance(outs, tuple) else (outs,))}
+            checks.expect(nodes == {function._backward_cls.__name__},
+                          f"training {name}: the kernel path's outputs hang off {nodes}, not {function.__name__}")
+            if None in {o.grad_fn for o in (outs if isinstance(outs, tuple) else (outs,))}:
+                return
+        grads[path] = grad_of_fit(outs, leaves)
+        del outs, leaves
+    torch.cuda.synchronize()
+    band, _ = grad_gap(grads["kernel"], grads["plain"])
+    _, kernel_off = grad_gap(grads["kernel"], grads["fp32"])
+    _, plain_off = grad_gap(grads["plain"], grads["fp32"])
+    ratio = kernel_off / plain_off if plain_off else (math.inf if kernel_off else 1.0)
+    log(f"training {name}: {len(grads['kernel'])} gradients of 0.5|out A - target|^2, |kernel path - plain path| / "
+        f"|plain| "
+        f"(L2 over all) {band:.3g} (band {FUNCTION_GRAD_BAND}); L1 distance to the fp32 plain path over its L1: "
+        f"kernel {kernel_off:.4g}, plain {plain_off:.4g} (ratio {ratio:.3g}, within {GRAD_WITNESS_SLACK})")
+    checks.expect([g is None for g in grads["kernel"]] == [g is None for g in grads["plain"]],
+                  f"training {name}: the kernel path has gradients where the plain path has none or the reverse")
+    checks.expect(math.isfinite(band) and band <= FUNCTION_GRAD_BAND,
+                  f"training {name}: kernel-path gradients differ from the plain path's by {band}")
+    checks.expect(math.isfinite(ratio) and ratio <= GRAD_WITNESS_SLACK,
+                  f"training {name}: kernel-path gradients farther from fp32 than the plain path's: {ratio}")
+
+
+def function_cases(P, model, cfg, gen):
+    """Phase 25 (a)'s four Functions, each run(path) on a training step's
+    operands at the model's widths (one window, GRADIENT_QUERIES queries):
+    the model's weights, bf16 operands from `gen`."""
+    import copy
+
+    from l4p_tpu_torch.models import sam as PS
+    from l4p_tpu_torch.ops import flash_attention as FA
+    from l4p_tpu_torch.ops import fused_encoder as FE
+    from l4p_tpu_torch.ops import fused_upscale as FU
+
+    n, ecfg, sam = GRADIENT_QUERIES, cfg.encoder, cfg.track.sam
+    p, c, e = sam.num_video_tokens, sam.embed_dim, ecfg.embed_dim
+
+    def leaves(tensors, path):
+        return [t.detach().to(torch.float32 if path == "fp32" else t.dtype).requires_grad_() for t in tensors]
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device=gen.device).bfloat16()
+
+    qkv = [rnd(1, ecfg.num_heads, ecfg.num_tokens, ecfg.head_dim) for _ in range(3)]
+
+    def attention(path):
+        xs = leaves(qkv, path)
+        fn = FA.flash_attention if path == "kernel" else FA.flash_attention_plain
+        return fn(*xs, ecfg.head_dim ** -0.5), xs
+
+    up = upscale_operands(n, p, c, *sam.decode_dims, cfg.track.num_mask_tokens, gen)
+
+    def upscale(path):
+        xs = leaves(up, path)
+        fn = FU.fused_upscale_hypernet if path == "kernel" else FU.fused_upscale_hypernet_plain
+        return fn(*xs), xs
+
+    head = model.task_heads["track_2d"]
+    tf = head.mask_decoder.transformer
+    tf32 = copy.deepcopy(tf).float()
+    pe = PS.dense_pe(head.prompt_encoder.pe_layer.positional_encoding_gaussian_matrix, sam)
+    pe = pe.reshape(1, c, -1).transpose(1, 2)[0].bfloat16()
+    tokens = cfg.track.num_mask_tokens + cfg.track.num_prompt_points + int(cfg.track.prompt_using_features)
+    two_way = (rnd(n, tokens, c), rnd(n, p, c), pe)
+
+    def transformer(path):
+        q, k, pe_ = leaves(two_way, path)
+        module = tf32 if path == "fp32" else tf
+        out = PS.twoway_streamed(module, sam, q, k, q, pe_, PS.KERNELS if path == "kernel" else PS.PLAIN)
+        return out, [q, k, pe_, *module.parameters()]
+
+    blocks = model.video_encoder.blocks
+    blocks32 = copy.deepcopy(blocks).float()
+    x = rnd(1, ecfg.num_tokens, e)
+    ends = tuple(sorted({h for h in cfg.all_hooks if h > 0} | {ecfg.depth}))
+
+    def encoder(path):
+        (x_,) = leaves([x], path)
+        module = blocks32 if path == "fp32" else blocks
+        fn = FE.fused_encoder_blocks if path == "kernel" else FE.fused_encoder_blocks_plain
+        return fn(module, x_, ecfg, ends), [x_, *module.parameters()]
+
+    return {f"flash_attention {tuple(qkv[0].shape)}": (FA.FlashAttentionFunction, attention),
+            f"fused_upscale_hypernet src {tuple(up[0].shape)}": (FU.FusedUpscaleFunction, upscale),
+            f"two-way transformer ({n} queries, keys {tuple(two_way[1].shape)})": (PS.TwoWayStreamedFunction,
+                                                                                  transformer),
+            f"fused_encoder_blocks x {tuple(x.shape)}, {ecfg.depth} blocks": (FE.FusedEncoderFunction, encoder)}
+
+
+def giant_train_batch(cfg, n: int, seed: int, dev) -> dict:
+    """scripts/train_step_tpu.py's synthetic single-window batch with n
+    queries, from default_rng(seed), on the card."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    t, h, w = cfg.window_size
+    k = np.tile(np.diag([224.0, 224.0, 1, 1]).astype(np.float32)[None, :, :, None], (1, 1, 1, t))
+    k[:, 0, 2] = k[:, 1, 2] = 112.0
+    batch = {
+        "rgb_b3thw": rng.standard_normal((1, 3, t, h, w)).astype(np.float32),
+        "intrinsics_b44t": k,
+        "extrinsics_b44t": np.tile(np.eye(4, dtype=np.float32)[None, :, :, None], (1, 1, 1, t)),
+        "depth_b1thw": rng.uniform(1, 5, (1, 1, t, h, w)).astype(np.float32),
+        "flow_2d_backward_b2thw": rng.standard_normal((1, 2, t, h, w)).astype(np.float32),
+        "dyn_mask_b1thw": (rng.uniform(size=(1, 1, t, h, w)) > 0.5).astype(np.float32),
+        "track_2d_pointquerries_bn3": np.stack([rng.uniform(0, t, (1, n)), rng.uniform(8, w - 8, (1, n)),
+                                                rng.uniform(8, h - 8, (1, n))], -1).astype(np.float32),
+        "track_2d_pointlabels_bn": np.ones((1, n), np.float32),
+        "track_2d_traj_bn2t": rng.uniform(0, w, (1, n, 2, t)).astype(np.float32),
+        "track_2d_vis_bn1t": np.ones((1, n, 1, t), np.float32),
+        "track_2d_depth_bn1t": rng.uniform(1, 5, (1, n, 1, t)).astype(np.float32),
+        "track_2d_valid_bn1t": np.ones((1, n, 1, t), np.float32),
+    }
+    return {k: torch.as_tensor(v, device=dev) for k, v in batch.items()}
+
+
+def training_phase(P, model, cfg, dev, log, checks, reset_counts, counts) -> None:
+    """Phase 25: training at the giant model's width (the module docstring
+    says what each part holds). Trains `model` in place."""
+    import tempfile
+
+    from l4p_tpu_torch import train as T
+    from l4p_tpu_torch.ops import flash_attention as FA
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    # (a) each Function's gradients
+    for name, (function, run) in function_cases(P, model, cfg, gen).items():
+        hold_function_grads(name, function, run, log, checks)
+        torch.cuda.empty_cache()
+    # (b) the first step's gradients, kernel path against plain path; then three steps
+    tasks = P.ALL_TASKS
+    n = GRADIENT_QUERIES
+    batches = [giant_train_batch(cfg, n, seed, dev) for seed in range(3)]
+    names, params = zip(*model.named_parameters())
+    per_step = {"flash_attention": cfg.encoder.depth, "t2i_flash": 1, "i2t_ln_t2i": 2, "fused_upscale_hypernet": 1,
+                "fused_encoder_blocks": 0}
+    grads = {}
+    for path, kw in (("kernel", {}), ("plain", dict(attention=FA.flash_attention_plain, track_kernels=P.PLAIN))):
+        reset_counts()
+        loss, losses = T.l4p_loss(model, cfg, batches[0], tasks, **kw)
+        grads[path] = torch.autograd.grad(loss, params, allow_unused=True)
+        got = counts()
+        want = per_step if path == "kernel" else {k: 0 for k in per_step}
+        checks.expect(got == want, f"training {path} path: launches {got}, expected {want}")
+        log(f"training first step, {path} path: loss {loss.item():.6g} "
+            f"({', '.join(f'{k} {v.item():.5g}' for k, v in losses.items())})")
+        del loss, losses
+        torch.cuda.empty_cache()
+    rel = sorted((((gp.float() if gk is None else gk.float() - gp.float()).abs().max()
+                   / gp.float().abs().max()).item(), nm)
+                 for nm, gk, gp in zip(names, *grads.values()) if gp is not None and gp.abs().max() > 0)
+    l2, _ = grad_gap(grads["kernel"], grads["plain"])
+    median = rel[len(rel) // 2][0]
+    log(f"training first step's gradients, kernel path against plain path over {len(rel)} parameters: "
+        f"max|kernel - plain| / max|plain| median {median:.3g} (band {STEP_GRAD_BAND}), largest "
+        f"{', '.join(f'{nm} {r:.3g}' for r, nm in rel[-3:])}; relative L2 over all {l2:.3g} (band {STEP_GRAD_L2})")
+    checks.expect(math.isfinite(l2) and l2 <= STEP_GRAD_L2 and median <= STEP_GRAD_BAND,
+                  f"training: the first step's gradients differ from the plain path's (L2 {l2}, median {median})")
+    kernel = dict(zip(names, grads["kernel"]))
+    dead = [i for i in range(cfg.encoder.depth)
+            if kernel[f"video_encoder.blocks.{i}.attn.qkv.weight"] is None
+            or not kernel[f"video_encoder.blocks.{i}.attn.qkv.weight"].abs().max() > 0]
+    checks.expect(not dead, f"training: blocks {dead} got no qkv.weight gradient on the kernel path")
+    log(f"training: every one of the {cfg.encoder.depth} blocks' qkv.weight has a non-zero gradient: {not dead}")
+    del grads, kernel
+    torch.cuda.empty_cache()
+
+    def steps(label, run_cfg, count, optimizer, want):
+        times = []
+        for i in range(count):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss, losses = T.train_step(model, optimizer, batches[i % len(batches)], run_cfg, tasks)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t0))
+            checks.expect(math.isfinite(loss.item()), f"training {label} step {i}: loss {loss.item()}")
+            checks.expect(counts() == want, f"training {label} step {i}: launches {counts()}, expected {want}")
+            log(f"training {label} step {i}: loss {loss.item():.6g} "
+                f"({', '.join(f'{k} {v.item():.5g}' for k, v in losses.items())}), {times[-1]:.1f} ms")
+        return times
+
+    torch.cuda.reset_peak_memory_stats()
+    # the trainer's defaults: peak 1e-4 after a 1000-step warm-up from 4e-6
+    optimizer = T.make_optimizer(model, lr=1e-4, total_steps=10000, mask=T.trainable_mask(model, cfg))
+    full = steps("full", cfg, 3, optimizer, per_step)
+    peak_full = torch.cuda.max_memory_allocated() / 2 ** 30
+    # (c) the fused encoder, then the frozen encoder
+    cfg_f = dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, fused_encoder=True))
+    fused = steps("fused encoder", cfg_f, 1, optimizer,
+                  {**per_step, "flash_attention": 0, "fused_encoder_blocks": 1})
+    del optimizer
+    torch.cuda.empty_cache()
+    cfg_z = dataclasses.replace(cfg, freeze_video_encoder=True)
+    encoder_before = {k: v.clone() for k, v in model.video_encoder.state_dict().items()}
+    torch.cuda.reset_peak_memory_stats()
+    optimizer = T.make_optimizer(model, lr=1e-4, total_steps=10000, mask=T.trainable_mask(model, cfg_z))
+    frozen = steps("frozen encoder", cfg_z, 3, optimizer, per_step)
+    peak_frozen = torch.cuda.max_memory_allocated() / 2 ** 30
+    same = all(torch.equal(v, encoder_before[k]) for k, v in model.video_encoder.state_dict().items())
+    checks.expect(same, "training: a frozen encoder weight changed")
+    del optimizer, encoder_before
+    log(f"training ms per step (mean of steps 2-3; {n} queries, 16 frames, five tasks): full "
+        f"{sum(full[1:]) / 2:.1f} (peak {peak_full:.2f} GiB), fused encoder {fused[0]:.1f} (first step), frozen "
+        f"encoder {sum(frozen[1:]) / 2:.1f} (peak {peak_frozen:.2f} GiB); frozen encoder bit for bit: {same}")
+    # (d) Trainer.fit with the encoder frozen, its checkpoint restored into a second model
+    with tempfile.TemporaryDirectory() as out:
+        trainer = P.Trainer(cfg_z, tasks, P.TrainerConfig(max_steps=2, log_every=1, ckpt_every=100, out_dir=out),
+                            device=dev)
+        t0 = time.perf_counter()
+        _, optimizer, step = trainer.fit(model, iter(b for b in batches))
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        second = P.L4P(cfg, device=dev, dtype=torch.bfloat16)
+        restored, opt2, step2 = trainer.restore(f"{out}/ckpt_{step:07d}.pt", second)
+        state, back = model.state_dict(), restored.state_dict()
+        bitwise = (step2 == step == 2 and set(state) == set(back) and all(torch.equal(state[k], back[k]) for k in state)
+                   and opt2.count == optimizer.count and all(torch.equal(optimizer.mu[k], opt2.mu[k])
+                                                             and torch.equal(optimizer.nu[k], opt2.nu[k])
+                                                             for k in optimizer.mu))
+        size = sum(os.path.getsize(os.path.join(out, f)) for f in os.listdir(out)) / 2 ** 30
+    log(f"training Trainer.fit: 2 steps with the encoder frozen and the checkpoint ({size:.2f} GiB) in "
+        f"{fit_s:.2f} s; restored into a second model bit for bit (weights, moments, step): {bitwise}")
+    checks.expect(bitwise, "training: Trainer.restore did not give back the checkpoint bit for bit")
+    del second, restored, opt2, optimizer
+    for p in model.parameters():
+        p.requires_grad_(True)
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's smoke run needs a CUDA card",
@@ -1905,6 +2222,10 @@ def main() -> int:
     options_phase(P, cfg, videos[TRACK_FRAMES], dev, log, checks, reset_counts, counts, model)
     torch.cuda.empty_cache()
     log(f"phases 23-24 took {time.perf_counter() - t0:.1f} s")
+    # 25. training: each kernel's Function, train steps, Trainer.fit with save / restore
+    t0 = time.perf_counter()
+    training_phase(P, model, cfg, dev, log, checks, reset_counts, counts)
+    log(f"phase 25 took {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     if checks.failed:

@@ -22,7 +22,10 @@ preprocessing library (native/) and streaming latency (`python3 -m
 l4p_tpu_torch.stream_bench`). Evaluation: the metrics of the five tasks
 (`metrics.l4p_metrics`), `Trainer.validate` (trainer.py; the CLI's validate
 and test) and the five-config protocol (`python3 -m
-l4p_tpu_torch.eval_protocol`). The encoder's option branches (cosine
+l4p_tpu_torch.eval_protocol`). Training: the multi-task loss, the
+trainable parameters, AdamW with the one-cycle schedule and stochastic
+depth (train.py), `Trainer.fit` / `save` / `restore` and the CLI's fit;
+each kernel's backward recomputes its plain version (ops/recompute.py). The encoder's option branches (cosine
 attention, LayerScale, learnable positions, the Plucker camera embedding)
 read from the same YAML keys as the JAX package's. It imports torch and
 never jax or the JAX package (l4p_tpu/).

@@ -246,6 +246,13 @@ class L4PConfig:
     # an encoder-only checkpoint that prepare_model overlays on random
     # weights (reference l4p_videomae.py:187-191; l4p_tpu/models/l4p.py:115)
     video_encoder_ckpt_path: Optional[str] = None
+    # what training leaves frozen (reference l4p_videomae.py:199-218;
+    # train.trainable_mask): the whole encoder, except the listed blocks and
+    # the final norm when unfreeze_blocks is not None (an empty tuple
+    # unfreezes the norm alone); and the named task heads
+    freeze_video_encoder: bool = False
+    unfreeze_blocks: Optional[Tuple[int, ...]] = None
+    freeze_heads: Tuple[str, ...] = ()
 
     @property
     def head_dict(self) -> Dict[str, DenseHeadConfig]:
@@ -367,6 +374,8 @@ def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
         else:
             raise ValueError(f"unknown head class {cls}")
     enc = _encoder_from_yaml(m["encoder"] or {}) if "encoder" in m else GIANT
+    # None (every block frozen with the encoder) is not () (the final norm trains), as the JAX reader keeps them
+    unfreeze, freeze_heads = m.get("unfreeze_blocks"), m.get("freeze_heads")
     cfg = L4PConfig(
         encoder=enc,
         window_size=tuple(m.get("window_size", (16, 224, 224))),
@@ -375,5 +384,8 @@ def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
         heads=tuple(heads),
         track=track,
         video_encoder_ckpt_path=m.get("video_encoder_ckpt_path"),
+        freeze_video_encoder=m.get("freeze_video_encoder", False),
+        unfreeze_blocks=tuple(unfreeze) if unfreeze is not None else None,
+        freeze_heads=tuple(freeze_heads) if freeze_heads else (),
     )
     return cfg, tuple(init["tasks"])

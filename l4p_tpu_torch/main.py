@@ -4,14 +4,18 @@ LightningCLI):
     python3 -m l4p_tpu_torch.main predict  --config configs/model.yaml --video clip.mp4
     python3 -m l4p_tpu_torch.main predict  --davis-root /data/davis --stream --fp32
     python3 -m l4p_tpu_torch.main validate --config configs/model.yaml --ckpt l4p.ckpt --davis-root /data/davis
+    python3 -m l4p_tpu_torch.main fit      --config configs/model.yaml --dycheck-root /data/dycheck --max-steps 1000
 
 `predict` runs each sequence of a video list, a DAVIS root or a Dycheck root
 through `run_sequence` and writes its panel video and 4D point clouds under
 `--out-dir`. `validate` and `test` run the sequences through
 `Trainer.validate` and log the averaged metrics under `scalars/val/...` or
-`scalars/test/...` in `--out-dir/scalars.jsonl`. A `.ckpt` loads strictly
-through `released_state_dict`. `fit` needs the training side, which is not
-ported yet (ROADMAP.md, queue 1's next item).
+`scalars/test/...` in `--out-dir/scalars.jsonl`. `fit` trains on the
+sequences through `Trainer.fit` for `--max-steps` steps at peak learning
+rate `--lr`, logging under `scalars/train/...` and writing `ckpt_*.pt`
+into `--out-dir`; every task of the config needs its ground truth in the
+samples (l4p_loss). A `.ckpt` loads strictly through
+`released_state_dict`.
 """
 
 from __future__ import annotations
@@ -57,6 +61,8 @@ def main(argv: Sequence[str] = None) -> int:
     ap.add_argument("--davis-root", default=None)
     ap.add_argument("--dycheck-root", default=None)
     ap.add_argument("--out-dir", default="runs/default")
+    ap.add_argument("--max-steps", type=int, default=10000)
+    ap.add_argument("--lr", type=float, default=1e-4)
     ap.add_argument("--max-queries", type=int, default=128)
     ap.add_argument("--bf16", action="store_true", default=True)
     ap.add_argument("--fp32", dest="bf16", action="store_false")
@@ -65,21 +71,21 @@ def main(argv: Sequence[str] = None) -> int:
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
-    if args.command == "fit":
-        raise NotImplementedError(
-            "'fit' needs the training side (losses, the optimizer, the kernels' backward passes), which is the "
-            "training item of ROADMAP.md's queue 1; the JAX package's CLI (l4p_tpu/main.py) runs fit")
-
     from l4p_tpu_torch.data.dataset import collate
 
     model, cfg, tasks = _build(args)
     ds = _dataset(args, cfg)
-    if args.command in ("validate", "test"):
+    if args.command in ("fit", "validate", "test"):
         from l4p_tpu_torch.trainer import Trainer, TrainerConfig
 
-        trainer = Trainer(cfg, tasks, TrainerConfig(out_dir=args.out_dir), device=args.device)
-        print(trainer.validate(model, (collate(ds[i]) for i in range(len(ds))),
-                               phase="val" if args.command == "validate" else "test"))
+        trainer = Trainer(cfg, tasks, TrainerConfig(max_steps=args.max_steps, lr=args.lr, out_dir=args.out_dir),
+                          device=args.device)
+        samples = (collate(ds[i]) for i in range(len(ds)))
+        if args.command == "fit":
+            _, _, step = trainer.fit(model, samples)
+            print(f"finished at step {step}; checkpoints in {args.out_dir}")
+        else:
+            print(trainer.validate(model, samples, phase="val" if args.command == "validate" else "test"))
         return 0
 
     from l4p_tpu_torch.inference import run_sequence

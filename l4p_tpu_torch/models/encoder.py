@@ -13,12 +13,15 @@ logit scale `blocks.{i}.attn.scale` (cos_attn), the LayerScale gains
 (use_learnable_pos_emb) and the Plucker camera embedding's
 `cam_emb.cam_emb_proj` (cam_emb_placed_at), which needs each window's
 normalised intrinsics and extrinsics.
+
+Stochastic depth (DropPath) acts when a caller passes a `DropPathDraws`:
+training does, with `RandomDropPath` by default.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Protocol, Sequence
 
 import numpy as np
 import torch
@@ -64,6 +67,43 @@ class PatchEmbed(nn.Module):
         self.proj = nn.Conv3d(cfg.in_chans, cfg.embed_dim, k, stride=k, device=device, dtype=dtype)
 
 
+class DropPathDraws(Protocol):
+    """Where stochastic depth's per-sample keep masks come from."""
+
+    def keep(self, block: int, branch: int, batch: int, keep_prob: torch.Tensor) -> torch.Tensor:
+        """(batch,) bool: which samples keep branch `branch` (0 attention,
+        1 MLP) of block `block`, each with probability `keep_prob` (an fp32
+        scalar)."""
+
+
+class RandomDropPath:
+    """`DropPathDraws` from one torch.Generator seeded by (seed, step), so
+    each training step draws its own masks and a rerun the same ones (the
+    JAX trainer folds the step into its key); masks are drawn in the
+    order the blocks ask for them."""
+
+    def __init__(self, seed: int, step: int):
+        self.generator = torch.Generator().manual_seed(hash((seed, step)) & 0x7FFF_FFFF_FFFF_FFFF)
+
+    def keep(self, block, branch, batch, keep_prob):
+        return torch.rand(batch, generator=self.generator) < keep_prob
+
+
+def drop_path_rates(cfg: EncoderConfig) -> torch.Tensor:
+    """Each block's drop rate, linearly spaced from 0 to drop_path_rate over
+    the depth (reference modeling_pretrain.py:87-89), fp32 (within a float32
+    step of jnp.linspace's)."""
+    return torch.linspace(0.0, cfg.drop_path_rate, cfg.depth, dtype=torch.float32)
+
+
+def drop_path(x: torch.Tensor, keep_b: torch.Tensor, keep_prob: torch.Tensor) -> torch.Tensor:
+    """A residual branch x (B, ...) with the samples whose `keep_b` is false
+    zeroed and the others scaled by 1 / keep_prob (reference timm drop_path;
+    l4p_tpu/models/encoder.py:224-230)."""
+    scale = (keep_b.to(device=x.device, dtype=torch.float32) / keep_prob.to(x.device)).to(x.dtype)
+    return x * scale.view(-1, *(1,) * (x.dim() - 1))
+
+
 # cosine attention's logit scale is clamped at log(1 / 0.01) (reference modeling_finetune.py:122-125)
 COS_ATTN_MAX_LOG_SCALE = 4.6052
 
@@ -90,8 +130,10 @@ class Mlp(nn.Module):
 class Block(nn.Module):
     """Pre-LN transformer block (reference modeling_finetune.py:245-252):
     x + gamma_1 * attn(ln(x)), x + gamma_2 * mlp(ln(x)), the gammas only
-    when init_values > 0 (:239-243). Stochastic depth acts only in training,
-    which the port does not run yet."""
+    when init_values > 0 (:239-243). `drop` ((B,) keep mask of the
+    attention branch, of the MLP branch, the keep probability), given in
+    training only, applies stochastic depth to both branches after their
+    gains (l4p_tpu/models/encoder.py:268-282)."""
 
     def __init__(self, cfg: EncoderConfig, device=None, dtype=None):
         super().__init__()
@@ -105,7 +147,7 @@ class Block(nn.Module):
             self.gamma_1 = nn.Parameter(torch.full((e,), cfg.init_values, device=device, dtype=dtype))
             self.gamma_2 = nn.Parameter(torch.full((e,), cfg.init_values, device=device, dtype=dtype))
 
-    def forward(self, x: torch.Tensor, attention: AttentionFn) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attention: AttentionFn, drop=None) -> torch.Tensor:
         b, n, e = x.shape
         nh, hd, eps = self.cfg.num_heads, self.cfg.head_dim, self.cfg.ln_eps
         a = self.attn
@@ -122,11 +164,15 @@ class Block(nn.Module):
         else:
             o = attention(qkv[0], qkv[1], qkv[2], hd ** -0.5)  # strided views: the kernel's wrapper lays them out
         branch = linear(o.transpose(1, 2).reshape(b, n, e), a.proj.weight, a.proj.bias)
-        x = x + (branch * self.gamma_1.to(x.dtype) if self.cfg.init_values > 0 else branch)
+        if self.cfg.init_values > 0:
+            branch = branch * self.gamma_1.to(x.dtype)
+        x = x + (branch if drop is None else drop_path(branch, drop[0], drop[2]))
         h = layer_norm(x, self.norm2.weight, self.norm2.bias, eps)
         h = gelu(linear(h, self.mlp.fc1.weight, self.mlp.fc1.bias))
         branch = linear(h, self.mlp.fc2.weight, self.mlp.fc2.bias)
-        return x + (branch * self.gamma_2.to(x.dtype) if self.cfg.init_values > 0 else branch)
+        if self.cfg.init_values > 0:
+            branch = branch * self.gamma_2.to(x.dtype)
+        return x + (branch if drop is None else drop_path(branch, drop[1], drop[2]))
 
 
 class CameraEmbedding(nn.Module):
@@ -188,7 +234,8 @@ class VideoEncoder(nn.Module):
                 attention: AttentionFn = flash_attention,
                 encoder_blocks: Optional[EncoderBlocksFn] = None,
                 intrinsics_b44t: Optional[torch.Tensor] = None,
-                extrinsics_b44t: Optional[torch.Tensor] = None) -> Dict[str, object]:
+                extrinsics_b44t: Optional[torch.Tensor] = None,
+                drop_path_draws: Optional[DropPathDraws] = None) -> Dict[str, object]:
         """Tokens (B, N, E) without the position table -> {'hooks': [feature
         per hook], 'final': normed output}. Hook index 0 is the embedding,
         index i the output of block i-1, index `depth` the normed output
@@ -199,7 +246,9 @@ class VideoEncoder(nn.Module):
         item's normalised intrinsics and extrinsics (B, 4, 4, frames) are
         needed: it is added after the positions ('input') or to every hook
         feature and the output ('output'; l4p_tpu/models/encoder.py:378-381,
-        :452-459)."""
+        :452-459). With `drop_path_draws` and drop_path_rate > 0 (training) the
+        blocks run one by one with stochastic depth, whatever
+        `encoder_blocks` says (the fused gate of :390-394)."""
         cfg = self.cfg
         x = tokens_bne + self.pos_embed.to(tokens_bne.dtype)
         place = cfg.cam_emb_placed_at
@@ -211,14 +260,20 @@ class VideoEncoder(nn.Module):
         if place == "input":
             x = self.cam_emb(x, rays)
         feats: Dict[int, torch.Tensor] = {0: x}
-        if encoder_blocks is not None:
+        dropping = drop_path_draws is not None and cfg.drop_path_rate > 0
+        if encoder_blocks is not None and not dropping:
             ends = sorted({h for h in hooks if h > 0} | {cfg.depth})
             stack = encoder_blocks(self.blocks, x, cfg, ends)
             feats.update({e: stack[:, i] for i, e in enumerate(ends)})
             x = feats[cfg.depth]
         else:
+            keep_probs = 1.0 - drop_path_rates(cfg) if dropping else None
             for i, blk in enumerate(self.blocks):
-                x = blk(x, attention)
+                drop = None
+                if dropping:
+                    p = keep_probs[i]
+                    drop = tuple(drop_path_draws.keep(i, branch, x.shape[0], p) for branch in (0, 1)) + (p,)
+                x = blk(x, attention, drop)
                 if i + 1 in hooks:
                     feats[i + 1] = x
         final = layer_norm(x, self.norm.weight, self.norm.bias, cfg.ln_eps)

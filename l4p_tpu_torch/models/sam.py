@@ -13,7 +13,10 @@ The two-way transformer has two image-side schedules:
   package), and the keys are streamed through the two fused kernels
   `t2i_flash` and `i2t_ln_t2i` in the pass schedule of `twoway_streamed`.
   With the kernels' plain versions (`PLAIN`) this is the JAX package's
-  `factored` path, so `impl="factored"` maps onto it.
+  `factored` path, so `impl="factored"` maps onto it. With any other
+  kernels it runs as one `TwoWayStreamedFunction` over the queries, keys,
+  encodings and the transformer's parameters, whose backward recomputes
+  the factored path (JAX's `_twoway_streamed` custom VJP, sam.py:398-481).
 """
 
 from __future__ import annotations
@@ -30,6 +33,7 @@ from l4p_tpu_torch.ops.attention import mha
 from l4p_tpu_torch.ops.conv import layer_norm, linear
 from l4p_tpu_torch.ops.fused_keys import i2t_ln_t2i, i2t_ln_t2i_plain, t2i_flash, t2i_flash_plain
 from l4p_tpu_torch.ops.fused_upscale import fused_upscale_hypernet, fused_upscale_hypernet_plain
+from l4p_tpu_torch.ops.recompute import module_call, recompute_grads
 
 LN_EPS = 1e-5  # the two-way transformer's norms are torch nn.LayerNorm defaults
 
@@ -315,8 +319,8 @@ def i2t_prep(p: Attention, queries, query_pe, pe_pc, num_heads: int):
     return r, per, v2, p.out_proj.bias
 
 
-def twoway_streamed(tf: TwoWayTransformer, cfg: SamConfig, queries, keys, query_pe, pe_pc,
-                    kernels: TrackKernels = KERNELS) -> Tuple[torch.Tensor, torch.Tensor]:
+def _twoway_streamed(tf: TwoWayTransformer, cfg: SamConfig, queries, keys, query_pe, pe_pc,
+                     kernels: TrackKernels) -> Tuple[torch.Tensor, torch.Tensor]:
     """The whole two-way transformer with the image side in the two fused
     kernels. Pass schedule (legal because everything between a layer's i2t
     and the next layer's t2i logits touches only the token side):
@@ -347,6 +351,39 @@ def twoway_streamed(tf: TwoWayTransformer, cfg: SamConfig, queries, keys, query_
         keys, wsum = kernels.i2t(keys, r, per, v2, ob, p.norm4.weight, p.norm4.bias, st, spe, nh, LN_EPS)
     queries = queries + t2i_finish(tf.final_attn_token_to_image, wsum, nh, queries.dtype)
     return _norm(queries, tf.norm_final_attn), keys
+
+
+class TwoWayStreamedFunction(torch.autograd.Function):
+    """`_twoway_streamed` with `kernels` over (queries, keys, query_pe,
+    pe_pc) and the parameters `names` of `tf`; the backward recomputes it
+    with the plain versions (JAX's factored path) on those inputs."""
+
+    @staticmethod
+    def forward(ctx, tf, cfg, kernels, names, queries, keys, query_pe, pe_pc, *params):
+        ctx.save_for_backward(queries, keys, query_pe, pe_pc, *params)
+        ctx.tf, ctx.cfg, ctx.names = tf, cfg, names
+        return _twoway_streamed(tf, cfg, queries, keys, query_pe, pe_pc, kernels)
+
+    @staticmethod
+    def backward(ctx, grad_queries, grad_keys):
+        def plain(queries, keys, query_pe, pe_pc, *params):
+            return module_call(lambda tf, *a: _twoway_streamed(tf, ctx.cfg, *a, PLAIN), ctx.tf, ctx.names, params,
+                               queries, keys, query_pe, pe_pc)
+
+        return (None,) * 4 + recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[4:],
+                                             (grad_queries, grad_keys))
+
+
+def twoway_streamed(tf: TwoWayTransformer, cfg: SamConfig, queries, keys, query_pe, pe_pc,
+                    kernels: TrackKernels = KERNELS) -> Tuple[torch.Tensor, torch.Tensor]:
+    """queries (N, Q, C), keys (N, P, C), query_pe (N, Q, C), pe_pc (P, C)
+    -> (queries, keys) after the transformer, differentiable in all four and
+    in tf's parameters: directly with the plain versions, else through
+    `TwoWayStreamedFunction` (every kernel call is one of `kernels`)."""
+    if kernels == PLAIN:
+        return _twoway_streamed(tf, cfg, queries, keys, query_pe, pe_pc, PLAIN)
+    names, params = zip(*tf.named_parameters())
+    return TwoWayStreamedFunction.apply(tf, cfg, kernels, names, queries, keys, query_pe, pe_pc, *params)
 
 
 def twoway_transformer_apply(tf: TwoWayTransformer, cfg: SamConfig, image_embedding: torch.Tensor,

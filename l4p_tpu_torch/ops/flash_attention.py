@@ -8,7 +8,9 @@ first use (``_build.py``). `flash_attention_plain` is the same function in
 plain PyTorch (== `mha`).
 
 For tensors on the CPU the wrapper runs the plain version; for CUDA tensors
-it launches the kernel or raises, never falls back.
+it launches the kernel or raises, never falls back. On either device it
+goes through `FlashAttentionFunction`, whose backward recomputes the plain
+version (ops/recompute.py), as `_flash_bwd` recomputes `mha`.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 
 from l4p_tpu_torch import _build
 from l4p_tpu_torch.ops.attention import mha
+from l4p_tpu_torch.ops.recompute import recompute_grads
 
 NAME = "flash_attention"
 SOURCES = ("flash_attention.cu",)
@@ -80,11 +83,7 @@ def _kernel():
     return fn
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
-    """q: (B, H, Nq, D), k/v: (B, H, Nk, D), any strides -> (B, H, Nq, D)
-    contiguous: softmax(q k^T * scale) v with fp32 scores and softmax. On
-    CUDA an operand that does not lie as `kernel_layout` puts it is copied
-    so first (one copy each, where a caller would make a contiguous one)."""
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or q.shape[:2] != k.shape[:2] \
             or q.shape[3] != k.shape[3]:
         raise ValueError(f"flash_attention: incompatible shapes q{tuple(q.shape)} k{tuple(k.shape)} "
@@ -112,6 +111,31 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
         raise RuntimeError(f"flash_attention: kernel launch failed: {launch_error(err)}")
     flash_attention.launches += 1
     return o
+
+
+class FlashAttentionFunction(torch.autograd.Function):
+    """The kernel forward (the plain version on the CPU); the backward
+    recomputes `flash_attention_plain` on the saved q, k, v."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale):
+        ctx.save_for_backward(q, k, v)
+        ctx.scale = scale
+        return _forward(q, k, v, scale)
+
+    @staticmethod
+    def backward(ctx, grad):
+        plain = lambda q, k, v: flash_attention_plain(q, k, v, ctx.scale)
+        return (*recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[:3], (grad,)), None)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+    """q: (B, H, Nq, D), k/v: (B, H, Nk, D), any strides -> (B, H, Nq, D)
+    contiguous: softmax(q k^T * scale) v with fp32 scores and softmax,
+    differentiable. On CUDA an operand that does not lie as `kernel_layout`
+    puts it is copied so first (one copy each, where a caller would make a
+    contiguous one)."""
+    return FlashAttentionFunction.apply(q, k, v, scale)
 
 
 flash_attention.launches = 0  # kernel launches since the last reset

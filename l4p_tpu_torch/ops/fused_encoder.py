@@ -17,7 +17,11 @@ LayerNorm.
 
 `fused_encoder_unsupported` is the one gate of the kernel path. For tensors
 on the CPU the wrappers run the plain versions; for CUDA tensors they
-launch the kernels or raise, never fall back.
+launch the kernels or raise, never fall back. `fused_encoder_blocks` goes
+through `FusedEncoderFunction` on either device, with x and the blocks'
+parameters as its inputs; its backward recomputes
+`fused_encoder_blocks_plain` (ops/recompute.py), as `_fe_bwd` recomputes
+`_run_blocks_xla`.
 """
 
 from __future__ import annotations
@@ -31,6 +35,7 @@ from l4p_tpu_torch import _build
 from l4p_tpu_torch.config import EncoderConfig
 from l4p_tpu_torch.ops.conv import gelu, linear
 from l4p_tpu_torch.ops.flash_attention import flash_attention_plain, kernel_row_pitch, launch_error
+from l4p_tpu_torch.ops.recompute import module_call, recompute_grads
 
 NAME = "fused_encoder"
 SOURCES = ("fused_encoder.cu",)
@@ -167,17 +172,8 @@ class EncoderWorkspace:
         ]
 
 
-def fused_encoder_blocks(blocks: Sequence[torch.nn.Module], x: torch.Tensor, cfg: EncoderConfig,
-                         hook_ends: Sequence[int]) -> torch.Tensor:
-    """x (B, N, E) tokens with the position table added -> (B, len(hook_ends),
-    N, E); `blocks` are the encoder's `Block`s in the released names."""
-    ends = _hook_ends(cfg, hook_ends)
-    if x.dim() != 3 or x.shape[2] != cfg.embed_dim or len(blocks) < ends[-1] or min(x.shape) == 0:
-        raise ValueError(f"fused_encoder_blocks: x{tuple(x.shape)} with {len(blocks)} blocks does not fit "
-                         f"embed_dim {cfg.embed_dim}, ends {ends}")
-    reason = fused_encoder_unsupported(cfg, x.dtype, x.device)
-    if reason is not None:
-        raise ValueError(f"fused_encoder_blocks: {reason}")
+def _forward(blocks: Sequence[torch.nn.Module], x: torch.Tensor, cfg: EncoderConfig,
+             ends: Tuple[int, ...]) -> torch.Tensor:
     params = [block_params(blk) for blk in blocks[: ends[-1]]]
     devices = {x.device} | {p.device for ps in params for p in ps}
     if devices == {torch.device("cpu")}:
@@ -200,6 +196,43 @@ def fused_encoder_blocks(blocks: Sequence[torch.nn.Module], x: torch.Tensor, cfg
                 fused_encoder_blocks.kernel_launches += 1
     fused_encoder_blocks.launches += 1
     return stack.transpose(0, 1)  # (B, K, N, E); each stack[:, i] stays contiguous
+
+
+class FusedEncoderFunction(torch.autograd.Function):
+    """The kernels' forward (the plain blocks on the CPU) over x and the
+    blocks' parameters `names` of `blocks` (a ModuleList); the backward
+    recomputes `fused_encoder_blocks_plain` with those parameters."""
+
+    @staticmethod
+    def forward(ctx, blocks, cfg, ends, names, x, *params):
+        ctx.save_for_backward(x, *params)
+        ctx.blocks, ctx.cfg, ctx.ends, ctx.names = blocks, cfg, ends, names
+        return _forward(blocks, x, cfg, ends)
+
+    @staticmethod
+    def backward(ctx, grad):
+        def plain(x, *params):
+            return module_call(lambda blocks, x_: fused_encoder_blocks_plain(blocks, x_, ctx.cfg, ctx.ends),
+                               ctx.blocks, ctx.names, params, x)
+
+        return (None,) * 4 + recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[4:], (grad,))
+
+
+def fused_encoder_blocks(blocks: Sequence[torch.nn.Module], x: torch.Tensor, cfg: EncoderConfig,
+                         hook_ends: Sequence[int]) -> torch.Tensor:
+    """x (B, N, E) tokens with the position table added -> (B, len(hook_ends),
+    N, E), differentiable in x and in the blocks' parameters; `blocks` are
+    the encoder's `Block`s in the released names."""
+    ends = _hook_ends(cfg, hook_ends)
+    if x.dim() != 3 or x.shape[2] != cfg.embed_dim or len(blocks) < ends[-1] or min(x.shape) == 0:
+        raise ValueError(f"fused_encoder_blocks: x{tuple(x.shape)} with {len(blocks)} blocks does not fit "
+                         f"embed_dim {cfg.embed_dim}, ends {ends}")
+    reason = fused_encoder_unsupported(cfg, x.dtype, x.device)
+    if reason is not None:
+        raise ValueError(f"fused_encoder_blocks: {reason}")
+    used = torch.nn.ModuleList(blocks[: ends[-1]])
+    names, params = zip(*used.named_parameters())
+    return FusedEncoderFunction.apply(used, cfg, ends, names, x, *params)
 
 
 fused_encoder_blocks.launches = 0  # calls that ran on the kernels since the last reset

@@ -14,7 +14,10 @@ erf form in every dtype (the XLA path's; the TPU kernel's polynomial erf was
 a Pallas workaround).
 
 For tensors on the CPU the wrapper runs the plain version; for CUDA bf16
-tensors it launches the kernel or raises, never falls back.
+tensors it launches the kernel or raises, never falls back. On either
+device it goes through `FusedUpscaleFunction`, whose backward recomputes
+the plain version (ops/recompute.py), as `_fused_bwd` recomputes
+`_upscale_xla`.
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from l4p_tpu_torch import _build
+from l4p_tpu_torch.ops.recompute import recompute_grads
 
 NAME = "fused_upscale"
 SOURCES = ("fused_upscale.cu",)
@@ -115,9 +119,7 @@ def launch_args(src, w1, b1, lnw, lnb, w2, b2, hyper):
     return out, args, (*packed, hyp)
 
 
-def fused_upscale_hypernet(src, w1, b1, lnw, lnb, w2, b2, hyper) -> torch.Tensor:
-    """(N, P, C) tokens -> (N, M, P, k1, k2) fp32 packed logits; shapes as in
-    `fused_upscale_hypernet_plain`."""
+def _forward(src, w1, b1, lnw, lnb, w2, b2, hyper) -> torch.Tensor:
     n, p, c = src.shape
     cw, d1, d2, k1, k2 = _dims(w1, w2)
     m = hyper.shape[1]
@@ -148,6 +150,26 @@ def fused_upscale_hypernet(src, w1, b1, lnw, lnb, w2, b2, hyper) -> torch.Tensor
         raise RuntimeError(f"fused_upscale_hypernet: kernel launch failed with CUDA error {err}")
     fused_upscale_hypernet.launches += 1
     return out
+
+
+class FusedUpscaleFunction(torch.autograd.Function):
+    """The kernel forward (the plain version on the CPU) over all eight
+    operands; the backward recomputes `fused_upscale_hypernet_plain`."""
+
+    @staticmethod
+    def forward(ctx, *operands):
+        ctx.save_for_backward(*operands)
+        return _forward(*operands)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return recompute_grads(fused_upscale_hypernet_plain, ctx.saved_tensors, ctx.needs_input_grad, (grad,))
+
+
+def fused_upscale_hypernet(src, w1, b1, lnw, lnb, w2, b2, hyper) -> torch.Tensor:
+    """(N, P, C) tokens -> (N, M, P, k1, k2) fp32 packed logits, differentiable
+    in every operand; shapes as in `fused_upscale_hypernet_plain`."""
+    return FusedUpscaleFunction.apply(src, w1, b1, lnw, lnb, w2, b2, hyper)
 
 
 fused_upscale_hypernet.launches = 0  # kernel launches since the last reset

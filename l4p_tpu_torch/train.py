@@ -1,0 +1,273 @@
+"""Training: the multi-task loss, the trainable parameters, AdamW with the
+one-cycle schedule and global-norm clipping, and one optimization step
+(counterpart of l4p_tpu/train.py).
+
+The loss has the reference loss module's contract (l4p.py:69-71): one
+window-length clip, a loss per task and their sum. The optimizer follows
+optax's semantics, which the JAX package trains with, rather than
+torch.optim's: `optax.clip_by_global_norm` (no epsilon on the norm), then
+`optax.adamw` (moments in the parameters' dtype, weight decay decoupled and
+scaled by the learning rate) on `optax.cosine_onecycle_schedule`, which
+each update reads at the count of updates before it.
+
+The kernels of the forward (the encoder attention, the fused encoder, the
+track head's three) are `torch.autograd.Function`s whose backward
+recomputes their plain versions (ops/recompute.py).
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+import operator
+from typing import Callable, Dict, Mapping, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from l4p_tpu_torch.config import L4PConfig
+from l4p_tpu_torch.geometry.core import get_rays_plucker, normalize_intrinsics
+from l4p_tpu_torch.models.encoder import AttentionFn, DropPathDraws, EncoderBlocksFn
+from l4p_tpu_torch.models.l4p import L4P, dense_head_raw
+from l4p_tpu_torch.models.sam import KERNELS, TrackKernels
+from l4p_tpu_torch.models.track import track_forward
+from l4p_tpu_torch.ops.flash_attention import flash_attention
+from l4p_tpu_torch.ops.fused_encoder import fused_encoder_blocks
+
+
+def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    x = x.float()
+    if mask is None:
+        return x.mean()
+    m = mask.float().expand(x.shape)
+    return (x * m).sum() / m.sum().clamp(min=1.0)
+
+
+def sigmoid_binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """optax.sigmoid_binary_cross_entropy: -y log sigmoid(x) - (1 - y) log sigmoid(-x)."""
+    labels = labels.to(logits.dtype)
+    return -labels * F.logsigmoid(logits) - (1.0 - labels) * F.logsigmoid(-logits)
+
+
+def _log_l1(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
+    """|log max(pred, 1e-6) - log max(gt, 1e-6)|, each in its own dtype."""
+    return (torch.log(pred.clamp(min=1e-6)) - torch.log(gt.clamp(min=1e-6))).abs()
+
+
+def l4p_loss(model: L4P, cfg: L4PConfig, batch: Mapping[str, torch.Tensor], tasks: Sequence[str],
+             drop_path_draws: Optional[DropPathDraws] = None, attention: AttentionFn = flash_attention,
+             track_kernels: TrackKernels = KERNELS,
+             encoder_blocks: EncoderBlocksFn = fused_encoder_blocks) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """(total, {name: loss}) of one window-length clip (l4p_tpu/train.py:35-154),
+    batch keys in the L4PData schema: log-L1 depth, L1 flow under its
+    per-channel valid mask, BCE-with-logits dyn_mask, L1 camray rays against
+    the Plucker rays of the ground-truth cameras in the first camera's
+    frame, and the track's xy L1 over the image height, visibility BCE and
+    log-L1 depth; each under its valid mask where the batch has one.
+
+    `drop_path_draws` turns on stochastic depth (training steps pass one
+    when drop_path_rate > 0), which also keeps the encoder off the fused
+    kernels. With `freeze_video_encoder` and no `unfreeze_blocks` the
+    encoder runs without autograd (JAX's stop_gradient on its parameters).
+    `attention`, `track_kernels` and `encoder_blocks` replace the kernels,
+    as in InferenceSession."""
+    rgb = batch["rgb_b3thw"]
+    if rgb.shape[2] != cfg.window_size[0]:
+        raise ValueError(f"l4p_loss trains on single-window clips: T={rgb.shape[2]} != window "
+                         f"{cfg.window_size[0]}; crop or sample clips to the window length in the data pipeline")
+    img_info = tuple(rgb.shape[2:5])
+    hooks = cfg.all_hooks
+    enc = model.video_encoder
+    frozen = cfg.freeze_video_encoder and cfg.unfreeze_blocks is None
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
+        out = enc(enc.embed(rgb), hooks, attention, encoder_blocks if cfg.encoder.fused_encoder else None,
+                  drop_path_draws=drop_path_draws)
+    feats = dict(zip(hooks, out["hooks"]))
+    heads = cfg.head_dict
+
+    def dense(task: str) -> torch.Tensor:
+        hcfg = heads[task]
+        return dense_head_raw(model.task_heads[task].task_head, hcfg, [feats[h] for h in hcfg.dpt.hooks], img_info)
+
+    losses: Dict[str, torch.Tensor] = {}
+    for task in tasks:
+        if task == "depth":
+            losses["depth"] = _masked_mean(_log_l1(dense(task), batch["depth_b1thw"]), batch.get("depth_valid_b1thw"))
+        elif task == "flow_2d_backward":
+            losses["flow"] = _masked_mean((dense(task) - batch["flow_2d_backward_b2thw"]).abs(),
+                                          batch.get("flow_2d_backward_valid_b2thw"))
+        elif task == "dyn_mask":
+            bce = sigmoid_binary_cross_entropy(dense(task).float(), batch["dyn_mask_b1thw"].float())
+            losses["dyn_mask"] = _masked_mean(bce, batch.get("dyn_mask_valid_b1thw"))
+        elif task == "camray":
+            rays_pred = dense(task)
+            k_norm = normalize_intrinsics(batch["intrinsics_b44t"].float(), img_info[1], img_info[2])
+            rays_gt, _ = get_rays_plucker(k_norm, batch["extrinsics_b44t"].float(), tuple(rays_pred.shape[-2:]),
+                                          make_first_cam_ref=True)
+            t_gt, t_pred = rays_gt.shape[2], rays_pred.shape[2]
+            if t_gt != t_pred:  # the GT frames at the head's tubelet times, truncated as astype(int32)
+                idx = torch.linspace(0, t_gt - 1, t_pred, dtype=torch.float32).long()
+                rays_gt = rays_gt[:, :, idx.to(rays_gt.device)]
+            losses["camray"] = (rays_pred.float() - rays_gt).abs().mean()
+        elif task == "track_2d":
+            tcfg = cfg.track
+            est = track_forward(model.task_heads["track_2d"], tcfg, out["final"], batch["track_2d_pointquerries_bn3"],
+                                batch["track_2d_pointlabels_bn"], kernels=track_kernels)
+            t = tcfg.task_name
+            valid = batch.get("track_2d_valid_bn1t")
+            losses["track_xy"] = _masked_mean((est[f"{t}_traj_est_bn2t"] - batch["track_2d_traj_bn2t"]).abs(),
+                                              valid) / max(img_info[1], 1)
+            if tcfg.estimate_vis and "track_2d_vis_bn1t" in batch:
+                bce = sigmoid_binary_cross_entropy(est[f"{t}_vis_est_bn1t"].float(), batch["track_2d_vis_bn1t"].float())
+                losses["track_vis"] = _masked_mean(bce, valid)
+            if tcfg.estimate_depth and "track_2d_depth_bn1t" in batch:
+                losses["track_depth"] = _masked_mean(_log_l1(est[f"{t}_depth_est_bn1t"], batch["track_2d_depth_bn1t"]),
+                                                     valid)
+        else:
+            raise ValueError(f"unknown task {task}")
+    return functools.reduce(operator.add, losses.values()), losses
+
+
+# parameters the forward never reads, kept so that the released state dict loads strictly
+# (models/sam.py); the JAX package's tree has no leaves for them, and they do not train
+NEVER_READ = ("task_heads.track_2d.prompt_encoder.no_mask_embed.weight",
+              "task_heads.track_2d.mask_decoder.iou_token.weight")
+
+
+def trainable_mask(model: L4P, cfg: L4PConfig) -> Dict[str, bool]:
+    """Whether each of the model's parameters trains (l4p_tpu/train.py:157-202;
+    the reference's requires_grad toggles, l4p_videomae.py:199-218):
+    `freeze_video_encoder` freezes the encoder; `unfreeze_blocks` trains
+    the listed blocks and the final norm again (an empty tuple the norm
+    alone); `freeze_heads` freezes whole task heads. The sinusoid position
+    table is a buffer, not a parameter; learnable positions train unless
+    the encoder is frozen. NEVER_READ stays frozen."""
+    mask = {}
+    unfrozen = set(cfg.unfreeze_blocks or ())
+    for name, _ in model.named_parameters():
+        part, sub, *rest = name.split(".")
+        if name in NEVER_READ:
+            mask[name] = False
+        elif part == "task_heads":
+            mask[name] = sub not in cfg.freeze_heads
+        elif not cfg.freeze_video_encoder:
+            mask[name] = True
+        elif sub == "blocks":
+            mask[name] = int(rest[0]) in unfrozen
+        else:  # the final norm trains with unfreeze_blocks; patch_embed, pos_embed, cam_emb stay frozen
+            mask[name] = sub == "norm" and cfg.unfreeze_blocks is not None
+    return mask
+
+
+def cosine_onecycle_schedule(transition_steps: int, peak_value: float, pct_start: float = 0.3,
+                             div_factor: float = 25.0, final_div_factor: float = 1e4) -> Callable[[int], np.float32]:
+    """optax.cosine_onecycle_schedule, evaluated as optax evaluates it (its
+    piecewise cosine interpolation in float32): from peak / div_factor up to
+    peak over the first int(pct_start * steps) counts, then down to
+    peak / (div_factor * final_div_factor) at `transition_steps`, constant
+    after."""
+    bounds = np.array((0, int(pct_start * transition_steps), int(transition_steps)))
+    values = np.cumprod((peak_value / div_factor, div_factor, 1.0 / (div_factor * final_div_factor)))
+    sizes = bounds[1:] - bounds[:-1]
+
+    def schedule(count: int) -> np.float32:
+        count = np.int32(count)
+        with np.errstate(divide="ignore", invalid="ignore"):
+            pct = ((count - bounds[:-1]).astype(np.int32) / sizes.astype(np.int32)).astype(np.float32)
+        start, end = values[:-1], values[1:]
+        interp = end.astype(np.float32) + ((start - end) / 2.0).astype(np.float32) * (
+            np.cos(np.float32(math.pi) * pct) + np.float32(1))
+        inside = ((bounds[:-1] <= count) & (count < bounds[1:])).astype(np.float32)
+        return np.float32(inside.dot(interp) + np.float32(bounds[-1] <= count) * np.float32(values[-1]))
+
+    return schedule
+
+
+class AdamW:
+    """optax.chain(clip_by_global_norm(clip_norm), adamw(schedule, b1, b2,
+    eps, weight_decay)) over `params` (name -> trainable tensor), updating
+    them in place. Moments are kept in each parameter's dtype, and each
+    constant meets a tensor in that dtype, as JAX rounds a Python scalar to
+    the array's dtype; the clip's norm sums the squares in fp32. A missing
+    gradient counts as zero (the parameter still decays, as optax decays a
+    leaf whose gradient is zero)."""
+
+    def __init__(self, params: Mapping[str, torch.Tensor], schedule: Callable[[int], np.float32],
+                 weight_decay: float = 0.05, clip_norm: float = 1.0, b1: float = 0.9, b2: float = 0.999,
+                 eps: float = 1e-8):
+        self.params = dict(params)
+        self.schedule, self.weight_decay, self.clip_norm = schedule, weight_decay, clip_norm
+        self.b1, self.b2, self.eps = b1, b2, eps
+        self.count = 0
+        self.mu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+        self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
+        """One update from the gradients of `params`, in their order."""
+        params = list(self.params.values())
+        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+        # global-norm clip: unchanged below the threshold, else scaled onto it (optax: no epsilon)
+        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+        clip = norm >= self.clip_norm
+        grads = [torch.where(clip, g / norm.to(g.dtype) * self.clip_norm, g) for g in grads]
+        lr = self.schedule(self.count)
+        self.count += 1
+        c1, c2 = (np.float32(1) - np.float32(b) ** np.float32(self.count) for b in (self.b1, self.b2))
+        consts = {}  # dtype -> the step's constants as tensors of that dtype, made once a step
+        for (name, p), g in zip(self.params.items(), grads):
+            key = (p.dtype, p.device)
+            if key not in consts:
+                values = (1 - self.b1, self.b1, 1 - self.b2, self.b2, c1, c2, self.eps, self.weight_decay, -lr)
+                consts[key] = torch.tensor([float(v) for v in values], dtype=torch.float32).to(
+                    device=p.device, dtype=p.dtype).unbind()
+            one_b1, b1, one_b2, b2, c1_t, c2_t, eps, wd, neg_lr = consts[key]
+            mu = one_b1 * g + b1 * self.mu[name]
+            nu = one_b2 * g.square() + b2 * self.nu[name]
+            self.mu[name], self.nu[name] = mu, nu
+            u = (mu / c1_t) / (torch.sqrt(nu / c2_t) + eps)
+            p.copy_(p + neg_lr * (u + wd * p))
+
+    def state_dict(self) -> Dict:
+        return {"count": self.count, "mu": dict(self.mu), "nu": dict(self.nu)}
+
+    def load_state_dict(self, state: Mapping) -> None:
+        if set(state["mu"]) != set(self.params) or set(state["nu"]) != set(self.params):
+            raise ValueError(f"optimizer state for {sorted(state['mu'])}, the optimizer trains {sorted(self.params)}")
+        self.count = int(state["count"])
+        for name, p in self.params.items():
+            self.mu[name] = state["mu"][name].to(device=p.device, dtype=p.dtype)
+            self.nu[name] = state["nu"][name].to(device=p.device, dtype=p.dtype)
+
+
+def make_optimizer(model: L4P, lr: float = 1e-4, total_steps: int = 10000, weight_decay: float = 0.05,
+                   pct_start: float = 0.1, clip_norm: float = 1.0, mask: Optional[Mapping[str, bool]] = None) -> AdamW:
+    """AdamW + one-cycle schedule + global-norm clipping over the model's
+    trainable parameters (l4p_tpu/train.py:237-264; reference
+    configure_optimizers, l4p.py:111-126). `mask` (trainable_mask; None
+    trains every parameter) also sets each parameter's requires_grad, so
+    frozen parameters get no gradient, no moments and no decay, and stay
+    bitwise unchanged. pct_start is raised so that the warm-up has a step
+    (optax's schedule is NaN for an empty one)."""
+    pct_start = max(pct_start, min(2.0 / max(total_steps, 2), 0.5))
+    schedule = cosine_onecycle_schedule(max(total_steps, 4), lr, pct_start)
+    trainable = {}
+    for name, p in model.named_parameters():
+        p.requires_grad_(True if mask is None else bool(mask[name]))
+        if p.requires_grad:
+            trainable[name] = p
+    return AdamW(trainable, schedule, weight_decay, clip_norm)
+
+
+def train_step(model: L4P, optimizer: AdamW, batch: Mapping[str, torch.Tensor], cfg: L4PConfig,
+               tasks: Sequence[str], drop_path_draws: Optional[DropPathDraws] = None,
+               attention: AttentionFn = flash_attention, track_kernels: TrackKernels = KERNELS,
+               encoder_blocks: EncoderBlocksFn = fused_encoder_blocks) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One optimization step on `batch` (l4p_tpu/train.py:267-284): the loss,
+    its gradients for the optimizer's parameters, one update in place.
+    Returns the loss and the per-task losses, detached."""
+    loss, losses = l4p_loss(model, cfg, batch, tasks, drop_path_draws, attention, track_kernels, encoder_blocks)
+    grads = torch.autograd.grad(loss, list(optimizer.params.values()), allow_unused=True)
+    optimizer.step(grads)
+    return loss.detach(), {k: v.detach() for k, v in losses.items()}

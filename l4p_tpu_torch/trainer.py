@@ -1,13 +1,15 @@
-"""The loop driver's forward-only side (counterpart of l4p_tpu/trainer.py):
-validation and prediction over a host data iterator, with the JAX trainer's
+"""The loop driver (counterpart of l4p_tpu/trainer.py): training, validation
+and prediction over a host data iterator, with the JAX trainer's
 `TrainerConfig`, `config.json` and `scalars.jsonl` records
 (`scalars/{phase}/{key}`, as the reference logs them, l4p.py:82-91), so the
 two packages' logs can be compared line by line.
 
-The forward is the port's `InferenceSession` on the trainer's device (the
-card unless the caller asks for the CPU), under inference mode. `fit`,
-`save` and `restore` need the training side: losses, the optimizer and the
-kernels' backward passes, which are ROADMAP.md queue 1's next item.
+`fit` runs `train.train_step` on the model in place on the trainer's device
+(the card unless the caller asks for the CPU), skipping the batches the
+reference skips, and writes checkpoints (`save`: one `torch.save` file with
+the model's state dict, the optimizer's state and the step, where the JAX
+trainer writes an orbax directory) that `restore` reads back. Validation
+and prediction run the port's `InferenceSession` under inference mode.
 """
 
 from __future__ import annotations
@@ -15,7 +17,8 @@ from __future__ import annotations
 import dataclasses
 import json
 import os
-from typing import Callable, Dict, Iterable, Iterator, Mapping, Optional, Sequence, Union
+import time
+from typing import Callable, Dict, Iterable, Iterator, Mapping, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -24,7 +27,9 @@ import torch.nn as nn
 from l4p_tpu_torch.config import L4PConfig
 from l4p_tpu_torch.inference import InferenceSession
 from l4p_tpu_torch.metrics import l4p_metrics
-from l4p_tpu_torch.models.l4p import Draws
+from l4p_tpu_torch.models.encoder import RandomDropPath
+from l4p_tpu_torch.models.l4p import L4P, Draws
+from l4p_tpu_torch.train import AdamW, make_optimizer, train_step, trainable_mask
 
 Model = Union[nn.Module, Mapping[str, torch.Tensor]]
 
@@ -45,14 +50,15 @@ def do_data_sanity_checks(batch: Mapping) -> bool:
     """True for a batch whose tracks are all invalid, which training skips
     (reference l4p.py:41-52)."""
     valid = batch.get("track_2d_valid_bn1t")
-    return valid is not None and float(np.sum(np.asarray(valid))) == 0
+    return valid is not None and float(torch.as_tensor(valid).sum()) == 0
 
 
 class Trainer:
-    """`validate` and `predict` of the JAX package's Trainer
-    (l4p_tpu/trainer.py) on the port's session. `draws` gives the camera
+    """The JAX package's Trainer (l4p_tpu/trainer.py) on the port: `fit`,
+    `save`, `restore`, `validate` and `predict`. `draws` gives the camera
     solve's and the joint stitch's random numbers (RandomDraws(0) by
-    default)."""
+    default); training's stochastic depth draws from RandomDropPath(0,
+    step), one generator a step."""
 
     def __init__(self, model_cfg: L4PConfig, tasks: Sequence[str], trainer_cfg: TrainerConfig = TrainerConfig(),
                  metrics_fn: Optional[Callable] = l4p_metrics, device: Union[str, torch.device] = "cuda",
@@ -106,7 +112,57 @@ class Trainer:
         for batch in data_iter:
             yield {k: v.float().cpu().numpy() for k, v in self._forward(model, batch)[1].items()}
 
-    def fit(self, *args, **kwargs):
-        raise NotImplementedError(
-            "Trainer.fit needs the training side (losses, the optimizer, the kernels' backward passes), which is "
-            "ROADMAP.md queue 1's next item, training; the JAX package's Trainer.fit (l4p_tpu/trainer.py) runs it")
+    def make_optimizer(self, model: L4P) -> AdamW:
+        """The optimizer of `fit` over the parameters `trainable_mask` trains
+        (which sets every parameter's requires_grad)."""
+        return make_optimizer(model, lr=self.cfg.lr, total_steps=self.cfg.max_steps,
+                              weight_decay=self.cfg.weight_decay, mask=trainable_mask(model, self.model_cfg))
+
+    def save(self, model: L4P, optimizer: AdamW, step: int) -> str:
+        """`out_dir/ckpt_<step>.pt`: the model's state dict, the optimizer's state and the step."""
+        path = os.path.join(self.cfg.out_dir, f"ckpt_{step:07d}.pt")
+        torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(), "step": step}, path)
+        return path
+
+    def restore(self, path: str, model: L4P, optimizer: Optional[AdamW] = None) -> Tuple[L4P, AdamW, int]:
+        """Resume from a `save` file: the weights loaded into `model` (strictly),
+        the state into `optimizer` (a new one of `make_optimizer` if None);
+        returns (model, optimizer, step)."""
+        ckpt = torch.load(path, map_location=self.device, weights_only=True)
+        model.load_state_dict(ckpt["model"], strict=True)
+        optimizer = self.make_optimizer(model) if optimizer is None else optimizer
+        optimizer.load_state_dict(ckpt["optimizer"])
+        return model, optimizer, int(ckpt["step"])
+
+    def fit(self, model: L4P, train_iter: Iterable[Mapping], val_iter: Optional[Callable[[], Iterable[Mapping]]] = None,
+            optimizer: Optional[AdamW] = None, start_step: int = 0) -> Tuple[L4P, AdamW, int]:
+        """Train `model` in place until `max_steps` or the end of `train_iter`
+        (l4p_tpu/trainer.py:131-164): a batch whose tracks are all invalid is
+        skipped; every `log_every` steps the loss, each task's loss and
+        `steps_per_sec` go to scalars.jsonl under `scalars/train/`, every
+        `ckpt_every` a checkpoint is saved and every `val_every` `val_iter()`
+        is validated; a last checkpoint at the end. Returns (model,
+        optimizer, step)."""
+        optimizer = self.make_optimizer(model) if optimizer is None else optimizer
+        step = start_step
+        t0 = time.time()
+        for batch in train_iter:
+            if step >= self.cfg.max_steps:
+                break
+            if do_data_sanity_checks(batch):
+                continue
+            data = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items() if not isinstance(v, str)}
+            loss, losses = train_step(model, optimizer, data, self.model_cfg, self.tasks,
+                                      drop_path_draws=RandomDropPath(0, step))
+            step += 1
+            if step % self.cfg.log_every == 0:
+                scalars = {"loss": float(loss), **{k: float(v) for k, v in losses.items()}}
+                scalars["steps_per_sec"] = self.cfg.log_every / max(time.time() - t0, 1e-9)
+                t0 = time.time()
+                self.log("train", step, scalars)
+            if step % self.cfg.ckpt_every == 0:
+                self.save(model, optimizer, step)
+            if val_iter is not None and step % self.cfg.val_every == 0:
+                self.validate(model, val_iter(), step=step)
+        self.save(model, optimizer, step)
+        return model, optimizer, step

@@ -6,6 +6,7 @@ writes; `python3 -m l4p_tpu_torch.eval_protocol` against
 scripts/eval_protocol.py on one checkpoint; and the CLI's validate / test
 on a DAVIS tree the test writes."""
 
+import copy
 import dataclasses
 import functools
 import json
@@ -103,8 +104,9 @@ def test_trainer_predict_and_the_refusals(tmp_path):
     (batch,) = eval_batches(pcfg, "dense_windowed", seeds=(3,))
     (out,) = list(trainer.predict(model, [{**batch, "seq_name": "clip"}]))
     assert set(out) == {"depth_est_b1thw"} and out["depth_est_b1thw"].dtype == np.float32
-    with pytest.raises(NotImplementedError, match="training"):
-        trainer.fit(model, iter([batch]))
+    (train,) = eval_batches(pcfg, "depth_single_window", seeds=(3,))  # one window with depth ground truth
+    _, _, step = trainer.fit(copy.deepcopy(model), iter([train]))
+    assert step == 1 and os.path.isfile(tmp_path / "ckpt_0000001.pt")
     assert do_data_sanity_checks({"track_2d_valid_bn1t": np.zeros((1, 3, 1, 4))})
     assert not do_data_sanity_checks({"track_2d_valid_bn1t": np.ones((1, 3, 1, 4))}) and not do_data_sanity_checks({})
 
@@ -192,5 +194,6 @@ def test_cli_validate_and_test_match_the_jax_trainer(tmp_path):
         for k, v in ref.items():
             # the tracks agree to <= 4e-7 px (test_torch_slice): the same points pass each threshold
             check(torch.tensor(rec[f"scalars/{phase}/{k}"]), v, 1e-7, k)
-    with pytest.raises(NotImplementedError, match="training"):
-        cli.main(["fit", *common])
+    # DAVIS has no ground-truth tracks (all invalid): fit skips the sample and ends at step 0
+    assert cli.main(["fit", *common, "--out-dir", str(tmp_path / "fit")]) == 0
+    assert sorted(os.listdir(tmp_path / "fit")) == ["ckpt_0000000.pt", "config.json"]

@@ -1053,3 +1053,226 @@ def test_fused_encoder_refuses_cos_attn_and_layer_scale_on_card(cuda, enc, reaso
     before = FE.fused_encoder_blocks.launches
     InferenceSession(ok, ("depth",), cuda)(model, {**data, **camera_request(cuda, g, t=4)})
     assert FE.fused_encoder_blocks.launches == before + 1
+
+
+def grad_of_fit(outs, leaves):
+    """Gradients of sum_i 0.5 |outs_i A_i - t_i|^2, A_i and t_i from fixed seeds (chip_smoke.py's grad_of_fit)."""
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    loss = 0
+    for i, o in enumerate(outs):
+        gen = torch.Generator(device=o.device).manual_seed(i)
+        mix = torch.randn((o.shape[-1], o.shape[-1]), generator=gen, device=o.device) / o.shape[-1] ** 0.5
+        loss = loss + 0.5 * (o.float() @ mix - torch.randn(o.shape, generator=gen, device=o.device)).square().sum()
+    return torch.autograd.grad(loss, leaves, allow_unused=True)
+
+
+def l2_gap(grads, ref):
+    """|grads - ref| / |ref| over all entries together (None = 0)."""
+    num = sum(((r.float() if g is None else g.float() - r.float()) ** 2).sum().item()
+              for g, r in zip(grads, ref) if r is not None)
+    return (num / sum((r.float() ** 2).sum().item() for r in ref if r is not None)) ** 0.5
+
+
+def function_case(name, cuda, g):
+    """(Function class, run(path) -> (outputs, leaves)) at small shapes on the
+    card; path 'kernel' or 'plain'."""
+    from l4p_tpu_torch.config import EncoderConfig, SamConfig, TrackConfig
+    from l4p_tpu_torch.models import sam as PS
+    from l4p_tpu_torch.models.encoder import VideoEncoder
+    from l4p_tpu_torch.models.track import TrackHead
+    from l4p_tpu_torch.ops import flash_attention as FA
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    def rnd(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=cuda) * scale).bfloat16()
+
+    def leaves(ts):
+        return [t.detach().clone().requires_grad_() for t in ts]
+
+    if name == "flash_attention":
+        qkv = [rnd(2, 4, 300, 88) for _ in range(3)]
+
+        def attention(path):
+            xs = leaves(qkv)
+            return (FA.flash_attention if path == "kernel" else FA.flash_attention_plain)(*xs, 88 ** -0.5), xs
+        return FA.FlashAttentionFunction, attention
+    if name == "fused_upscale_hypernet":
+        ops = [rnd(4, 512, 256), rnd(256, 64, 2, 2, 2, scale=1 / 16), rnd(64, scale=0.1), 1 + rnd(64, scale=0.1),
+               rnd(64, scale=0.1), rnd(64, 32, 1, 2, 2, scale=1 / 8), rnd(32, scale=0.1), rnd(4, 3, 32, scale=0.1)]
+
+        def upscale(path):
+            xs = leaves(ops)
+            return (FU.fused_upscale_hypernet if path == "kernel" else FU.fused_upscale_hypernet_plain)(*xs), xs
+        return FU.FusedUpscaleFunction, upscale
+    if name == "twoway_streamed":
+        sam = SamConfig(embed_dim=128, image_embedding_size=(4, 8, 8), input_image_size=(8, 112, 112), mlp_dim=64)
+        head = TrackHead(TrackConfig(image_size=(8, 112, 112), sam=sam), device=cuda, dtype=torch.bfloat16)
+        head.init_weights(g)
+        tf = head.mask_decoder.transformer
+        ops = [rnd(3, 6, 128), rnd(3, 256, 128), rnd(256, 128)]
+
+        def run(path):
+            q, k, pe = leaves(ops)
+            out = PS.twoway_streamed(tf, sam, q, k, q, pe, PS.KERNELS if path == "kernel" else PS.PLAIN)
+            return out, [q, k, pe, *tf.parameters()]
+        return PS.TwoWayStreamedFunction, run
+    cfg = EncoderConfig(embed_dim=256, num_heads=4, depth=2, mlp_ratio=4.0)
+    enc = VideoEncoder(cfg, device=cuda, dtype=torch.bfloat16)
+    enc.init_weights(g)
+    x = rnd(2, 300, 256)
+
+    def run(path):
+        (x_,) = leaves([x])
+        fn = FE.fused_encoder_blocks if path == "kernel" else FE.fused_encoder_blocks_plain
+        return fn(enc.blocks, x_, cfg, (1, 2)), [x_, *enc.blocks.parameters()]
+    return FE.FusedEncoderFunction, run
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["flash_attention", "fused_upscale_hypernet", "twoway_streamed",
+                                  "fused_encoder_blocks"])
+def test_kernel_function_gradients_on_card_match_plain_path(cuda, name):
+    """Each kernel's autograd Function on the card: its outputs hang off the
+    Function's node and the gradients of 0.5 |out A - target|^2 for every input and
+    parameter are the plain path's, but for the cotangent (the forward's
+    output, a bf16 step apart): within chip_smoke.py's FUNCTION_GRAD_BAND
+    (an H100 measured 2.6e-3, 2.1e-4, 4.3e-3 and 3.0e-3)."""
+    g = torch.Generator(device=cuda).manual_seed(12)
+    function, run = function_case(name, cuda, g)
+    outs, leaves = run("kernel")
+    for o in outs if isinstance(outs, tuple) else (outs,):
+        assert isinstance(o.grad_fn, function._backward_cls), o.grad_fn
+    kernel = grad_of_fit(outs, leaves)
+    plain = grad_of_fit(*run("plain"))
+    assert [k is None for k in kernel] == [p is None for p in plain]
+    gap = l2_gap(kernel, plain)
+    print(f"{name}: gradients kernel path against plain path, relative L2 {gap:.3g}")
+    assert gap <= 1e-2
+
+
+def train_cfg(**enc):
+    """tiny_cfg with an MLP width the fused encoder takes (a multiple of 8)."""
+    import dataclasses
+
+    cfg = tiny_cfg()
+    return dataclasses.replace(cfg, encoder=dataclasses.replace(cfg.encoder, mlp_ratio=4.0, **enc))
+
+
+def tiny_train_batch(cuda, seed, t=4, n=5):
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    k = np.tile(np.diag([30.0, 30.0, 1, 1]).astype(np.float32)[None, :, :, None], (1, 1, 1, t))
+    k[:, 0, 2] = k[:, 1, 2] = 14.0
+    batch = {
+        "rgb_b3thw": rng.standard_normal((1, 3, t, 28, 28)), "intrinsics_b44t": k,
+        "extrinsics_b44t": np.tile(np.eye(4)[None, :, :, None], (1, 1, 1, t)),
+        "depth_b1thw": rng.uniform(1, 5, (1, 1, t, 28, 28)),
+        "flow_2d_backward_b2thw": rng.standard_normal((1, 2, t, 28, 28)),
+        "dyn_mask_b1thw": rng.uniform(size=(1, 1, t, 28, 28)) > 0.5,
+        "track_2d_pointquerries_bn3": np.stack([rng.uniform(0, t, (1, n)), rng.uniform(2, 26, (1, n)),
+                                                rng.uniform(2, 26, (1, n))], -1),
+        "track_2d_pointlabels_bn": np.ones((1, n)), "track_2d_traj_bn2t": rng.uniform(0, 28, (1, n, 2, t)),
+        "track_2d_vis_bn1t": np.ones((1, n, 1, t)), "track_2d_depth_bn1t": rng.uniform(1, 5, (1, n, 1, t)),
+        "track_2d_valid_bn1t": np.ones((1, n, 1, t))}
+    return {key: torch.as_tensor(v, device=cuda).float() for key, v in batch.items()}
+
+
+@pytest.mark.gpu
+def test_two_train_steps_on_card_match_the_plain_kernels(cuda):
+    """Two train steps of the tiny bf16 model on the kernel path against the
+    same steps on the plain path (plain attention and track kernels) from
+    the same weights: the launches of each step, the first step's gradients
+    (relative L2 within chip_smoke.py's STEP_GRAD_L2), the losses close and
+    finite, every weight finite after them."""
+    import copy
+
+    from l4p_tpu_torch import ALL_TASKS, L4P, PLAIN
+    from l4p_tpu_torch import train as T
+
+    cfg = train_cfg()
+    g = torch.Generator(device=cuda).manual_seed(2)
+    model = L4P(cfg, device=cuda, dtype=torch.bfloat16)
+    model.init_weights(g)
+    plain_model = copy.deepcopy(model)
+    batches = [tiny_train_batch(cuda, s) for s in (0, 1)]
+    plain_kw = dict(attention=flash_attention_plain, track_kernels=PLAIN)
+    grads = {}
+    for path, m, kw in (("kernel", model, {}), ("plain", plain_model, plain_kw)):
+        loss, _ = T.l4p_loss(m, cfg, batches[0], ALL_TASKS, **kw)
+        grads[path] = torch.autograd.grad(loss, list(m.parameters()), allow_unused=True)
+    gap = l2_gap(grads["kernel"], grads["plain"])
+    print(f"first step's gradients, kernel path against plain path: relative L2 {gap:.3g}")
+    assert gap <= 1.5e-2  # measured 5.7e-3 and 5.8e-3 on an H100
+    counters = (flash_attention, FK.t2i_flash, FK.i2t_ln_t2i, FU.fused_upscale_hypernet)
+    losses = {}
+    for path, m, kw in (("kernel", model, {}), ("plain", plain_model, plain_kw)):
+        opt = T.make_optimizer(m, lr=1e-3, total_steps=2, mask=T.trainable_mask(m, cfg))
+        losses[path] = []
+        for b in batches:
+            before = [c.launches for c in counters]
+            loss, _ = T.train_step(m, opt, b, cfg, ALL_TASKS, **kw)
+            torch.cuda.synchronize()
+            want = [4, 1, 2, 1] if path == "kernel" else [0, 0, 0, 0]
+            assert [c.launches - x for c, x in zip(counters, before)] == want
+            losses[path].append(loss.item())
+        assert all(torch.isfinite(p).all() for p in m.parameters())
+    print(f"losses kernel path {losses['kernel']}, plain path {losses['plain']}")
+    for a, b in zip(losses["kernel"], losses["plain"]):
+        assert abs(a - b) <= 5e-5 * abs(b)  # measured <= 1.2e-5
+
+
+@pytest.mark.gpu
+def test_fused_encoder_and_frozen_encoder_steps_on_card(cuda):
+    """A train step with encoder.fused_encoder (one fused_encoder_blocks
+    launch, gradients within STEP_GRAD_L2 of the plain blocks'), and one
+    with freeze_video_encoder: the encoder's weights bit for bit unchanged,
+    the heads' changed."""
+    import copy
+    import dataclasses
+
+    from l4p_tpu_torch import ALL_TASKS, L4P
+    from l4p_tpu_torch import train as T
+    from l4p_tpu_torch.ops import fused_encoder as FE
+
+    cfg = train_cfg(fused_encoder=True)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    model = L4P(cfg, device=cuda, dtype=torch.bfloat16)
+    model.init_weights(g)
+    batch = tiny_train_batch(cuda, 0)
+    before = FE.fused_encoder_blocks.launches
+    loss, _ = T.l4p_loss(model, cfg, batch, ALL_TASKS)
+    kernel = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+    assert FE.fused_encoder_blocks.launches == before + 1
+    loss, _ = T.l4p_loss(model, cfg, batch, ALL_TASKS, encoder_blocks=FE.fused_encoder_blocks_plain)
+    plain = torch.autograd.grad(loss, list(model.parameters()), allow_unused=True)
+    gap = l2_gap(kernel, plain)
+    print(f"fused encoder step's gradients against the plain blocks': relative L2 {gap:.3g}")
+    assert gap <= 8e-3  # measured 3.5e-3 on an H100
+    frozen = dataclasses.replace(cfg, freeze_video_encoder=True)
+    state = copy.deepcopy(model.state_dict())
+    # lr 1e-2: the first one-cycle rate, lr / 25, must clear half a bf16 step of the heads' weights
+    opt = T.make_optimizer(model, lr=1e-2, total_steps=2, mask=T.trainable_mask(model, frozen))
+    T.train_step(model, opt, batch, frozen, ALL_TASKS)
+    after = model.state_dict()
+    assert all(torch.equal(after[k], v) for k, v in state.items() if k.startswith("video_encoder."))
+    assert all(not torch.equal(after[k], state[k]) for k in ("task_heads.depth.task_head.dpt.head2.0.bias",
+                                                              "task_heads.track_2d.mask_decoder.mask_tokens.weight"))
+
+
+@pytest.mark.gpu
+def test_fit_save_restore_on_card(cuda, tmp_path):
+    """Trainer.fit on the card for two steps, its checkpoint restored into a
+    second model: weights, moments and step bit for bit."""
+    from l4p_tpu_torch import ALL_TASKS, L4P, Trainer, TrainerConfig
+
+    cfg = train_cfg()
+    model = L4P(cfg, device=cuda, dtype=torch.bfloat16)
+    model.init_weights(torch.Generator(device=cuda).manual_seed(4))
+    trainer = Trainer(cfg, ALL_TASKS, TrainerConfig(max_steps=2, log_every=1, out_dir=str(tmp_path)), device=cuda)
+    _, opt, step = trainer.fit(model, iter([tiny_train_batch(cuda, s) for s in (0, 1, 2)]))
+    assert step == 2
+    back, opt2, step2 = trainer.restore(str(tmp_path / "ckpt_0000002.pt"), L4P(cfg, device=cuda, dtype=torch.bfloat16))
+    assert step2 == 2 and opt2.count == opt.count == 2
+    assert all(torch.equal(v, model.state_dict()[k]) for k, v in back.state_dict().items())
+    assert all(torch.equal(opt.mu[k], opt2.mu[k]) and torch.equal(opt.nu[k], opt2.nu[k]) for k in opt.mu)
