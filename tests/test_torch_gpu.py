@@ -1218,8 +1218,12 @@ def test_two_train_steps_on_card_match_the_plain_kernels(cuda):
             losses[path].append(loss.item())
         assert all(torch.isfinite(p).all() for p in m.parameters())
     print(f"losses kernel path {losses['kernel']}, plain path {losses['plain']}")
-    for a, b in zip(losses["kernel"], losses["plain"]):
-        assert abs(a - b) <= 5e-5 * abs(b)  # measured <= 1.2e-5
+    # the first step's losses are the same weights' (measured 1.2e-5 apart, relative); the second's
+    # come after one update, whose Adam steps (about lr whatever a gradient's size) differ wherever a
+    # gradient is near 0, and the backward's atomics are not deterministic: the plain path's own
+    # second loss moved 1.6e-4 between runs, the two paths' 1.6e-6 to 1.7e-4 apart over eight
+    for (a, b), tol in zip(zip(losses["kernel"], losses["plain"]), (3e-5, 4e-4)):
+        assert abs(a - b) <= tol * abs(b)
 
 
 @pytest.mark.gpu
