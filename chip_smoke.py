@@ -174,7 +174,27 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      (fused_encoder_blocks once) and three with the encoder frozen (its
      weights bit for bit unchanged); (d) Trainer.fit for two steps with the
      encoder frozen, its checkpoint restored into a second model bit for
-     bit; ms per step and peak memory printed.
+     bit; ms per step and peak memory printed;
+ 26. VideoMAE pretraining (models/mae.py, pretrain_mae.py) at the giant
+     registry entry's width, batch 2, mask ratio 0.9, bf16: (a) the
+     attention at the MAE's two shapes, the encoder's 208 visible tokens
+     (2, 16, 208, 88) and the decoder's 2048 (2, 8, 2048, 64): forward
+     against its plain version and timed beside it, its bound and
+     scaled_dot_product_attention, one launch a call, and the gradients of
+     its Function held as phase 25 (a) holds them; (b) from one seeded
+     model and one set of batches and masks, the first step's loss and
+     gradients on the kernel path against the plain path (MAE_LOSS_TOL,
+     MAE_STEP_GRAD_L2, MAE_STEP_GRAD_BAND), each of the 48 attention
+     outputs of a forward hanging off FlashAttentionFunction, then three
+     pretraining steps on each path (AdamW at the CLI's defaults), 48
+     launches a step on the kernel path and none on the plain one, the
+     losses within MAE_LOSS_TOL; ms per step (mean of steps 2-3, the first
+     apart) and peak memory printed, and a JSON line of the MAE readings;
+     (c) `python3 -m l4p_tpu_torch.pretrain_mae --size giant --steps 3
+     --batch 2` and `--adafactor --steps 1` in their own processes (exit 0,
+     a finite loss a step), the first's ckpt.pt overlaid on the giant L4P
+     encoder through load_video_encoder_ckpt: every tensor of every block
+     equal to the file's.
 Every line with a number names the card and its power limit. The last two
 lines are the kernels' record and {"ok": true, "device": {...}}. A kernel's
 `launches` is its count over bench.py's request (phase 10's first point,
@@ -327,6 +347,21 @@ FUNCTION_GRAD_BAND = 1e-2
 GRAD_WITNESS_SLACK = 1.25
 STEP_GRAD_BAND = 2e-2
 STEP_GRAD_L2 = 1.5e-2
+# phase 26 (VideoMAE pretraining, giant, batch 2, ratio 0.9): the first
+# step's loss and every step's on the kernel path against the plain path,
+# |kernel - plain| / |plain| <= MAE_LOSS_TOL; the first step's gradients,
+# the L2 distance over all of them <= MAE_STEP_GRAD_L2 of the plain path's
+# and the median parameter's max |kernel - plain| <= MAE_STEP_GRAD_BAND of
+# its max |plain|. The two paths differ only in the 48 attention outputs'
+# bf16 rounding (the backward recomputes the plain version); the H100
+# measured losses 5.3e-6, 6.8e-6 and 1.7e-6 apart, gradients 2.1e-3 (L2) and
+# 4.2e-3 (median parameter), and the bands are about twice that
+MAE_BATCH = 2
+MAE_MASK_RATIO = 0.9
+MAE_STEPS = 3
+MAE_LOSS_TOL = 1.5e-5
+MAE_STEP_GRAD_L2 = 5e-3
+MAE_STEP_GRAD_BAND = 1e-2
 # NVIDIA's H100 SXM data sheet: dense bf16 tensor-core rate, HBM3 rate
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -1621,6 +1656,164 @@ def training_phase(P, model, cfg, dev, log, checks, reset_counts, counts) -> Non
     torch.cuda.empty_cache()
 
 
+def mae_attention_case(FA, shape, gen):
+    """Phase 26 (a): run(path) for hold_function_grads at an MAE shape, q, k
+    and v the strided views of one (B, N, 3, H, D) product, as a block hands
+    them over."""
+    b, h, n, d = shape
+    qkv = torch.randn((b, n, 3, h, d), generator=gen, device=gen.device).bfloat16()
+
+    def run(path):
+        leaf = qkv.detach().to(torch.float32 if path == "fp32" else torch.bfloat16).requires_grad_()
+        fn = FA.flash_attention if path == "kernel" else FA.flash_attention_plain
+        return fn(*leaf.permute(2, 0, 3, 1, 4), d ** -0.5), [leaf]
+
+    return run
+
+
+def mae_phase(model, dev, log, checks, reset_counts, counts) -> dict:
+    """Phase 26: VideoMAE pretraining at the giant registry entry's width (the
+    module docstring says what each part holds). Overlays the CLI's
+    encoder checkpoint on `model`'s encoder. Returns the MAE's readings."""
+    import copy
+    import statistics
+    import tempfile
+
+    from l4p_tpu_torch import load_video_encoder_ckpt
+    from l4p_tpu_torch import pretrain_mae as PT
+    from l4p_tpu_torch.models import mae as PM
+    from l4p_tpu_torch.ops import flash_attention as FA
+    from l4p_tpu_torch.train import make_mae_optimizer
+
+    cfg = PM.mae_registry("giant")
+    t, h, w = cfg.encoder.tokens_thw
+    n_vis = t * (h * w - int(h * w * MAE_MASK_RATIO))
+    shapes = ((MAE_BATCH, cfg.encoder.num_heads, n_vis, cfg.encoder.head_dim),
+              (MAE_BATCH, cfg.decoder_num_heads, cfg.encoder.num_tokens, cfg.decoder_cfg.head_dim))
+    # (a) the attention at the two shapes
+    gen = torch.Generator(device=dev).manual_seed(26)
+    attention = {}
+    for shape in shapes:
+        attention[str(shape)] = compare_attention(FA, shape, gen, log, checks, library=True)
+        reset_counts()
+        FA.flash_attention(*(torch.randn(shape, generator=gen, device=dev).bfloat16() for _ in range(3)), 0.125)
+        checks.expect(counts()["flash_attention"] == 1, f"MAE attention {shape}: {counts()} launches for one call")
+        hold_function_grads(f"MAE flash_attention {shape}", FA.FlashAttentionFunction,
+                            mae_attention_case(FA, shape, gen), log, checks)
+    torch.cuda.empty_cache()
+    # (b) the first step on both paths, then three steps on each
+    t0 = time.perf_counter()
+    kernel_model = PM.MAE(cfg, device=dev, dtype=torch.bfloat16)
+    kernel_model.init_weights(torch.Generator(device=dev).manual_seed(26))
+    plain_model = copy.deepcopy(kernel_model)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in kernel_model.parameters())
+    log(f"MAE giant: {n_params / 1e9:.4f} B parameters (decoder MLP {cfg.decoder_cfg.mlp_hidden}, head "
+        f"{cfg.decoder_num_classes}), {n_vis} visible of {cfg.encoder.num_tokens} tokens, built in "
+        f"{time.perf_counter() - t0:.2f} s")
+    masks = torch.Generator().manual_seed(1)
+    batches = PT.synthetic_batches(cfg.encoder, MAE_BATCH)
+    steps = [(torch.as_tensor(next(batches), device=dev).bfloat16(),
+              *(i.to(dev) for i in PM.tube_mask_indices(masks, cfg.encoder, MAE_BATCH, MAE_MASK_RATIO)))
+             for _ in range(MAE_STEPS)]
+    per_forward = cfg.encoder.depth + cfg.decoder_depth
+    nodes = []
+
+    def traced(q, k, v, scale):
+        out = FA.flash_attention(q, k, v, scale)
+        nodes.append(type(out.grad_fn).__name__)
+        return out
+
+    paths = {"kernel": (kernel_model, FA.flash_attention, per_forward), "plain": (plain_model,
+                                                                                 FA.flash_attention_plain, 0)}
+    grads, first = {}, {}
+    for path, (m, attn, want) in paths.items():
+        reset_counts()
+        loss = PM.mae_pretrain_loss(m, *steps[0], attention=traced if path == "kernel" else attn)
+        grads[path] = torch.autograd.grad(loss, list(m.parameters()))
+        checks.expect(counts()["flash_attention"] == want,
+                      f"MAE first step, {path} path: {counts()['flash_attention']} attention launches, expected {want}")
+        first[path] = loss.item()
+    function_node = FA.FlashAttentionFunction._backward_cls.__name__
+    checks.expect(len(nodes) == per_forward and set(nodes) == {function_node},
+                  f"MAE kernel path: attention outputs hang off {sorted(set(nodes))} ({len(nodes)} calls)")
+    names = [n for n, _ in kernel_model.named_parameters()]
+    rel = sorted((((gk.float() - gp.float()).abs().max() / gp.float().abs().max()).item(), n)
+                 for n, gk, gp in zip(names, grads["kernel"], grads["plain"]) if gp.abs().max() > 0)
+    l2, _ = grad_gap(grads["kernel"], grads["plain"])
+    median = rel[len(rel) // 2][0]
+    loss_gap = abs(first["kernel"] - first["plain"]) / abs(first["plain"])
+    log(f"MAE first step: loss kernel path {first['kernel']:.6g}, plain path {first['plain']:.6g} (relative "
+        f"{loss_gap:.3g}, tol {MAE_LOSS_TOL}); all {per_forward} attention outputs hang off {function_node}: "
+        f"{set(nodes) == {function_node}}; gradients over {len(rel)} parameters, relative L2 {l2:.3g} (band "
+        f"{MAE_STEP_GRAD_L2}), max|kernel - plain| / max|plain| median {median:.3g} (band {MAE_STEP_GRAD_BAND}), "
+        f"largest {', '.join(f'{n} {r:.3g}' for r, n in rel[-3:])}")
+    checks.expect(math.isfinite(loss_gap) and loss_gap <= MAE_LOSS_TOL, f"MAE first step's losses {first}")
+    checks.expect(math.isfinite(l2) and l2 <= MAE_STEP_GRAD_L2 and median <= MAE_STEP_GRAD_BAND,
+                  f"MAE first step's gradients differ from the plain path's (L2 {l2}, median {median})")
+    del grads
+    torch.cuda.empty_cache()
+    losses, times, peaks = {}, {}, {}
+    for path, (m, attn, want) in paths.items():
+        # the CLI's defaults at --steps 3: lr 1.5e-4 after a 10-step warm-up from 0
+        optimizer = make_mae_optimizer(dict(m.named_parameters()), 1.5e-4, MAE_STEPS, 10)
+        torch.cuda.reset_peak_memory_stats()
+        losses[path], times[path] = [], []
+        for i, (x, vis, mask) in enumerate(steps):
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = PT.pretrain_step(m, optimizer, x, vis, mask, attention=attn)
+            torch.cuda.synchronize()
+            times[path].append(1e3 * (time.perf_counter() - t0))
+            losses[path].append(loss.item())
+            checks.expect(counts()["flash_attention"] == want and math.isfinite(losses[path][-1]),
+                          f"MAE {path} step {i}: loss {losses[path][-1]}, {counts()['flash_attention']} attention "
+                          f"launches, expected {want}")
+        peaks[path] = torch.cuda.max_memory_allocated() / 2 ** 30
+        del optimizer
+        torch.cuda.empty_cache()
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses["kernel"], losses["plain"])]
+    ms = {path: statistics.mean(t[1:]) for path, t in times.items()}
+    log(f"MAE pretraining steps: losses kernel path {losses['kernel']}, plain path {losses['plain']} (relative "
+        f"{', '.join(f'{g:.3g}' for g in gaps)}, tol {MAE_LOSS_TOL}); ms per step (mean of steps 2-3): kernel path "
+        f"{ms['kernel']:.1f}, plain path {ms['plain']:.1f}; first step {times['kernel'][0]:.1f} / "
+        f"{times['plain'][0]:.1f} ms; peak memory {peaks['kernel']:.2f} / {peaks['plain']:.2f} GiB")
+    checks.expect(all(math.isfinite(g) and g <= MAE_LOSS_TOL for g in gaps), f"MAE steps' losses {losses}")
+    del kernel_model, plain_model, steps
+    torch.cuda.empty_cache()
+    # (c) the CLI in its own process; its checkpoint on the L4P encoder
+    with tempfile.TemporaryDirectory() as out:
+        runs = {"adamw": (MAE_STEPS, []), "adafactor": (1, ["--adafactor"])}
+        cli = {}
+        for name, (n_steps, extra) in runs.items():
+            args = ["--size", "giant", "--batch", str(MAE_BATCH), "--steps", str(n_steps), *extra]
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "l4p_tpu_torch.pretrain_mae", *args, "--log-every", "1",
+                                   "--out-dir", os.path.join(out, name)], capture_output=True, text=True, timeout=600)
+            cli[name] = [json.loads(line) for line in proc.stdout.splitlines() if line.startswith("{")]
+            log(f"python3 -m l4p_tpu_torch.pretrain_mae {' '.join(args)}: exit {proc.returncode} in "
+                f"{time.perf_counter() - t0:.1f} s; {cli[name]}")
+            checks.expect(proc.returncode == 0 and len(cli[name]) == n_steps
+                          and all(math.isfinite(r["loss"]) for r in cli[name]),
+                          f"pretrain_mae {' '.join(args)} failed: {proc.stdout[-500:]} {proc.stderr[-1500:]}")
+        path = os.path.join(out, "adamw", "ckpt.pt")
+        if os.path.exists(path):
+            ckpt = torch.load(path, map_location="cpu", weights_only=True)
+            enc = model.video_encoder
+            load_video_encoder_ckpt(enc, path)
+            state = enc.state_dict()
+            covered = set(ckpt) == {f"encoder.{k}" for k in state}
+            same = covered and all(torch.equal(v.cpu(), ckpt[f"encoder.{k}"].to(v.dtype)) for k, v in state.items())
+            log(f"pretrain_mae's ckpt.pt ({os.path.getsize(path) / 2 ** 30:.2f} GiB) on the giant L4P encoder: "
+                f"the file holds every encoder tensor {covered}; all {len(state)} tensors ({cfg.encoder.depth} blocks) "
+                f"equal the file's: {same}")
+            checks.expect(same, "pretrain_mae's checkpoint did not overlay every tensor of the L4P giant encoder")
+    return {"flash_attention": {"launches_per_forward": per_forward, "shapes": attention},
+            "ms_per_step": ms, "first_step_ms": {p: t[0] for p, t in times.items()}, "peak_gib": peaks,
+            "losses": losses, "first_step_grad_l2": l2, "cli": cli}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's smoke run needs a CUDA card",
@@ -2226,6 +2419,11 @@ def main() -> int:
     t0 = time.perf_counter()
     training_phase(P, model, cfg, dev, log, checks, reset_counts, counts)
     log(f"phase 25 took {time.perf_counter() - t0:.1f} s")
+    # 26. VideoMAE pretraining: the attention at the MAE's shapes, steps on both paths, the CLI
+    t0 = time.perf_counter()
+    mae = mae_phase(model, dev, log, checks, reset_counts, counts)
+    print(json.dumps({"card": card, "mae": mae}), flush=True)
+    log(f"phase 26 took {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     if checks.failed:

@@ -25,13 +25,17 @@ and test) and the five-config protocol (`python3 -m
 l4p_tpu_torch.eval_protocol`). Training: the multi-task loss, the
 trainable parameters, AdamW with the one-cycle schedule and stochastic
 depth (train.py), `Trainer.fit` / `save` / `restore` and the CLI's fit;
-each kernel's backward recomputes its plain version (ops/recompute.py). The encoder's option branches (cosine
+each kernel's backward recomputes its plain version (ops/recompute.py).
+VideoMAE pretraining: the masked autoencoder (models/mae.py), AdamW with
+warmup-cosine or Adafactor (train.py) and its CLI (`python3 -m
+l4p_tpu_torch.pretrain_mae`), whose encoder checkpoint
+`load_video_encoder_ckpt` overlays. The encoder's option branches (cosine
 attention, LayerScale, learnable positions, the Plucker camera embedding)
 read from the same YAML keys as the JAX package's. It imports torch and
 never jax or the JAX package (l4p_tpu/).
 """
 
-from l4p_tpu_torch.checkpoint import load_video_encoder_ckpt, params_from_jax, prepare_model
+from l4p_tpu_torch.checkpoint import load_video_encoder_ckpt, mae_params_from_jax, params_from_jax, prepare_model
 from l4p_tpu_torch.config import (
     GIANT,
     DenseHeadConfig,
@@ -46,6 +50,7 @@ from l4p_tpu_torch.config import (
 from l4p_tpu_torch.inference import ALL_TASKS, DENSE_TASKS, SLICE_TASKS, InferenceSession, run_sequence
 from l4p_tpu_torch.metrics import l4p_metrics
 from l4p_tpu_torch.models.l4p import L4P, Draws, RandomDraws, forward_single_window, track_bidirectional
+from l4p_tpu_torch.models.mae import MAE, MAEConfig, mae_pretrain_loss, mae_registry, tube_mask_indices
 from l4p_tpu_torch.models.sam import KERNELS, PLAIN, TrackKernels
 from l4p_tpu_torch.ops.flash_attention import flash_attention, flash_attention_plain
 from l4p_tpu_torch.ops.fused_encoder import fused_encoder_blocks, fused_encoder_blocks_plain
@@ -56,10 +61,11 @@ from l4p_tpu_torch.trainer import Trainer, TrainerConfig
 
 __all__ = [
     "ALL_TASKS", "DENSE_TASKS", "GIANT", "KERNELS", "PLAIN", "DPTConfig", "DenseHeadConfig", "Draws", "EncoderConfig",
-    "InferenceSession", "L4P", "L4PConfig", "RandomDraws", "SLICE_TASKS", "SamConfig", "StreamingL4P", "TrackConfig",
+    "InferenceSession", "L4P", "L4PConfig", "MAE", "MAEConfig", "RandomDraws", "SLICE_TASKS", "SamConfig", "StreamingL4P", "TrackConfig",
     "TrackKernels", "Trainer", "TrainerConfig", "assemble_emissions", "default_dense_heads", "flash_attention",
     "flash_attention_plain", "forward_single_window", "fused_encoder_blocks", "fused_encoder_blocks_plain",
     "fused_upscale_hypernet", "fused_upscale_hypernet_plain", "i2t_ln_t2i", "i2t_ln_t2i_plain", "l4p_metrics",
-    "load_model_config", "load_video_encoder_ckpt", "params_from_jax", "prepare_model", "run_sequence", "t2i_flash",
-    "t2i_flash_plain", "track_bidirectional",
+    "load_model_config", "load_video_encoder_ckpt", "mae_params_from_jax", "mae_pretrain_loss", "mae_registry",
+    "params_from_jax", "prepare_model", "run_sequence", "t2i_flash",
+    "t2i_flash_plain", "track_bidirectional", "tube_mask_indices",
 ]

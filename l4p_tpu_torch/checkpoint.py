@@ -7,7 +7,8 @@ from seeded random weights, overlaid with an encoder-only checkpoint by
 `load_video_encoder_ckpt` (l4p_tpu/config.py:255-301) when the YAML names
 one. `params_from_jax` is the inverse of
 `convert_encoder`/`convert_dpt`/`convert_track_head`
-(l4p_tpu/checkpoint.py:71-110, :258-300, :308-385): keys come out in the
+(l4p_tpu/checkpoint.py:71-110, :258-300, :308-385), `mae_params_from_jax`
+that of `convert_mae` (:205-255): keys come out in the
 released checkpoint's layout without the Lightning `l4p_model.` prefix, so
 `L4P(cfg).load_state_dict(sd, strict=True)` accepts them. The tree may hold
 numpy arrays or anything `np.asarray` reads; heads that `cfg` does not
@@ -28,6 +29,7 @@ from l4p_tpu_torch.config import DPTConfig, EncoderConfig, L4PConfig, TrackConfi
 from l4p_tpu_torch.models.dpt import rescale_kind
 from l4p_tpu_torch.models.encoder import VideoEncoder
 from l4p_tpu_torch.models.l4p import L4P
+from l4p_tpu_torch.models.mae import MAEConfig
 
 LIGHTNING_PREFIX = "l4p_model."
 
@@ -36,15 +38,11 @@ def _t(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x))
 
 
-def _encoder_state(p: Mapping, cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
-    e, tt, ps = cfg.embed_dim, cfg.tubelet_size, cfg.patch_size
-    sd = {
-        "patch_embed.proj.weight": _t(p["patch_embed"]["weight"]).reshape(e, cfg.in_chans, tt, ps, ps),
-        "patch_embed.proj.bias": _t(p["patch_embed"]["bias"]),
-        "norm.weight": _t(p["norm"]["weight"]),
-        "norm.bias": _t(p["norm"]["bias"]),
-    }
-    blocks = {k: _t(v) for k, v in p["blocks"].items()}
+def _blocks_state(stacked: Mapping, cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
+    """JAX's stacked block leaves -> `blocks.{i}.*` (the port's Block)."""
+    e = cfg.embed_dim
+    sd = {}
+    blocks = {k: _t(v) for k, v in stacked.items()}
     names = {
         "norm1.weight": "norm1_w", "norm1.bias": "norm1_b",
         "attn.q_bias": "q_bias", "attn.v_bias": "v_bias",
@@ -62,6 +60,18 @@ def _encoder_state(p: Mapping, cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
         sd[pre + "attn.qkv.weight"] = blocks["qkv_w"][i].reshape(3 * e, e)  # (3, E, E) -> fused (3E, E)
         for ours, theirs in names.items():
             sd[pre + ours] = blocks[theirs][i]
+    return sd
+
+
+def _encoder_state(p: Mapping, cfg: EncoderConfig) -> Dict[str, torch.Tensor]:
+    e, tt, ps = cfg.embed_dim, cfg.tubelet_size, cfg.patch_size
+    sd = {
+        "patch_embed.proj.weight": _t(p["patch_embed"]["weight"]).reshape(e, cfg.in_chans, tt, ps, ps),
+        "patch_embed.proj.bias": _t(p["patch_embed"]["bias"]),
+        "norm.weight": _t(p["norm"]["weight"]),
+        "norm.bias": _t(p["norm"]["bias"]),
+        **_blocks_state(p["blocks"], cfg),
+    }
     if cfg.use_learnable_pos_emb:
         sd["pos_embed"] = _t(p["pos_embed"])
     if cfg.cam_emb_placed_at is not None:
@@ -164,6 +174,25 @@ def params_from_jax(tree: Mapping, cfg: L4PConfig) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def mae_params_from_jax(tree: Mapping, cfg: MAEConfig) -> Dict[str, torch.Tensor]:
+    """The JAX package's MAE tree (init_mae_params' layout) -> the port's MAE
+    state dict in upstream's names: the inverse of `convert_mae`
+    (l4p_tpu/checkpoint.py:205-255). The two fixed sinusoid tables are
+    buffers of the port and do not come out."""
+    dec = tree["decoder"]
+    sd = {f"encoder.{k}": v for k, v in _encoder_state(tree["encoder"], cfg.encoder).items()}
+    sd.update({f"decoder.{k}": v for k, v in _blocks_state(dec["blocks"], cfg.decoder_cfg).items()})
+    sd.update({
+        "decoder.norm.weight": _t(dec["norm"]["weight"]),
+        "decoder.norm.bias": _t(dec["norm"]["bias"]),
+        "decoder.head.weight": _t(tree["decoder_head"]["weight"]),
+        "decoder.head.bias": _t(tree["decoder_head"]["bias"]),
+        "encoder_to_decoder.weight": _t(tree["encoder_to_decoder"]["weight"]),
+        "mask_token": _t(tree["mask_token"]),
+    })
+    return sd
+
+
 def released_state_dict(state_dict: Mapping[str, torch.Tensor], cfg: L4PConfig) -> Dict[str, torch.Tensor]:
     """A Lightning checkpoint's `state_dict` -> the port's keys: the
     `l4p_model.` prefix stripped (other keys kept, for the strict load to
@@ -196,11 +225,12 @@ def load_video_encoder_ckpt(encoder: VideoEncoder, path: Union[str, os.PathLike]
     tensors (cosine logit scales, LayerScale gains, a learnable `pos_embed`,
     cut to the encoder's tokens, and the camera projection) overlay by the
     same rules (l4p_tpu/checkpoint.py:182-201). A directory is the JAX
-    package's own (orbax) checkpoint format, which needs JAX."""
+    package's own (orbax) checkpoint format, which needs JAX; the port's
+    MAE pretraining writes a file (`pretrain_mae.py`)."""
     if os.path.isdir(path):
         raise NotImplementedError(
             f"{path} is a directory: orbax checkpoints (scripts/pretrain_mae.py) are read by the JAX package; "
-            "the port reads them once the MAE pretraining is ported")
+            "the port reads the ckpt.pt of its own MAE pretraining (python3 -m l4p_tpu_torch.pretrain_mae)")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
     for key in ("state_dict", "model", "module"):
         if isinstance(ckpt, dict) and isinstance(ckpt.get(key), dict):

@@ -89,6 +89,13 @@ class RandomDropPath:
         return torch.rand(batch, generator=self.generator) < keep_prob
 
 
+def xavier_uniform_(w: torch.Tensor, fan_out: int, fan_in: int, generator: torch.Generator) -> None:
+    """w in place: uniform in +-sqrt(6 / (fan_in + fan_out)) from `generator`
+    (the JAX package's Xavier-uniform init)."""
+    a = math.sqrt(6.0 / (fan_in + fan_out))
+    w.uniform_(-a, a, generator=generator)
+
+
 def drop_path_rates(cfg: EncoderConfig) -> torch.Tensor:
     """Each block's drop rate, linearly spaced from 0 to drop_path_rate over
     the depth (reference modeling_pretrain.py:87-89), fp32 (within a float32
@@ -146,6 +153,28 @@ class Block(nn.Module):
         if cfg.init_values > 0:
             self.gamma_1 = nn.Parameter(torch.full((e,), cfg.init_values, device=device, dtype=dtype))
             self.gamma_2 = nn.Parameter(torch.full((e,), cfg.init_values, device=device, dtype=dtype))
+
+    @torch.no_grad()
+    def init_weights(self, generator: torch.Generator) -> None:
+        """init_encoder_params' distributions for one block: Xavier-uniform
+        matrices (q, k and v each as an E x E block), zero biases, unit
+        LayerNorm scales, the cosine logit scale log 10 and the LayerScale
+        gains init_values."""
+        cfg, a = self.cfg, self.attn
+        e = cfg.embed_dim
+        xavier_uniform_(a.qkv.weight, e, e, generator)
+        for w in (a.proj.weight, self.mlp.fc1.weight, self.mlp.fc2.weight):
+            xavier_uniform_(w, *w.shape, generator)
+        for bias in (a.q_bias, a.v_bias, a.proj.bias, self.mlp.fc1.bias, self.mlp.fc2.bias, self.norm1.bias,
+                     self.norm2.bias):
+            bias.zero_()
+        self.norm1.weight.fill_(1.0)
+        self.norm2.weight.fill_(1.0)
+        if cfg.cos_attn:
+            a.scale.fill_(math.log(10.0))
+        if cfg.init_values > 0:
+            self.gamma_1.fill_(cfg.init_values)
+            self.gamma_2.fill_(cfg.init_values)
 
     def forward(self, x: torch.Tensor, attention: AttentionFn, drop=None) -> torch.Tensor:
         b, n, e = x.shape
@@ -291,29 +320,12 @@ class VideoEncoder(nn.Module):
         options' cosine logit scales log 10, LayerScale gains init_values,
         the sinusoid table for learnable positions, and the camera
         projection uniform in +-sqrt(1 / its input width)."""
-        def xavier(w: torch.Tensor, fan_out: int, fan_in: int) -> None:
-            a = math.sqrt(6.0 / (fan_in + fan_out))
-            w.uniform_(-a, a, generator=generator)
-
         cfg, e = self.cfg, self.cfg.embed_dim
         pw = self.patch_embed.proj.weight
-        xavier(pw, e, pw[0].numel())
+        xavier_uniform_(pw, e, pw[0].numel(), generator)
         self.patch_embed.proj.bias.zero_()
         for blk in self.blocks:
-            xavier(blk.attn.qkv.weight, e, e)
-            xavier(blk.attn.proj.weight, e, e)
-            xavier(blk.mlp.fc1.weight, *blk.mlp.fc1.weight.shape)
-            xavier(blk.mlp.fc2.weight, *blk.mlp.fc2.weight.shape)
-            for bias in (blk.attn.q_bias, blk.attn.v_bias, blk.attn.proj.bias, blk.mlp.fc1.bias,
-                         blk.mlp.fc2.bias, blk.norm1.bias, blk.norm2.bias):
-                bias.zero_()
-            blk.norm1.weight.fill_(1.0)
-            blk.norm2.weight.fill_(1.0)
-            if cfg.cos_attn:
-                blk.attn.scale.fill_(math.log(10.0))
-            if cfg.init_values > 0:
-                blk.gamma_1.fill_(cfg.init_values)
-                blk.gamma_2.fill_(cfg.init_values)
+            blk.init_weights(generator)
         self.norm.weight.fill_(1.0)
         self.norm.bias.zero_()
         self.pos_embed.copy_(torch.as_tensor(sinusoid_pos_embed(cfg.num_tokens, e)))

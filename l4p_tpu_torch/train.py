@@ -8,7 +8,10 @@ optax's semantics, which the JAX package trains with, rather than
 torch.optim's: `optax.clip_by_global_norm` (no epsilon on the norm), then
 `optax.adamw` (moments in the parameters' dtype, weight decay decoupled and
 scaled by the learning rate) on `optax.cosine_onecycle_schedule`, which
-each update reads at the count of updates before it.
+each update reads at the count of updates before it. VideoMAE pretraining
+(pretrain_mae.py) trains with the same clip and AdamW on
+`optax.warmup_cosine_decay_schedule`, or with `Adafactor` to
+optax.adafactor's defaults.
 
 The kernels of the forward (the encoder attention, the fused encoder, the
 track head's three) are `torch.autograd.Function`s whose backward
@@ -184,6 +187,41 @@ def cosine_onecycle_schedule(transition_steps: int, peak_value: float, pct_start
     return schedule
 
 
+def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_steps: int, decay_steps: int,
+                                 end_value: float = 0.0) -> Callable[[int], np.float32]:
+    """optax.warmup_cosine_decay_schedule, evaluated as optax evaluates it
+    (in float32): linear from init_value to peak_value over warmup_steps
+    counts, then a cosine from peak_value down to end_value at decay_steps,
+    constant after."""
+    span = decay_steps - warmup_steps
+    if span <= 0:
+        raise ValueError(f"warmup_cosine_decay_schedule needs decay_steps > warmup_steps, got {decay_steps} and "
+                         f"{warmup_steps}")
+    alpha = 0.0 if peak_value == 0.0 else end_value / peak_value
+    f32 = np.float32
+
+    def schedule(count: int) -> np.float32:
+        count = int(count)
+        if count < warmup_steps:
+            frac = f32(1) - f32(max(count, 0)) / f32(warmup_steps)
+            return f32(init_value - peak_value) * frac + f32(peak_value)
+        t = f32(min(count - warmup_steps, span))
+        decay = f32(0.5) * (f32(1) + np.cos(f32(math.pi) * t / f32(span)))
+        return f32(peak_value) * (f32(1 - alpha) * decay + f32(alpha))
+
+    return schedule
+
+
+def clip_by_global_norm(params, grads: Sequence[Optional[torch.Tensor]], clip_norm: float) -> list:
+    """optax.clip_by_global_norm over the gradients of `params` (a missing
+    one counts as zero): unchanged below the threshold, else scaled onto it,
+    with no epsilon; the norm sums the squares in fp32."""
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    clip = norm >= clip_norm
+    return [torch.where(clip, g / norm.to(g.dtype) * clip_norm, g) for g in grads]
+
+
 class AdamW:
     """optax.chain(clip_by_global_norm(clip_norm), adamw(schedule, b1, b2,
     eps, weight_decay)) over `params` (name -> trainable tensor), updating
@@ -206,12 +244,7 @@ class AdamW:
     @torch.no_grad()
     def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
         """One update from the gradients of `params`, in their order."""
-        params = list(self.params.values())
-        grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-        # global-norm clip: unchanged below the threshold, else scaled onto it (optax: no epsilon)
-        norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
-        clip = norm >= self.clip_norm
-        grads = [torch.where(clip, g / norm.to(g.dtype) * self.clip_norm, g) for g in grads]
+        grads = clip_by_global_norm(self.params.values(), grads, self.clip_norm)
         lr = self.schedule(self.count)
         self.count += 1
         c1, c2 = (np.float32(1) - np.float32(b) ** np.float32(self.count) for b in (self.b1, self.b2))
@@ -239,6 +272,84 @@ class AdamW:
         for name, p in self.params.items():
             self.mu[name] = state["mu"][name].to(device=p.device, dtype=p.dtype)
             self.nu[name] = state["nu"][name].to(device=p.device, dtype=p.dtype)
+
+
+class Adafactor:
+    """optax.chain(clip_by_global_norm(1.0), adafactor(schedule)) with
+    optax.adafactor's defaults over `params` (name -> trainable tensor),
+    updating them in place. Per parameter: the second moments factored into
+    row and column means over its two largest dims when the smaller of them
+    has at least 128 entries (else kept whole), decayed at 1 - (count + 1)
+    ** -0.8, with 1e-30 added to the squared gradients; the scaled update
+    clipped to an RMS of at most 1, times the learning rate, times the
+    parameter's RMS (at least 1e-3). The leaves are the state dict's
+    tensors, so the RMS clip and the parameter scale act per tensor (the
+    JAX package's tree stacks the blocks into one leaf: ROADMAP.md section
+    3). Moments are kept in the parameters' dtype; a decay meets them in
+    fp32, as optax's fp32 decay rate promotes them."""
+
+    CLIP_NORM, DECAY_RATE, EPS, MIN_DIM_SIZE_TO_FACTOR, BLOCK_RMS, MIN_SCALE = 1.0, 0.8, 1e-30, 128, 1.0, 1e-3
+
+    def __init__(self, params: Mapping[str, torch.Tensor], schedule: Callable[[int], np.float32]):
+        self.params = dict(params)
+        self.schedule = schedule
+        self.count = 0
+        self.factored = {n: self._factored_dims(p.shape) for n, p in self.params.items()}
+        self.v_row, self.v_col, self.v = {}, {}, {}
+        for n, p in self.params.items():
+            dims = self.factored[n]
+            if dims is None:
+                self.v[n] = torch.zeros_like(p)
+            else:
+                shape = list(p.shape)
+                self.v_row[n] = p.new_zeros(shape[:dims[1]] + shape[dims[1] + 1:])
+                self.v_col[n] = p.new_zeros(shape[:dims[0]] + shape[dims[0] + 1:])
+
+    @classmethod
+    def _factored_dims(cls, shape) -> Optional[Tuple[int, int]]:
+        """(d1, d0): the second largest and the largest dim, by optax's argsort; None when not factored."""
+        if len(shape) < 2:
+            return None
+        order = np.argsort(shape)
+        if shape[order[-2]] < cls.MIN_DIM_SIZE_TO_FACTOR:
+            return None
+        return int(order[-2]), int(order[-1])
+
+    @torch.no_grad()
+    def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
+        """One update from the gradients of `params`, in their order."""
+        grads = clip_by_global_norm(self.params.values(), grads, self.CLIP_NORM)
+        lr = self.schedule(self.count)
+        rate = float(np.float32(1) - np.float32(self.count + 1) ** np.float32(-self.DECAY_RATE))
+        self.count += 1
+        for (name, p), g in zip(self.params.items(), grads):
+            sq = g.square() + self.EPS
+            dims = self.factored[name]
+            if dims is None:
+                v = (rate * self.v[name].float() + (1 - rate) * sq.float()).to(p.dtype)
+                self.v[name] = v
+                u = g * v.pow(-0.5)
+            else:
+                d1, d0 = dims
+                row = (rate * self.v_row[name].float() + (1 - rate) * sq.mean(d0).float()).to(p.dtype)
+                col = (rate * self.v_col[name].float() + (1 - rate) * sq.mean(d1).float()).to(p.dtype)
+                self.v_row[name], self.v_col[name] = row, col
+                row_factor = (row / row.mean(d1 - 1 if d1 > d0 else d1, keepdim=True)).pow(-0.5)
+                u = g * row_factor.unsqueeze(d0) * col.pow(-0.5).unsqueeze(d1)
+            u = u / torch.clamp(torch.sqrt(u.square().mean()) / self.BLOCK_RMS, min=1.0)
+            u = torch.tensor(float(lr), dtype=p.dtype, device=p.device) * u
+            rms = torch.sqrt(p.square().mean())
+            p.copy_(p - u * torch.where(rms <= self.MIN_SCALE, torch.full_like(rms, self.MIN_SCALE), rms))
+
+
+def make_mae_optimizer(params: Mapping[str, torch.Tensor], lr: float, steps: int, warmup: int,
+                       weight_decay: float = 0.05) -> AdamW:
+    """The VideoMAE pretraining optimizer (scripts/pretrain_mae.py:32-41):
+    the global-norm clip at 1 and AdamW (b1 0.9, b2 0.95) on a linear
+    warm-up from 0 to lr over max(warmup, 1) counts and a cosine down to lr
+    / 100 at max(steps, warmup + 1)."""
+    schedule = warmup_cosine_decay_schedule(0.0, lr, max(warmup, 1), max(steps, warmup + 1), lr * 1e-2)
+    return AdamW(params, schedule, weight_decay, clip_norm=1.0, b1=0.9, b2=0.95)
 
 
 def make_optimizer(model: L4P, lr: float = 1e-4, total_steps: int = 10000, weight_decay: float = 0.05,

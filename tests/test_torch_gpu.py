@@ -1280,3 +1280,99 @@ def test_fit_save_restore_on_card(cuda, tmp_path):
     assert step2 == 2 and opt2.count == opt.count == 2
     assert all(torch.equal(v, model.state_dict()[k]) for k, v in back.state_dict().items())
     assert all(torch.equal(opt.mu[k], opt2.mu[k]) and torch.equal(opt.nu[k], opt2.nu[k]) for k in opt.mu)
+
+
+# --- VideoMAE pretraining ------------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape", [(2, 16, 208, 88), (2, 8, 2048, 64)])
+def test_attention_at_mae_shapes_on_card_matches_plain(cuda, shape):
+    """The giant MAE's two attention shapes at batch 2: the encoder's 208
+    visible tokens (D = 88) and the decoder's 2048 (D = 64), q, k and v the
+    strided views of one qkv product as a block hands them over: one launch,
+    the forward within the band above, the gradients of 0.5 |out A -
+    target|^2 within chip_smoke.py's FUNCTION_GRAD_BAND of the plain path's."""
+    g = torch.Generator(device=cuda).manual_seed(13)
+    b, h, n, d = shape
+    qkv = torch.randn((b, n, 3, h, d), generator=g, device=cuda).bfloat16()
+    got = {}
+    for path, fn in (("kernel", flash_attention), ("plain", flash_attention_plain)):
+        leaf = qkv.clone().requires_grad_()
+        before = flash_attention.launches
+        out = fn(*leaf.permute(2, 0, 3, 1, 4), d ** -0.5)
+        assert flash_attention.launches == before + (path == "kernel")
+        got[path] = out, grad_of_fit(out, [leaf])
+    err = (got["kernel"][0].float() - got["plain"][0].float()).abs().max().item()
+    gap = l2_gap(got["kernel"][1], got["plain"][1])
+    print(f"attention {shape}: max|kernel - plain| {err:.3g}, gradients relative L2 {gap:.3g}")
+    assert err <= 8e-3  # measured 3.9e-3 and 9.8e-4 on an H100
+    assert gap <= 1e-2  # measured 2.8e-3 and 2.0e-3
+
+
+@pytest.mark.gpu
+def test_giant_mae_step_on_card_matches_plain_path(cuda):
+    """The giant MAE (batch 2, mask ratio 0.9, bf16) from one seeded model,
+    batch and set of masks: the loss and its gradients on the kernel path (48
+    attention launches) against the plain path (none), within chip_smoke.py's
+    MAE_LOSS_TOL and MAE_STEP_GRAD_L2; then two pretraining steps (the first
+    at the warm-up's rate 0) leave every weight finite and move the head."""
+    from l4p_tpu_torch.models.mae import MAE, mae_pretrain_loss, mae_registry, tube_mask_indices
+    from l4p_tpu_torch.pretrain_mae import pretrain_step, synthetic_batches
+    from l4p_tpu_torch.train import make_mae_optimizer
+
+    cfg = mae_registry("giant")
+    model = MAE(cfg, device=cuda, dtype=torch.bfloat16)
+    model.init_weights(torch.Generator(device=cuda).manual_seed(5))
+    x = torch.as_tensor(next(synthetic_batches(cfg.encoder, 2)), device=cuda).bfloat16()
+    vis, mask = (i.to(cuda) for i in tube_mask_indices(torch.Generator().manual_seed(1), cfg.encoder, 2, 0.9))
+    assert vis.shape == (2, 208) and mask.shape == (2, 1840)
+    params = list(model.parameters())
+    got = {}
+    for path, attention in (("kernel", flash_attention), ("plain", flash_attention_plain)):
+        before = flash_attention.launches
+        loss = mae_pretrain_loss(model, x, vis, mask, attention=attention)
+        got[path] = loss.item(), torch.autograd.grad(loss, params)
+        assert flash_attention.launches - before == (48 if path == "kernel" else 0)
+    loss_gap = abs(got["kernel"][0] - got["plain"][0]) / got["plain"][0]
+    gap = l2_gap(got["kernel"][1], got["plain"][1])
+    print(f"giant MAE: losses {got['kernel'][0]:.6g} / {got['plain'][0]:.6g}, gradients relative L2 {gap:.3g}")
+    assert loss_gap <= 1.5e-5  # measured 6e-6 on an H100
+    assert gap <= 5e-3  # measured 1.9e-3
+    del got
+    head = model.decoder.head.bias.clone()
+    optimizer = make_mae_optimizer(dict(model.named_parameters()), 1e-3, 3, 1)
+    for _ in range(2):
+        before = flash_attention.launches
+        loss = pretrain_step(model, optimizer, x, vis, mask)
+        assert flash_attention.launches - before == 48 and torch.isfinite(loss)
+    assert all(torch.isfinite(p).all() for p in model.parameters())
+    assert not torch.equal(model.decoder.head.bias, head)
+
+
+@pytest.mark.gpu
+def test_tiny_pretraining_cli_on_card_writes_an_overlayable_checkpoint(cuda, tmp_path):
+    """`pretrain_mae.main` at its defaults (cuda, bf16) on the tiny config:
+    the attention kernel at D = 16 (2 + 1 launches a step), and ckpt.pt
+    overlaying every tensor of an encoder of that config."""
+    from l4p_tpu_torch.checkpoint import load_video_encoder_ckpt
+    from l4p_tpu_torch.models.encoder import VideoEncoder
+    from l4p_tpu_torch.pretrain_mae import main, mae_config
+
+    before = flash_attention.launches
+    assert main(["--size", "tiny", "--steps", "2", "--batch", "2", "--warmup", "1", "--out-dir", str(tmp_path)]) == 0
+    assert flash_attention.launches - before == 2 * 3
+    ckpt = torch.load(tmp_path / "ckpt.pt", weights_only=True)
+    enc = VideoEncoder(mae_config("tiny").encoder, device=cuda, dtype=torch.bfloat16)
+    load_video_encoder_ckpt(enc, tmp_path / "ckpt.pt")
+    assert all(v.device == torch.device("cpu") and v.dtype == torch.float32 for v in ckpt.values())
+    assert all(torch.equal(v.cpu(), ckpt[f"encoder.{k}"].bfloat16()) for k, v in enc.state_dict().items())
+
+
+@pytest.mark.gpu
+def test_pretrain_cli_refuses_fp32_on_card(cuda, tmp_path, capsys):
+    from l4p_tpu_torch.pretrain_mae import main
+
+    with pytest.raises(SystemExit) as exit_info:
+        main(["--size", "tiny", "--fp32", "--out-dir", str(tmp_path / "never")])
+    assert exit_info.value.code == 2 and "takes bf16 only" in capsys.readouterr().err
+    assert not (tmp_path / "never").exists()
