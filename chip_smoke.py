@@ -194,7 +194,31 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      --batch 2` and `--adafactor --steps 1` in their own processes (exit 0,
      a finite loss a step), the first's ckpt.pt overlaid on the giant L4P
      encoder through load_video_encoder_ckpt: every tensor of every block
-     equal to the file's.
+     equal to the file's;
+ 27. multi-GPU (l4p_tpu_torch.parallel): (a) the kernels at the shapes a
+     rank of a mesh gives them, each against its plain version and timed
+     beside its bound and, where phase 2 has one, its library call: the
+     attention at (2, 8, 2048, 88) and (1, 8, 2048, 88) (the default
+     encoder's chunks at 8 of 16 heads, a model axis of 2), t2i_flash,
+     i2t_ln_t2i and fused_upscale_hypernet at N = 64 and 32 (the track
+     chunk of 128 queries over a data axis of 2 and 4), with phase 2's
+     witnesses; each kernel's launches a rank at data axes of 2 and 4
+     printed; (b) `chip_smoke.py --tp-encoder` in two processes on this card
+     under torchrun (a (1, 2) mesh, gloo, which reduces CUDA tensors): the
+     giant encoder on bench.py's 48-frame token windows split over the
+     model axis against one process, per hook end (TP_ENCODER_BANDS), both
+     against the one-process encoder in fp32 (ENCODER_WITNESS_SLACK), the
+     launches a rank, and both encode times; (c) bench.py's all-task
+     request through InferenceSession(mesh=) on an NCCL group of one rank
+     against the session without a mesh, in turns (SLICE_TOL, TRACK_BANDS,
+     bit for bit printed), each kernel's launches against its formula; (d)
+     with two or more cards, `python -m l4p_tpu_torch.parallel.dryrun
+     --device cuda` and `chip_smoke.py --multi-card` on min(4, cards) cards
+     under torchrun (NCCL): the request held against (c)'s outputs, the
+     launches a rank, and frames/s at 192 x 128; with one card a line says
+     that it did not run. A JSON line holds the phase's readings.
+With an argument (`--tp-encoder`, `--multi-card FILE`) the script is one
+rank of phase 27's runs, which torchrun starts.
 Every line with a number names the card and its power limit. The last two
 lines are the kernels' record and {"ok": true, "device": {...}}. A kernel's
 `launches` is its count over bench.py's request (phase 10's first point,
@@ -206,6 +230,7 @@ gemm_nt wrapper's.
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import functools
 import json
@@ -362,6 +387,29 @@ MAE_STEPS = 3
 MAE_LOSS_TOL = 1.5e-5
 MAE_STEP_GRAD_L2 = 5e-3
 MAE_STEP_GRAD_BAND = 1e-2
+# phase 27 (multi-GPU). (b) the giant encoder split over a model axis of 2
+# (two processes on the one card, gloo) against one process, per hook end:
+# max |TP - one process| <= band * max |one process|. Both round q/k/v, the
+# GELU outputs and every residual add to bf16 at the same points; the split
+# proj and fc2 sum their fp32 partials in another order before their one
+# rounding, so values land a bf16 step apart and the difference grows
+# through the blocks, as the fused encoder's does. Measured on an H100
+# 1.72e-2, 2.10e-2, 2.10e-2, 2.97e-2, 3.04e-2; the bands are about twice
+# that. Both against the one-process encoder in fp32 (plain attention, TF32
+# off): the TP encoder's mean |error| within ENCODER_WITNESS_SLACK of the
+# one-process encoder's, per hook end
+TP_ENCODER_BANDS = {14: 3.5e-2, 21: 4.5e-2, 28: 4.5e-2, 36: 6e-2, 40: 6e-2}
+# (a) the kernels at the shapes a rank gives them: the default encoder's
+# chunk of 2 windows at 8 heads (a model axis of 2) and its last chunk of 1,
+# and the track chunk of 128 queries over a data axis of 2 and of 4
+SHARD_ATTENTION_SHAPES = ((2, 8, 2048, 88), (1, 8, 2048, 88))
+SHARD_QUERIES = (64, 32)
+# (b) the TP encoder's timed requests (the first one cold): each takes
+# seconds, its all-reduces going through the host
+TP_REPS = 2
+# (d) cards a multi-card run takes at most, and the frames of its fps reading (bench.py's 192 x 128 point)
+MULTI_CARDS = 4
+MULTI_CARD_FRAMES = 192
 # NVIDIA's H100 SXM data sheet: dense bf16 tensor-core rate, HBM3 rate
 PEAK_FLOPS = 989e12
 PEAK_BYTES = 3.35e12
@@ -1814,7 +1862,386 @@ def mae_phase(model, dev, log, checks, reset_counts, counts) -> dict:
             "losses": losses, "first_step_grad_l2": l2, "cli": cli}
 
 
+def giant_model(P, dev):
+    """(cfg, model): the released giant model with random bf16 weights from
+    a generator seeded 0 on the card (phase 3's), tracking QUERY_CHUNK
+    queries a chunk; every process that builds it gets the same weights."""
+    cfg = P.L4PConfig()
+    cfg = dataclasses.replace(cfg, track=dataclasses.replace(cfg.track, max_queries=QUERY_CHUNK))
+    model = P.L4P(cfg, device=dev, dtype=torch.bfloat16).eval()
+    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    return cfg, model
+
+
+def launch_counts(cfg, frames: int, n_queries: int, n_data: int = 1, rank: int = 0) -> dict:
+    """Each kernel's launches on data rank `rank` of `n_data` for one request
+    of `frames` frames and `n_queries` queries on the default encoder: the
+    attention 40 times a chunk of its windows, the track kernels once (i2t
+    twice) a window and chunk, on its share of each chunk's queries."""
+    from l4p_tpu_torch.models.l4p import num_windows
+    from l4p_tpu_torch.parallel.mesh import row_counts
+
+    nw = num_windows(cfg, frames)
+    chunks = math.ceil(n_queries / QUERY_CHUNK)
+    mine = row_counts(nw, n_data)[rank]
+    return {"flash_attention": cfg.encoder.depth * math.ceil(mine / cfg.enc_window_chunk),
+            "t2i_flash": nw * chunks, "i2t_ln_t2i": 2 * nw * chunks, "fused_upscale_hypernet": nw * chunks,
+            "fused_encoder_blocks": 0}
+
+
+def fps_request(cfg, dev) -> dict:
+    """bench.py's 192 x 128 point: MULTI_CARD_FRAMES uint8 frames, their
+    intrinsics and QUERY_CHUNK queries at t = 0.5, from a generator seeded 15."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    hw, frames = tuple(cfg.window_size[1:]), MULTI_CARD_FRAMES
+    xy = 4 + torch.rand((1, QUERY_CHUNK, 2), generator=gen, device=dev) * (hw[0] - 8)
+    return {"rgb_u8_bthw3": torch.randint(0, 256, (1, frames, *hw, 3), generator=gen, device=dev, dtype=torch.uint8),
+            "intrinsics_b44t": bench_intrinsics(frames, hw, dev),
+            "track_2d_pointquerries_bn3": torch.cat([torch.full((1, QUERY_CHUNK, 1), 0.5, device=dev), xy], -1),
+            "track_2d_pointlabels_bn": torch.ones((1, QUERY_CHUNK), device=dev)}
+
+
+def best_fps(sess, model, request, barrier=None) -> tuple:
+    """(best frames/s, the REPEATS request times) after a first request."""
+    sess(model, request)
+    times = []
+    for _ in range(REPEATS):
+        if barrier is not None:
+            barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sess(model, request)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return request["rgb_u8_bthw3"].shape[1] / min(times), times
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def torchrun(n: int, *args: str, timeout: float) -> subprocess.CompletedProcess:
+    """`args` (a module after -m, or this script) on n local processes under torchrun."""
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--nnodes", "1", "--nproc_per_node", str(n),
+           "--master_addr", "localhost", "--master_port", str(free_port()), *args]
+    return subprocess.run(cmd, capture_output=True, text=True, timeout=timeout)
+
+
+def tagged_json(proc: subprocess.CompletedProcess, tag: str):
+    """The JSON object a child printed after `tag`, or None."""
+    for line in proc.stdout.splitlines():
+        if line.startswith(tag + " "):
+            return json.loads(line[len(tag) + 1:])
+    return None
+
+
+def child_log(log, proc: subprocess.CompletedProcess, what: str) -> None:
+    """The lines a child logged, and the end of its errors where it failed."""
+    for line in proc.stdout.splitlines():
+        if line.startswith("[") or line.startswith("FAILED"):
+            log(f"{what}: {line}")
+    if proc.returncode:
+        log(f"{what}: exit {proc.returncode}; stderr: {proc.stderr[-4000:]}")
+
+
+def tp_encoder_rank() -> int:
+    """Phase 27 (b), one of two processes on the one card (torchrun): the
+    giant encoder on bench.py's 48-frame token windows, in one process on
+    rank 0 and then split over a (1, 2) mesh with gloo (which reduces CUDA
+    tensors); rank 0 holds each hook end against the one-process encoder and
+    prints `TP_ENCODER {json}`."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --tp-encoder: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    import torch.distributed as dist
+
+    import l4p_tpu_torch as P
+    from l4p_tpu_torch.models import l4p as PL
+    from l4p_tpu_torch.models.encoder import VideoEncoder
+    from l4p_tpu_torch.ops import flash_attention as FA
+    from l4p_tpu_torch.parallel import mesh as PM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = PM.make_mesh(1, 2, device="cuda:0", backend="gloo")
+    rank, dev = dist.get_rank(), torch.device("cuda")
+    card = card_line()
+
+    def log(msg: str) -> None:
+        print(f"[{card}] [tp rank {rank}] {msg}", flush=True)
+
+    try:
+        cfg = P.L4PConfig()
+        enc = VideoEncoder(cfg.encoder, device=dev, dtype=torch.bfloat16).eval()
+        enc.init_weights(torch.Generator(device=dev).manual_seed(0))
+        hw = tuple(cfg.window_size[1:])
+        video = torch.randint(0, 256, (1, TRACK_FRAMES, *hw, 3), generator=torch.Generator(device=dev).manual_seed(27),
+                              device=dev, dtype=torch.uint8)
+        nw = PL.num_windows(cfg, TRACK_FRAMES)
+
+        def timed(run, reps: int = REPEATS):
+            times = []
+            for _ in range(reps):
+                dist.barrier()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = run()
+                torch.cuda.synchronize()
+                dist.barrier()
+                times.append(time.perf_counter() - t0)
+            return out, times
+
+        with torch.inference_mode():
+            exact = None
+            if rank == 0:  # the one-process encoder's warm-up and its fp32 witness, rank 1 idle
+                PL.encode_windows(enc, cfg, rgb_u8_bthw3=video)
+                enc32 = copy.deepcopy(enc).float()
+                exact = PL.encode_windows(enc32, cfg, rgb_u8_bthw3=video, attention=FA.flash_attention_plain)
+                del enc32
+                torch.cuda.empty_cache()
+            one, t_one = timed(lambda: PL.encode_windows(enc, cfg, rgb_u8_bthw3=video) if rank == 0 else None)
+            PM.shard_params(enc, mesh)
+            before = P.flash_attention.launches
+            tp, t_tp = timed(lambda: PL.encode_windows(enc, cfg, rgb_u8_bthw3=video, mesh=mesh), TP_REPS)
+            launches = (P.flash_attention.launches - before) // TP_REPS
+        want = cfg.encoder.depth * math.ceil(nw / cfg.enc_window_chunk)
+        failed = [] if launches == want else [f"{launches} attention launches a request on rank {rank}, expected {want}"]
+        if rank == 0:
+            rec = {"one_process_s": t_one, "tp2_s": t_tp, "hooks": {}, "witness": {}}
+            feats = {**{h: (tp["hooks"][h], one["hooks"][h], exact["hooks"][h]) for h in one["hooks"]},
+                     cfg.encoder.depth: (tp["final"], one["final"], exact["final"])}
+            for h, (a, b, ex) in feats.items():
+                err, scale = rel_diff(a, b)
+                band = TP_ENCODER_BANDS[h]
+                rec["hooks"][h] = err / scale
+                what = "output" if h == cfg.encoder.depth else "hook"
+                log(f"giant encoder {what} {h} ({nw} windows, 48 frames), model axis of 2 against one process: "
+                    f"max|TP - one| {err:.4g} = {err / scale:.3g} x max|one| (band {band})")
+                if not (math.isfinite(err) and err <= band * scale):
+                    failed.append(f"TP encoder hook {h} differs from one process by {err / scale:.3g} of its max")
+                off = {who: (x.float() - ex).abs().mean().item() for who, x in (("tp", a), ("one", b))}
+                ratio = off["tp"] / off["one"]
+                rec["witness"][h] = ratio
+                log(f"giant encoder {what} {h} against fp32 (plain attention): mean |error| TP {off['tp']:.4g}, one "
+                    f"process {off['one']:.4g} (ratio {ratio:.3g}, within {ENCODER_WITNESS_SLACK})")
+                if not (math.isfinite(ratio) and ratio <= ENCODER_WITNESS_SLACK):
+                    failed.append(f"TP encoder hook {h} is farther from fp32 than one process: {off}")
+            log(f"giant encoder, 48 frames ({nw} windows, {want} attention launches a rank): one process "
+                f"{', '.join(f'{t:.4f}' for t in t_one)} s, model axis of 2 on this one card (gloo; the first cold) "
+                f"{', '.join(f'{t:.4f}' for t in t_tp)} s")
+            rec["failed"] = failed
+            print("TP_ENCODER " + json.dumps(rec), flush=True)
+        for f in failed:
+            log(f"FAILED: {f}")
+        return 1 if failed else 0
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_card_rank(path: str) -> int:
+    """Phase 27 (d), one process a card (torchrun, NCCL): the giant model on
+    a (cards, 1) mesh serves the all-task request saved at `path`, held
+    against the one-card session's outputs saved there; each kernel's
+    launches on this rank against its formula; then fps at bench.py's 192
+    x 128 point. Rank 0 prints `MULTI_CARD {json}`."""
+    if not torch.cuda.is_available():
+        print("chip_smoke --multi-card: torch.cuda.is_available() is false", file=sys.stderr)
+        return 1
+    import torch.distributed as dist
+
+    import l4p_tpu_torch as P
+    from l4p_tpu_torch.ops import fused_encoder as FE
+    from l4p_tpu_torch.ops import fused_keys as FK
+    from l4p_tpu_torch.ops import fused_upscale as FU
+    from l4p_tpu_torch.parallel import mesh as PM
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    mesh = PM.make_mesh(device="cuda")
+    rank, n = dist.get_rank(), dist.get_world_size()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    card = card_line()
+    failed = []
+
+    def log(msg: str) -> None:
+        print(f"[{card}] [card {rank} of {n}] {msg}", flush=True)
+
+    counters = {"flash_attention": P.flash_attention, "t2i_flash": FK.t2i_flash, "i2t_ln_t2i": FK.i2t_ln_t2i,
+                "fused_upscale_hypernet": FU.fused_upscale_hypernet, "fused_encoder_blocks": FE.fused_encoder_blocks}
+    try:
+        saved = torch.load(path, map_location=dev, weights_only=True)
+        cfg, model = giant_model(P, dev)
+        sess = P.InferenceSession(cfg, P.ALL_TASKS, dev, mesh=mesh)
+        request = saved["request"]
+        sess(model, request)
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = sess(model, request)
+        torch.cuda.synchronize()
+        t_req = time.perf_counter() - t0
+        got = {name: fn.launches for name, fn in counters.items()}
+        want = launch_counts(cfg, TRACK_FRAMES, QUERY_CHUNK, n, rank)
+        if got != want:
+            failed.append(f"launches {got} on card {rank}, expected {want}")
+        if rank == 0:
+            for key, ref in saved["outputs"].items():
+                if key in ("depth_est_b1thw", *CAMRAY_KEYS):
+                    err, scale = rel_diff(out[key], ref)
+                    log(f"{key} on {n} cards against one card: max|diff| {err:.4g} = {err / scale:.3g} x max (the "
+                        f"RANSACs pick by inlier counts; finite: {bool(torch.isfinite(out[key]).all())})")
+                    if not bool(torch.isfinite(out[key]).all()):
+                        failed.append(f"{key} on {n} cards is not finite")
+                else:
+                    checks = Checks(log)
+                    hold_outputs(log, checks, key, out[key], ref, f"{n} cards", "n cards - one card")
+                    failed += checks.failed
+        frames = MULTI_CARD_FRAMES
+        fps, times = best_fps(sess, model, fps_request(cfg, dev), dist.barrier)
+        if rank == 0:
+            log(f"all-task request {TRACK_FRAMES} x {QUERY_CHUNK} on {n} cards: {t_req:.4f} s; {frames} x "
+                f"{QUERY_CHUNK}: {', '.join(f'{t:.4f}' for t in times)} s, best {fps:.2f} frames/s")
+            print("MULTI_CARD " + json.dumps({"cards": n, "request_s": t_req, "frames": frames, "times": times,
+                                              "fps": fps, "launches_rank0": got, "failed": failed}), flush=True)
+        for f in failed:
+            log(f"FAILED: {f}")
+        return 1 if failed else 0
+    finally:
+        dist.destroy_process_group()
+
+
+def multi_gpu_phase(P, model, cfg, request, dev, log, checks, reset_counts, counts) -> dict:
+    """Phase 27: (a) the kernels at the shapes a rank gives them, (b) the
+    giant encoder split over a model axis of 2 on this card (two processes,
+    gloo), (c) bench.py's all-task request through InferenceSession on an
+    NCCL group of one rank against the session without a mesh, (d) with two
+    or more cards, the dry run and that request on min(4, cards) cards.
+    Returns the readings."""
+    import tempfile
+
+    import torch.distributed as dist
+
+    from l4p_tpu_torch.ops import flash_attention as FA
+    from l4p_tpu_torch.ops import fused_keys as FK
+    from l4p_tpu_torch.ops import fused_upscale as FU
+    from l4p_tpu_torch.parallel import mesh as PM
+
+    rec = {"kernels": {}}
+    # (a) the kernels at the shard-local shapes
+    gen = torch.Generator(device=dev).manual_seed(27)
+    for shape in SHARD_ATTENTION_SHAPES:
+        rec["kernels"][f"flash_attention {shape}"] = compare_attention(FA, shape, gen, log, checks, library=True)
+    heads, p, c, k = 8, 2048, 1408, 48
+    for n in SHARD_QUERIES:
+        t2i_args, i2t_args = keys_operands(n, p, c, k, gen)
+        keys, st, spe = t2i_args
+        q_t, bias_t = st.transpose(1, 2).contiguous(), spe.transpose(1, 2).bfloat16().contiguous()
+        rec["kernels"][f"t2i_flash N={n}"] = compare_track_kernel(
+            "t2i_flash", FK.t2i_flash, FK.t2i_flash_plain, t2i_args, KEYS_BAND, 10, log, checks,
+            flop=4 * n * p * c * k, keys_traffic=n * p * c * 2,
+            library=lambda: F.scaled_dot_product_attention(q_t, keys, keys, bias_t, scale=1.0))
+        rec["kernels"][f"i2t_ln_t2i N={n}"] = compare_track_kernel(
+            "i2t_ln_t2i", lambda *a: FK.i2t_ln_t2i(*a, heads), lambda *a: FK.i2t_ln_t2i_plain(*a, heads), i2t_args,
+            KEYS_BAND, 10, log, checks, flop=8 * n * p * c * k, keys_traffic=2 * n * p * c * 2)
+        keys_witness(FK, t2i_args, i2t_args, heads, log, checks)
+        del t2i_args, i2t_args, keys, st, spe, q_t, bias_t
+        args = upscale_operands(n, p, c, 352, 176, 3, gen)
+        rec["kernels"][f"fused_upscale_hypernet N={n}"] = compare_track_kernel(
+            "fused_upscale_hypernet", FU.fused_upscale_hypernet, FU.fused_upscale_hypernet_plain, args, UPSCALE_BAND,
+            5, log, checks, flop=2 * n * p * 8 * (c * 352 + 4 * 352 * 176) + 2 * n * 3 * p * 32 * 176)
+        upscale_witness(FU, args, log, checks)
+        del args
+    for nd in (2, 4):
+        per_rank = [launch_counts(cfg, TRACK_FRAMES, QUERY_CHUNK, nd, r) for r in range(nd)]
+        log(f"launches a rank for a {TRACK_FRAMES}-frame x {QUERY_CHUNK}-query request on a data axis of {nd} "
+            f"({QUERY_CHUNK // nd} queries a chunk a rank): {per_rank}")
+    torch.cuda.empty_cache()
+
+    # (b) the giant encoder over a model axis of 2, two processes on this card
+    t0 = time.perf_counter()
+    proc = torchrun(2, os.path.abspath(__file__), "--tp-encoder", timeout=600)
+    child_log(log, proc, "phase 27b")
+    tp = tagged_json(proc, "TP_ENCODER")
+    checks.expect(proc.returncode == 0 and tp is not None and not tp["failed"],
+                  f"phase 27b: exit {proc.returncode}, {tp and tp['failed']}")
+    rec["tp_encoder"] = tp
+    log(f"phase 27b took {time.perf_counter() - t0:.1f} s")
+
+    # (c) an NCCL group of one rank through InferenceSession(mesh=)
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", rank=0, world_size=1)
+        try:
+            mesh = PM.make_mesh(1, 1, device=dev)
+            sess_m = P.InferenceSession(cfg, P.ALL_TASKS, dev, mesh=mesh)
+            sess = P.InferenceSession(cfg, P.ALL_TASKS, dev)
+            sess_m(model, request)
+            times, want = {"mesh": [], "none": []}, launch_counts(cfg, TRACK_FRAMES, QUERY_CHUNK)
+            outs = {}
+            for which in ("none", "mesh", "mesh", "none"):
+                reset_counts()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                outs[which] = (sess_m if which == "mesh" else sess)(model, request)
+                torch.cuda.synchronize()
+                times[which].append(time.perf_counter() - t0)
+                checks.expect(counts() == want, f"phase 27c: launches {counts()} ({which}), expected {want}")
+        finally:
+            dist.destroy_process_group()
+    same = all(torch.equal(outs["mesh"][key], outs["none"][key]) for key in outs["none"])
+    log(f"all-task request {TRACK_FRAMES} x {QUERY_CHUNK} through an NCCL group of one rank: "
+        f"{', '.join(f'{t:.4f}' for t in times['mesh'])} s; without a mesh {', '.join(f'{t:.4f}' for t in times['none'])}"
+        f" s (in turns); launches {want}; outputs equal bit for bit: {same}")
+    for key, r in outs["none"].items():
+        hold_outputs(log, checks, key, outs["mesh"][key], r, "one-rank NCCL session", "mesh - no mesh")
+    rec["one_rank_nccl"] = {"mesh_s": times["mesh"], "none_s": times["none"], "bitwise": same}
+
+    # (d) two or more cards
+    cards = torch.cuda.device_count()
+    if cards < 2:
+        log(f"phase 27d did not run: this machine has {cards} card; it runs the dry run and the session on "
+            f"min({MULTI_CARDS}, cards) cards where there are two or more")
+        rec["multi_card"] = None
+        return rec
+    n = min(MULTI_CARDS, cards)
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        fps1, times1 = best_fps(sess, model, fps_request(cfg, dev))
+    log(f"all-task request {MULTI_CARD_FRAMES} x {QUERY_CHUNK} on one card, no mesh: "
+        f"{', '.join(f'{t:.4f}' for t in times1)} s, best {fps1:.2f} frames/s")
+    torch.cuda.empty_cache()
+    proc = torchrun(n, "-m", "l4p_tpu_torch.parallel.dryrun", "--device", "cuda", timeout=600)
+    child_log(log, proc, "phase 27d dryrun")
+    line = [x for x in proc.stdout.splitlines() if x.startswith("dryrun OK")]
+    log(f"dryrun on {n} cards: exit {proc.returncode}: {line}")
+    checks.expect(proc.returncode == 0 and len(line) == 1, f"phase 27d: the dry run on {n} cards failed")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "request.pt")
+        torch.save({"request": {k: v.cpu() for k, v in request.items()},
+                    "outputs": {k: v.cpu() for k, v in outs["none"].items()}}, path)
+        proc = torchrun(n, os.path.abspath(__file__), "--multi-card", path, timeout=900)
+    child_log(log, proc, "phase 27d session")
+    multi = tagged_json(proc, "MULTI_CARD")
+    checks.expect(proc.returncode == 0 and multi is not None and not multi["failed"],
+                  f"phase 27d session: exit {proc.returncode}, {multi and multi['failed']}")
+    rec["multi_card"] = multi
+    rec["one_card_fps"] = fps1
+    log(f"phase 27d took {time.perf_counter() - t0:.1f} s")
+    return rec
+
+
 def main() -> int:
+    if len(sys.argv) > 1:
+        if sys.argv[1] == "--tp-encoder":
+            return tp_encoder_rank()
+        if sys.argv[1] == "--multi-card" and len(sys.argv) == 3:
+            return multi_card_rank(sys.argv[2])
+        print(f"chip_smoke: unknown arguments {sys.argv[1:]}; run it with none", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is false; the port's smoke run needs a CUDA card",
               file=sys.stderr)
@@ -1901,11 +2328,8 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # 3. the released giant model, random bf16 weights
-    cfg = P.L4PConfig()
-    cfg = dataclasses.replace(cfg, track=dataclasses.replace(cfg.track, max_queries=QUERY_CHUNK))
     t0 = time.perf_counter()
-    model = P.L4P(cfg, device=dev, dtype=torch.bfloat16).eval()
-    model.init_weights(torch.Generator(device=dev).manual_seed(0))
+    cfg, model = giant_model(P, dev)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     n_track = sum(p.numel() for p in model.task_heads["track_2d"].parameters())
@@ -2424,6 +2848,11 @@ def main() -> int:
     mae = mae_phase(model, dev, log, checks, reset_counts, counts)
     print(json.dumps({"card": card, "mae": mae}), flush=True)
     log(f"phase 26 took {time.perf_counter() - t0:.1f} s")
+    # 27. multi-GPU: the kernels at a rank's shapes, tensor parallelism on this card, a one-rank NCCL session
+    t0 = time.perf_counter()
+    multi = multi_gpu_phase(P, model, cfg, request, dev, log, checks, reset_counts, counts)
+    print(json.dumps({"card": card, "multi_gpu": multi}), flush=True)
+    log(f"phase 27 took {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     if checks.failed:

@@ -56,6 +56,7 @@ from l4p_tpu_torch.models.l4p import (
 from l4p_tpu_torch.models.sam import KERNELS, TrackKernels
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 from l4p_tpu_torch.ops.fused_encoder import fused_encoder_blocks
+from l4p_tpu_torch.parallel.mesh import shard_params
 
 ALL_TASKS = ("flow_2d_backward", "track_2d", "depth", "dyn_mask", "camray")  # bench.py's request
 SLICE_TASKS = ("flow_2d_backward", "track_2d", "depth", "dyn_mask")  # the dense tasks and tracks
@@ -71,11 +72,22 @@ class InferenceSession:
     `draws` gives every random number of the camray solve and the joint
     stitch (`RandomDraws(0)` by default). `tasks` are names of ALL_TASKS and
     of configured camera_rays heads; tracking runs in the directions of the
-    track head's `estimation_directions`: (1,), (-1,) or (1, -1)."""
+    track head's `estimation_directions`: (1,), (-1,) or (1, -1).
+
+    `mesh` (parallel.make_mesh; the counterpart of `l4p_forward(...,
+    mesh=)`, l4p_tpu/models/l4p.py:663-720) runs the request on every rank
+    of the job: windows and track queries split over `data`, the encoder's
+    blocks over `model` (the model's parameters this rank's shard:
+    parallel.shard_params; a state dict is sharded as it is loaded), the
+    outputs gathered. The camera solve, the stitch and the joint Sim(3)
+    RANSAC then run on the gathered outputs on every rank, with the same
+    draws, so every rank returns the same outputs. The fused encoder takes
+    no mesh: a request with `encoder.fused_encoder` and one raises
+    ValueError (`VideoEncoder.forward`)."""
 
     def __init__(self, cfg: L4PConfig, tasks: Sequence[str], device: Union[str, torch.device],
                  attention: AttentionFn = flash_attention, track_kernels: TrackKernels = KERNELS,
-                 encoder_blocks: EncoderBlocksFn = fused_encoder_blocks, draws: Optional[Draws] = None):
+                 encoder_blocks: EncoderBlocksFn = fused_encoder_blocks, draws: Optional[Draws] = None, mesh=None):
         self.tasks = tuple(tasks)
         heads = cfg.head_dict
         # a camera_rays head is served by its kind, whatever its name (l4p_tpu/models/l4p.py:774)
@@ -96,6 +108,7 @@ class InferenceSession:
             if not dirs or not set(dirs) <= {1, -1} or len(set(dirs)) != len(dirs):
                 raise ValueError(f"estimation_directions {dirs}: expected (1,), (-1,) or (1, -1)")
         self.cfg = cfg
+        self.mesh = mesh
         self.device = torch.device(device)
         self.attention = attention
         self.track_kernels = track_kernels
@@ -110,12 +123,12 @@ class InferenceSession:
             dtype = next(iter(model_or_state.values())).dtype
             model = L4P(self.cfg, device=self.device, dtype=dtype)
             model.load_state_dict(model_or_state, strict=True)
-            self._loaded = (model_or_state, model.eval())
+            self._loaded = (model_or_state, shard_params(model, self.mesh).eval())
         return self._loaded[1]
 
     def _encode(self, model: L4P, rgb, rgb_u8, intr, ext, hooks=None) -> Dict[str, object]:
         return encode_windows(model.video_encoder, self.cfg, rgb, rgb_u8, self.attention, self.encoder_blocks, hooks,
-                              intr, ext)
+                              intr, ext, self.mesh)
 
     @torch.inference_mode()
     def __call__(self, model_or_state, data: Mapping) -> Dict[str, torch.Tensor]:
@@ -139,11 +152,11 @@ class InferenceSession:
         del enc
         img_info = tuple(cfg.window_size)
         stride, chunk = cfg.window_stride_t, cfg.dense_window_chunk
-        dense = {t_: run_dense_head(model.task_heads[t_], hooks, img_info, chunk)
+        dense = {t_: run_dense_head(model.task_heads[t_], hooks, img_info, chunk, self.mesh)
                  for t_ in self.stitch_tasks if t_ in DENSE_TASKS}
         pose_w = intr_w = None
         if "camray" in self.stitch_tasks:
-            rays = run_dense_head(model.task_heads["camray"], hooks, img_info, chunk).float()
+            rays = run_dense_head(model.task_heads["camray"], hooks, img_info, chunk, self.mesh).float()
             pose_w, intr_w = camray_windows_to_cameras(rays, cfg.head_dict["camray"], img_info, intr, stride,
                                                        self.draws)
             del rays
@@ -152,7 +165,7 @@ class InferenceSession:
             # raw rays, overwrite-stitched with no aligner (reference dense_heads.py:220-254)
             hcfg = cfg.head_dict[t_]
             rays_out[f"{hcfg.task_name}_est_b{hcfg.out_nchan}thw"] = stitch_overwrite(
-                run_dense_head(model.task_heads[t_], hooks, img_info, chunk), stride, t)
+                run_dense_head(model.task_heads[t_], hooks, img_info, chunk, self.mesh), stride, t)
         del hooks  # the hook pyramid is freed before the track stage, the largest
         out = stitch_dense_outputs(cfg, self.stitch_tasks, dense, stride, t, pose_w, intr_w, self.draws)
         out.update(rays_out)
@@ -161,7 +174,8 @@ class InferenceSession:
             head, dirs = model.task_heads["track_2d"], tuple(cfg.track.estimation_directions)
             queries = torch.as_tensor(data["track_2d_pointquerries_bn3"], device=self.device)
             labels = torch.as_tensor(data["track_2d_pointlabels_bn"], device=self.device)
-            fwd = run_track_chunked(head, final, queries, labels, stride, self.track_kernels) if 1 in dirs else None
+            fwd = run_track_chunked(head, final, queries, labels, stride, self.track_kernels,
+                                    self.mesh) if 1 in dirs else None
             del final  # freed before the flipped video is encoded, so peak memory does not double
             if -1 in dirs:
                 # the backward pass encodes the time-flipped video, its cameras flipped with it (the
@@ -170,7 +184,7 @@ class InferenceSession:
                 flipped = self._encode(model, *(None if v is None else v.flip(d) for v, d in
                                                 ((rgb, 2), (rgb_u8, 1), (intr, 3), (ext, 3))), hooks=())["final"]
                 bwd = run_track_chunked(head, flipped, flip_query_times(queries, t), labels, stride,
-                                        self.track_kernels)
+                                        self.track_kernels, self.mesh)
                 del flipped
                 fwd = merge_directions(fwd, {k: v.flip(-1) for k, v in bwd.items()}, queries, t)
             out.update(fwd)

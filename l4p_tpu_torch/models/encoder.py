@@ -16,6 +16,17 @@ normalised intrinsics and extrinsics.
 
 Stochastic depth (DropPath) acts when a caller passes a `DropPathDraws`:
 training does, with `RandomDropPath` by default.
+
+Under a mesh whose `model` axis has nm > 1 ranks (parallel/mesh.py), each
+block holds this rank's shard (`shard_params`) and runs nh / nm heads and
+hidden / nm MLP columns, Megatron's split: the LayerNorm outputs enter the
+column-parallel qkv and fc1 through `copy_to_model`, and the row-parallel
+proj and fc2 give fp32 partials that are summed over `model` in fp32, then
+get their bias once and are cast (`row_parallel_linear`), as the JAX
+package's products with preferred_element_type=float32 are reduced under
+GSPMD (l4p_tpu/models/encoder.py:241-280). The attention runs on the local
+heads: the process is the shard, where JAX wraps the kernel in shard_map
+(`flash_attention_sharded`, l4p_tpu/ops/flash_attention.py:174-198).
 """
 
 from __future__ import annotations
@@ -29,9 +40,11 @@ import torch.nn as nn
 
 from l4p_tpu_torch.config import GIANT, EncoderConfig
 from l4p_tpu_torch.geometry.core import get_rays_plucker
-from l4p_tpu_torch.ops.conv import gelu, layer_norm, linear
+from l4p_tpu_torch.ops.conv import gelu, layer_norm, linear, linear_fp32
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 from l4p_tpu_torch.ops.resize import interp_matrix
+from l4p_tpu_torch.parallel.comm import Group, copy_to_model, reduce_from_model
+from l4p_tpu_torch.parallel.mesh import MODEL, axis_group, axis_rank, axis_size
 
 AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, float], torch.Tensor]
 # (blocks, x, cfg, hook_ends) -> (B, len(hook_ends), N, E): fused_encoder_blocks or its plain version
@@ -87,6 +100,20 @@ class RandomDropPath:
 
     def keep(self, block, branch, batch, keep_prob):
         return torch.rand(batch, generator=self.generator) < keep_prob
+
+
+class BatchRows:
+    """`DropPathDraws` for rows [lo, hi) of a batch of n (a data rank's):
+    each mask is drawn from `draws` for all n rows, as one process would
+    draw it, and cut to the rows."""
+
+    def __init__(self, draws: DropPathDraws, n: int, lo: int, hi: int):
+        self.draws, self.n, self.lo, self.hi = draws, n, lo, hi
+
+    def keep(self, block, branch, batch, keep_prob):
+        if batch != self.hi - self.lo:
+            raise ValueError(f"{batch} rows asked for, these draws are for {self.hi - self.lo}")
+        return self.draws.keep(block, branch, self.n, keep_prob)[self.lo: self.hi]
 
 
 def xavier_uniform_(w: torch.Tensor, fan_out: int, fan_in: int, generator: torch.Generator) -> None:
@@ -176,11 +203,18 @@ class Block(nn.Module):
             self.gamma_1.fill_(cfg.init_values)
             self.gamma_2.fill_(cfg.init_values)
 
-    def forward(self, x: torch.Tensor, attention: AttentionFn, drop=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attention: AttentionFn, drop=None, mesh=None) -> torch.Tensor:
+        """`mesh` (a DeviceMesh) splits the block over its `model` axis; the
+        block's parameters must then be this rank's shard (`shard_params`)."""
         b, n, e = x.shape
-        nh, hd, eps = self.cfg.num_heads, self.cfg.head_dim, self.cfg.ln_eps
+        hd, eps = self.cfg.head_dim, self.cfg.ln_eps
+        group, nm = axis_group(mesh, MODEL), axis_size(mesh, MODEL)
+        nh = self.cfg.num_heads // nm  # this rank's heads
         a = self.attn
-        h = layer_norm(x, self.norm1.weight, self.norm1.bias, eps)
+        if a.qkv.weight.shape[0] != 3 * nh * hd:
+            raise ValueError(f"block qkv weight {tuple(a.qkv.weight.shape)} is not the shard of a model axis of {nm} "
+                             "ranks: split the model with parallel.shard_params for this mesh")
+        h = copy_to_model(layer_norm(x, self.norm1.weight, self.norm1.bias, eps), group)
         qkv_bias = torch.cat([a.q_bias, torch.zeros_like(a.v_bias), a.v_bias])  # no k bias
         qkv = linear(h, a.qkv.weight, qkv_bias).view(b, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
         if self.cfg.cos_attn:
@@ -188,20 +222,31 @@ class Block(nn.Module):
             # cast to the compute dtype, the logit scale in fp32, q times it in the compute dtype
             q, k = (t / torch.linalg.vector_norm(t, dim=-1, keepdim=True, dtype=torch.float32).to(x.dtype)
                     for t in qkv[:2])
-            logit_scale = torch.exp(torch.clamp(a.scale.float(), max=COS_ATTN_MAX_LOG_SCALE))
+            scale = a.scale if group is None else copy_to_model(a.scale, group).narrow(0, axis_rank(mesh, MODEL) * nh, nh)
+            logit_scale = torch.exp(torch.clamp(scale.float(), max=COS_ATTN_MAX_LOG_SCALE))
             o = attention(q * logit_scale.to(x.dtype), k, qkv[2], 1.0)
         else:
             o = attention(qkv[0], qkv[1], qkv[2], hd ** -0.5)  # strided views: the kernel's wrapper lays them out
-        branch = linear(o.transpose(1, 2).reshape(b, n, e), a.proj.weight, a.proj.bias)
+        branch = row_parallel_linear(o.transpose(1, 2).reshape(b, n, nh * hd), a.proj.weight, a.proj.bias, group)
         if self.cfg.init_values > 0:
             branch = branch * self.gamma_1.to(x.dtype)
         x = x + (branch if drop is None else drop_path(branch, drop[0], drop[2]))
-        h = layer_norm(x, self.norm2.weight, self.norm2.bias, eps)
+        h = copy_to_model(layer_norm(x, self.norm2.weight, self.norm2.bias, eps), group)
         h = gelu(linear(h, self.mlp.fc1.weight, self.mlp.fc1.bias))
-        branch = linear(h, self.mlp.fc2.weight, self.mlp.fc2.bias)
+        branch = row_parallel_linear(h, self.mlp.fc2.weight, self.mlp.fc2.bias, group)
         if self.cfg.init_values > 0:
             branch = branch * self.gamma_2.to(x.dtype)
         return x + (branch if drop is None else drop_path(branch, drop[1], drop[2]))
+
+
+def row_parallel_linear(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, group: Group) -> torch.Tensor:
+    """`linear(x, w, b)` of a product whose input columns are split over the
+    model group: this rank's partial x w^T in fp32, summed over the group in
+    fp32, then the bias added once and the sum cast to x's dtype (summing
+    bf16 partials would round twice). Without a group, `linear` itself."""
+    if group is None:
+        return linear(x, w, b)
+    return (reduce_from_model(linear_fp32(x, w), group) + b.float()).to(x.dtype)
 
 
 class CameraEmbedding(nn.Module):
@@ -264,7 +309,7 @@ class VideoEncoder(nn.Module):
                 encoder_blocks: Optional[EncoderBlocksFn] = None,
                 intrinsics_b44t: Optional[torch.Tensor] = None,
                 extrinsics_b44t: Optional[torch.Tensor] = None,
-                drop_path_draws: Optional[DropPathDraws] = None) -> Dict[str, object]:
+                drop_path_draws: Optional[DropPathDraws] = None, mesh=None) -> Dict[str, object]:
         """Tokens (B, N, E) without the position table -> {'hooks': [feature
         per hook], 'final': normed output}. Hook index 0 is the embedding,
         index i the output of block i-1, index `depth` the normed output
@@ -277,8 +322,15 @@ class VideoEncoder(nn.Module):
         feature and the output ('output'; l4p_tpu/models/encoder.py:378-381,
         :452-459). With `drop_path_draws` and drop_path_rate > 0 (training) the
         blocks run one by one with stochastic depth, whatever
-        `encoder_blocks` says (the fused gate of :390-394)."""
+        `encoder_blocks` says (the fused gate of :390-394). `mesh` splits
+        the blocks over its `model` axis (`Block.forward`); the whole-encoder
+        kernels take no mesh, and `encoder_blocks` with one raises, where
+        JAX's gate runs the default blocks (`fused_encoder_engaged`,
+        l4p_tpu/models/encoder.py:296)."""
         cfg = self.cfg
+        if mesh is not None and encoder_blocks is not None:
+            raise ValueError(f"the fused encoder (encoder_blocks) takes no mesh, got {mesh}: serve the mesh with "
+                             "fused_encoder off")
         x = tokens_bne + self.pos_embed.to(tokens_bne.dtype)
         place = cfg.cam_emb_placed_at
         if place is not None:
@@ -302,7 +354,7 @@ class VideoEncoder(nn.Module):
                 if dropping:
                     p = keep_probs[i]
                     drop = tuple(drop_path_draws.keep(i, branch, x.shape[0], p) for branch in (0, 1)) + (p,)
-                x = blk(x, attention, drop)
+                x = blk(x, attention, drop, mesh)
                 if i + 1 in hooks:
                     feats[i + 1] = x
         final = layer_norm(x, self.norm.weight, self.norm.bias, cfg.ln_eps)

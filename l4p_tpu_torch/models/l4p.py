@@ -18,6 +18,12 @@ backward in time on the flipped video (`flip_query_times`,
 
 Every random draw (the homography and Sim(3) RANSAC samples) comes from a
 `Draws` object the caller passes: `RandomDraws` by default.
+
+Under a mesh (parallel/mesh.py; JAX's `mesh=`, l4p_tpu/models/l4p.py:231-246,
+:586-597, :708-717) `encode_windows` and `run_dense_head` take this rank's
+windows over `data` and `run_track_chunked` this rank's queries of each
+chunk, and each gathers its outputs over `data`: every rank returns the
+whole result. The encoder's blocks split over `model`.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ from l4p_tpu_torch.models.track import TrackHead, track_forward, track_forward_w
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 from l4p_tpu_torch.ops.fused_encoder import fused_encoder_blocks
 from l4p_tpu_torch.ops.misc import apply_fn
+from l4p_tpu_torch.parallel.mesh import DATA, axis_size, gather_rows, row_range, shard_rows
 
 
 class DenseTaskHead(nn.Module):
@@ -160,6 +167,7 @@ def encode_windows(
     hooks: Optional[Sequence[int]] = None,
     intrinsics_b44t: Optional[torch.Tensor] = None,
     extrinsics_b44t: Optional[torch.Tensor] = None,
+    mesh=None,
 ) -> Dict[str, object]:
     """Slice the video into overlapping windows and encode them all.
     Returns {'hooks': {hook: (nw, B, P, C)}, 'final': (nw, B, P, C)} for
@@ -171,7 +179,10 @@ def encode_windows(
     `encoder_blocks` call (l4p_tpu/models/l4p.py:259-269), else
     `enc_window_chunk` windows per encoder call. With the camera embedding,
     the intrinsics (pixels, normalised here) and extrinsics (B, 4, 4, T) are
-    sliced per window beside the frames (l4p_tpu/models/l4p.py:208-214)."""
+    sliced per window beside the frames (l4p_tpu/models/l4p.py:208-214).
+    With `mesh`, this rank encodes its windows of the `data` axis (its
+    blocks split over `model`) and the features are gathered over `data`;
+    the fused encoder then raises (`VideoEncoder.forward`)."""
     ecfg = cfg.encoder
     ws, stride, tt = cfg.window_size[0], cfg.window_stride_t, ecfg.tubelet_size
     if rgb_u8_bthw3 is not None:
@@ -207,14 +218,16 @@ def encode_windows(
     hooks = cfg.all_hooks if hooks is None else tuple(hooks)
     chunk = nw if ecfg.fused_encoder else cfg.enc_window_chunk
     blocks_fn = encoder_blocks if ecfg.fused_encoder else None
+    lo, hi, run_lo, run_hi = local_windows(nw, mesh)
     chunks = []
-    for c0 in range(0, nw, chunk):
-        starts = [i * stride for i in range(c0, min(c0 + chunk, nw))]
+    for c0 in range(run_lo, run_hi, chunk):
+        starts = [i * stride for i in range(c0, min(c0 + chunk, run_hi))]
         # window-major batch
-        chunks.append(encoder(window_tokens(starts), hooks, attention, blocks_fn, **window_cams(starts)))
+        chunks.append(encoder(window_tokens(starts), hooks, attention, blocks_fn, mesh=mesh, **window_cams(starts)))
 
     def merge(feats):
-        return torch.cat(feats).unflatten(0, (nw, b))
+        local = torch.cat(feats).unflatten(0, (-1, b))[: hi - lo]
+        return gather_rows(local, nw, mesh)
 
     return {
         "hooks": {hk: merge([c["hooks"][i] for c in chunks]) for i, hk in enumerate(hooks)},
@@ -222,17 +235,27 @@ def encode_windows(
     }
 
 
+def local_windows(nw: int, mesh) -> Tuple[int, int, int, int]:
+    """(lo, hi, run_lo, run_hi): this data rank's windows [lo, hi) of nw, and
+    the windows it runs, which are the last one where it has none (its
+    outputs are cut to no rows, so that the gather has their shape)."""
+    lo, hi = row_range(nw, mesh)
+    return (lo, hi, lo, hi) if hi > lo else (lo, hi, nw - 1, nw)
+
+
 def run_dense_head(head: DenseTaskHead, hook_feats: Dict[int, torch.Tensor], img_info: Tuple[int, int, int],
-                   window_chunk: int) -> torch.Tensor:
+                   window_chunk: int, mesh=None) -> torch.Tensor:
     """Per-window head outputs (nw, B, C, ws, H, W), `window_chunk` windows
-    per call with the window axis merged into the batch."""
+    per call with the window axis merged into the batch; with `mesh`, this
+    rank's windows of the `data` axis, gathered (l4p_tpu/models/l4p.py:708-717)."""
     feats = [hook_feats[hk] for hk in head.hcfg.dpt.hooks]
     nw, b = feats[0].shape[:2]
+    lo, hi, run_lo, run_hi = local_windows(nw, mesh)
     outs = [
-        head([f[c0: c0 + window_chunk].flatten(0, 1) for f in feats], img_info)
-        for c0 in range(0, nw, window_chunk)
+        head([f[c0: min(c0 + window_chunk, run_hi)].flatten(0, 1) for f in feats], img_info)
+        for c0 in range(run_lo, run_hi, window_chunk)
     ]
-    return torch.cat(outs).unflatten(0, (nw, b))
+    return gather_rows(torch.cat(outs).unflatten(0, (-1, b))[: hi - lo], nw, mesh)
 
 
 def window_frames(aligned: Dict[str, torch.Tensor], prev: Optional[Dict[str, torch.Tensor]], stride: int,
@@ -429,12 +452,13 @@ def merge_query_chunks(v: torch.Tensor, n_queries: int) -> torch.Tensor:
     return m.reshape(m.shape[0], m.shape[1] * m.shape[2], *m.shape[3:])[:, :n_queries]
 
 
-def query_chunks(queries_bn3: torch.Tensor, max_queries: int) -> List[torch.Tensor]:
+def query_chunks(queries_bn3: torch.Tensor, max_queries: int, multiple: int = 1) -> List[torch.Tensor]:
     """`max_queries` queries at a time (the reference's memory governor,
-    sparse_heads.py:181-211), the last chunk padded with queries at (0, 0,
-    0) whose outputs `merge_query_chunks` drops."""
+    sparse_heads.py:181-211), the chunk rounded up to a multiple of
+    `multiple` and the last chunk padded with queries at (0, 0, 0) whose
+    outputs `merge_query_chunks` drops."""
     n = queries_bn3.shape[1]
-    chunk = min(max_queries, n)
+    chunk = -(-min(max_queries, n) // multiple) * multiple
     pad = -n % chunk
     if pad:
         queries_bn3 = torch.cat([queries_bn3, queries_bn3.new_zeros((queries_bn3.shape[0], pad, 3))], dim=1)
@@ -442,13 +466,20 @@ def query_chunks(queries_bn3: torch.Tensor, max_queries: int) -> List[torch.Tens
 
 
 def run_track_chunked(head: TrackHead, enc_final: torch.Tensor, queries: torch.Tensor, labels: torch.Tensor,
-                      stride: int, kernels: TrackKernels = KERNELS) -> Dict[str, torch.Tensor]:
+                      stride: int, kernels: TrackKernels = KERNELS, mesh=None) -> Dict[str, torch.Tensor]:
     """Forward-direction windowed tracking over the encoder's final features
     (nw, B, P, C), in `query_chunks`. The labels are recomputed per window
-    from the queries' validity, as the reference does."""
+    from the queries' validity, as the reference does. With `mesh`, each
+    chunk (padded to a multiple of the `data` axis) is split over `data`,
+    this rank tracks its queries, and the outputs are gathered before the
+    chunks merge (l4p_tpu/models/l4p.py:586-597): queries are independent
+    streams through the whole track head."""
     del labels
-    outs = [track_forward_windowed(head, head.cfg, enc_final, q, None, stride, kernels)
-            for q in query_chunks(queries, head.cfg.max_queries)]
+    nd = axis_size(mesh, DATA)
+    outs = []
+    for q in query_chunks(queries, head.cfg.max_queries, nd):
+        o = track_forward_windowed(head, head.cfg, enc_final, shard_rows(q, mesh, dim=1), None, stride, kernels)
+        outs.append({k: gather_rows(v, q.shape[1], mesh, dim=1) for k, v in o.items()})
     return {k: merge_query_chunks(torch.stack([o[k] for o in outs]), queries.shape[1]) for k in outs[0]}
 
 

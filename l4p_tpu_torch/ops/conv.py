@@ -31,6 +31,40 @@ def linear(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None) -
     return F.linear(x, w.to(x.dtype), None if b is None else b.to(x.dtype))
 
 
+class _LinearFp32(torch.autograd.Function):
+    """x w^T of bf16 / fp16 operands with the fp32 accumulator as the
+    result; the backward takes the fp32 cotangent back to the operands'
+    dtype before its products."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        x2 = x.reshape(-1, x.shape[-1])
+        if x.is_cuda:
+            y = torch.mm(x2, w.t(), out_dtype=torch.float32)
+        else:
+            y = torch.mm(x2.float(), w.float().t())
+        return y.view(*x.shape[:-1], w.shape[0])
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, w = ctx.saved_tensors
+        g = grad.to(x.dtype).reshape(-1, w.shape[0])
+        gx = (g @ w).view_as(x) if ctx.needs_input_grad[0] else None
+        gw = (g.t() @ x.reshape(-1, x.shape[-1])) if ctx.needs_input_grad[1] else None
+        return gx, gw
+
+
+def linear_fp32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x: (..., in); w: (out, in) -> x w^T in fp32, no bias: the products of
+    the compute dtype accumulated in fp32 and returned so (JAX's
+    preferred_element_type=float32)."""
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        return F.linear(x, w)
+    return _LinearFp32.apply(x, w)
+
+
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """LayerNorm over the last axis with fp32 statistics and affine, cast back."""
     y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(), eps)

@@ -16,6 +16,14 @@ optax.adafactor's defaults.
 The kernels of the forward (the encoder attention, the fused encoder, the
 track head's three) are `torch.autograd.Function`s whose backward
 recomputes their plain versions (ops/recompute.py).
+
+`train_step(..., mesh=)` computes what the JAX package's step jitted over a
+(data, model) mesh computes (__graft_entry__.dryrun_multichip): each data
+rank takes its rows of the global batch, every mean divides by the count
+over the whole batch (so the ranks' losses and gradients sum to the global
+ones, however the valid masks fall), the gradients are summed over `data`,
+the clip's norm counts each split parameter's squares over `model` once,
+and stochastic depth draws its masks for the whole batch.
 """
 
 from __future__ import annotations
@@ -31,20 +39,33 @@ import torch.nn.functional as F
 
 from l4p_tpu_torch.config import L4PConfig
 from l4p_tpu_torch.geometry.core import get_rays_plucker, normalize_intrinsics
-from l4p_tpu_torch.models.encoder import AttentionFn, DropPathDraws, EncoderBlocksFn
+from l4p_tpu_torch.models.encoder import AttentionFn, BatchRows, DropPathDraws, EncoderBlocksFn
 from l4p_tpu_torch.models.l4p import L4P, dense_head_raw
 from l4p_tpu_torch.models.sam import KERNELS, TrackKernels
 from l4p_tpu_torch.models.track import track_forward
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 from l4p_tpu_torch.ops.fused_encoder import fused_encoder_blocks
+from l4p_tpu_torch.parallel.comm import Group, all_reduce_, all_reduce_coalesced_
+from l4p_tpu_torch.parallel.mesh import DATA, axis_group, axis_size, global_sq_sum, row_range, shard_rows
 
 
-def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+def _masked_mean(x: torch.Tensor, mask: Optional[torch.Tensor], group: Group = None) -> torch.Tensor:
+    """The mean of x over the entries `mask` (broadcast to x) selects, all
+    of them without one. With a data `group`, x is this rank's rows and the
+    count is summed over the group: the ranks' results add up to the mean
+    over the whole batch."""
     x = x.float()
+    if group is None:
+        if mask is None:
+            return x.mean()
+        m = mask.float().expand(x.shape)
+        return (x * m).sum() / m.sum().clamp(min=1.0)
     if mask is None:
-        return x.mean()
-    m = mask.float().expand(x.shape)
-    return (x * m).sum() / m.sum().clamp(min=1.0)
+        total, count = x.sum(), x.new_tensor(float(x.numel()))
+    else:
+        m = mask.float().expand(x.shape)
+        total, count = (x * m).sum(), m.sum().detach()
+    return total / all_reduce_(count, group).clamp(min=1.0)
 
 
 def sigmoid_binary_cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -60,8 +81,8 @@ def _log_l1(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
 
 def l4p_loss(model: L4P, cfg: L4PConfig, batch: Mapping[str, torch.Tensor], tasks: Sequence[str],
              drop_path_draws: Optional[DropPathDraws] = None, attention: AttentionFn = flash_attention,
-             track_kernels: TrackKernels = KERNELS,
-             encoder_blocks: EncoderBlocksFn = fused_encoder_blocks) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+             track_kernels: TrackKernels = KERNELS, encoder_blocks: EncoderBlocksFn = fused_encoder_blocks,
+             mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(total, {name: loss}) of one window-length clip (l4p_tpu/train.py:35-154),
     batch keys in the L4PData schema: log-L1 depth, L1 flow under its
     per-channel valid mask, BCE-with-logits dyn_mask, L1 camray rays against
@@ -74,7 +95,12 @@ def l4p_loss(model: L4P, cfg: L4PConfig, batch: Mapping[str, torch.Tensor], task
     kernels. With `freeze_video_encoder` and no `unfreeze_blocks` the
     encoder runs without autograd (JAX's stop_gradient on its parameters).
     `attention`, `track_kernels` and `encoder_blocks` replace the kernels,
-    as in InferenceSession."""
+    as in InferenceSession. With `mesh`, `batch` is this data rank's rows,
+    each mean divides by its count over the `data` axis (the result is this
+    rank's part of the whole batch's loss) and the encoder's blocks split
+    over `model`."""
+    group = axis_group(mesh, DATA)
+    mean = functools.partial(_masked_mean, group=group)
     rgb = batch["rgb_b3thw"]
     if rgb.shape[2] != cfg.window_size[0]:
         raise ValueError(f"l4p_loss trains on single-window clips: T={rgb.shape[2]} != window "
@@ -85,7 +111,7 @@ def l4p_loss(model: L4P, cfg: L4PConfig, batch: Mapping[str, torch.Tensor], task
     frozen = cfg.freeze_video_encoder and cfg.unfreeze_blocks is None
     with torch.set_grad_enabled(torch.is_grad_enabled() and not frozen):
         out = enc(enc.embed(rgb), hooks, attention, encoder_blocks if cfg.encoder.fused_encoder else None,
-                  drop_path_draws=drop_path_draws)
+                  drop_path_draws=drop_path_draws, mesh=mesh)
     feats = dict(zip(hooks, out["hooks"]))
     heads = cfg.head_dict
 
@@ -96,13 +122,13 @@ def l4p_loss(model: L4P, cfg: L4PConfig, batch: Mapping[str, torch.Tensor], task
     losses: Dict[str, torch.Tensor] = {}
     for task in tasks:
         if task == "depth":
-            losses["depth"] = _masked_mean(_log_l1(dense(task), batch["depth_b1thw"]), batch.get("depth_valid_b1thw"))
+            losses["depth"] = mean(_log_l1(dense(task), batch["depth_b1thw"]), batch.get("depth_valid_b1thw"))
         elif task == "flow_2d_backward":
-            losses["flow"] = _masked_mean((dense(task) - batch["flow_2d_backward_b2thw"]).abs(),
-                                          batch.get("flow_2d_backward_valid_b2thw"))
+            losses["flow"] = mean((dense(task) - batch["flow_2d_backward_b2thw"]).abs(),
+                                  batch.get("flow_2d_backward_valid_b2thw"))
         elif task == "dyn_mask":
             bce = sigmoid_binary_cross_entropy(dense(task).float(), batch["dyn_mask_b1thw"].float())
-            losses["dyn_mask"] = _masked_mean(bce, batch.get("dyn_mask_valid_b1thw"))
+            losses["dyn_mask"] = mean(bce, batch.get("dyn_mask_valid_b1thw"))
         elif task == "camray":
             rays_pred = dense(task)
             k_norm = normalize_intrinsics(batch["intrinsics_b44t"].float(), img_info[1], img_info[2])
@@ -112,21 +138,21 @@ def l4p_loss(model: L4P, cfg: L4PConfig, batch: Mapping[str, torch.Tensor], task
             if t_gt != t_pred:  # the GT frames at the head's tubelet times, truncated as astype(int32)
                 idx = torch.linspace(0, t_gt - 1, t_pred, dtype=torch.float32).long()
                 rays_gt = rays_gt[:, :, idx.to(rays_gt.device)]
-            losses["camray"] = (rays_pred.float() - rays_gt).abs().mean()
+            losses["camray"] = mean((rays_pred.float() - rays_gt).abs(), None)
         elif task == "track_2d":
             tcfg = cfg.track
             est = track_forward(model.task_heads["track_2d"], tcfg, out["final"], batch["track_2d_pointquerries_bn3"],
                                 batch["track_2d_pointlabels_bn"], kernels=track_kernels)
             t = tcfg.task_name
             valid = batch.get("track_2d_valid_bn1t")
-            losses["track_xy"] = _masked_mean((est[f"{t}_traj_est_bn2t"] - batch["track_2d_traj_bn2t"]).abs(),
-                                              valid) / max(img_info[1], 1)
+            losses["track_xy"] = mean((est[f"{t}_traj_est_bn2t"] - batch["track_2d_traj_bn2t"]).abs(),
+                                      valid) / max(img_info[1], 1)
             if tcfg.estimate_vis and "track_2d_vis_bn1t" in batch:
                 bce = sigmoid_binary_cross_entropy(est[f"{t}_vis_est_bn1t"].float(), batch["track_2d_vis_bn1t"].float())
-                losses["track_vis"] = _masked_mean(bce, valid)
+                losses["track_vis"] = mean(bce, valid)
             if tcfg.estimate_depth and "track_2d_depth_bn1t" in batch:
-                losses["track_depth"] = _masked_mean(_log_l1(est[f"{t}_depth_est_bn1t"], batch["track_2d_depth_bn1t"]),
-                                                     valid)
+                losses["track_depth"] = mean(_log_l1(est[f"{t}_depth_est_bn1t"], batch["track_2d_depth_bn1t"]),
+                                             valid)
         else:
             raise ValueError(f"unknown task {task}")
     return functools.reduce(operator.add, losses.values()), losses
@@ -212,12 +238,14 @@ def warmup_cosine_decay_schedule(init_value: float, peak_value: float, warmup_st
     return schedule
 
 
-def clip_by_global_norm(params, grads: Sequence[Optional[torch.Tensor]], clip_norm: float) -> list:
+def clip_by_global_norm(params, grads: Sequence[Optional[torch.Tensor]], clip_norm: float,
+                        sq_sum: Optional[Callable[[list], torch.Tensor]] = None) -> list:
     """optax.clip_by_global_norm over the gradients of `params` (a missing
     one counts as zero): unchanged below the threshold, else scaled onto it,
-    with no epsilon; the norm sums the squares in fp32."""
+    with no epsilon; the norm sums the squares in fp32 (`sq_sum(grads)`
+    where given: a mesh's, parallel.mesh.global_sq_sum)."""
     grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
-    norm = torch.sqrt(sum(g.float().square().sum() for g in grads))
+    norm = torch.sqrt(sum(g.float().square().sum() for g in grads) if sq_sum is None else sq_sum(grads))
     clip = norm >= clip_norm
     return [torch.where(clip, g / norm.to(g.dtype) * clip_norm, g) for g in grads]
 
@@ -242,9 +270,11 @@ class AdamW:
         self.nu = {n: torch.zeros_like(p) for n, p in self.params.items()}
 
     @torch.no_grad()
-    def step(self, grads: Sequence[Optional[torch.Tensor]]) -> None:
-        """One update from the gradients of `params`, in their order."""
-        grads = clip_by_global_norm(self.params.values(), grads, self.clip_norm)
+    def step(self, grads: Sequence[Optional[torch.Tensor]],
+             sq_sum: Optional[Callable[[list], torch.Tensor]] = None) -> None:
+        """One update from the gradients of `params`, in their order;
+        `sq_sum` gives the clip's squared norm (`clip_by_global_norm`)."""
+        grads = clip_by_global_norm(self.params.values(), grads, self.clip_norm, sq_sum)
         lr = self.schedule(self.count)
         self.count += 1
         c1, c2 = (np.float32(1) - np.float32(b) ** np.float32(self.count) for b in (self.b1, self.b2))
@@ -374,11 +404,35 @@ def make_optimizer(model: L4P, lr: float = 1e-4, total_steps: int = 10000, weigh
 def train_step(model: L4P, optimizer: AdamW, batch: Mapping[str, torch.Tensor], cfg: L4PConfig,
                tasks: Sequence[str], drop_path_draws: Optional[DropPathDraws] = None,
                attention: AttentionFn = flash_attention, track_kernels: TrackKernels = KERNELS,
-               encoder_blocks: EncoderBlocksFn = fused_encoder_blocks) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+               encoder_blocks: EncoderBlocksFn = fused_encoder_blocks,
+               mesh=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One optimization step on `batch` (l4p_tpu/train.py:267-284): the loss,
     its gradients for the optimizer's parameters, one update in place.
-    Returns the loss and the per-task losses, detached."""
-    loss, losses = l4p_loss(model, cfg, batch, tasks, drop_path_draws, attention, track_kernels, encoder_blocks)
-    grads = torch.autograd.grad(loss, list(optimizer.params.values()), allow_unused=True)
-    optimizer.step(grads)
-    return loss.detach(), {k: v.detach() for k, v in losses.items()}
+    Returns the loss and the per-task losses, detached.
+
+    With `mesh` every rank passes the whole batch and the model's shard
+    (parallel.shard_params): the rank takes its rows over `data`, its
+    gradients are summed over `data`, the clip's norm counts every
+    parameter once, and the losses returned are the whole batch's.
+    `drop_path_draws` then draws each mask for the whole batch."""
+    names, params = list(optimizer.params), list(optimizer.params.values())
+    if mesh is None:
+        loss, losses = l4p_loss(model, cfg, batch, tasks, drop_path_draws, attention, track_kernels, encoder_blocks)
+        grads = torch.autograd.grad(loss, params, allow_unused=True)
+        optimizer.step(grads)
+        return loss.detach(), {k: v.detach() for k, v in losses.items()}
+    n = batch["rgb_b3thw"].shape[0]
+    if n < axis_size(mesh, DATA):
+        raise ValueError(f"a batch of {n} clips leaves a rank of the {axis_size(mesh, DATA)} data ranks without one")
+    local = {k: shard_rows(torch.as_tensor(v), mesh) for k, v in batch.items()}
+    if drop_path_draws is not None:
+        drop_path_draws = BatchRows(drop_path_draws, n, *row_range(n, mesh))
+    loss, losses = l4p_loss(model, cfg, local, tasks, drop_path_draws, attention, track_kernels, encoder_blocks,
+                            mesh)
+    grads = torch.autograd.grad(loss, params, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+    group = axis_group(mesh, DATA)
+    all_reduce_coalesced_(grads, group)
+    optimizer.step(grads, functools.partial(global_sq_sum, names, mesh=mesh))
+    total = all_reduce_(torch.stack([loss.detach(), *(v.detach() for v in losses.values())]), group)
+    return total[0], dict(zip(losses, total[1:]))

@@ -10,6 +10,13 @@ reference skips, and writes checkpoints (`save`: one `torch.save` file with
 the model's state dict, the optimizer's state and the step, where the JAX
 trainer writes an orbax directory) that `restore` reads back. Validation
 and prediction run the port's `InferenceSession` under inference mode.
+
+With a `mesh` (parallel.make_mesh) every rank of the job runs the trainer
+on its shard of the model (parallel.shard_params, before the optimizer is
+made): `fit` takes each whole batch and `train_step` splits it, `save`
+gathers the weights and the optimizer's moments into one file that rank 0
+writes (the released layout, loadable without a mesh), `restore` reads it
+and takes this rank's shard, and only rank 0 writes the logs.
 """
 
 from __future__ import annotations
@@ -22,6 +29,7 @@ from typing import Callable, Dict, Iterable, Iterator, Mapping, Optional, Sequen
 
 import numpy as np
 import torch
+import torch.distributed as dist
 import torch.nn as nn
 
 from l4p_tpu_torch.config import L4PConfig
@@ -29,6 +37,7 @@ from l4p_tpu_torch.inference import InferenceSession
 from l4p_tpu_torch.metrics import l4p_metrics
 from l4p_tpu_torch.models.encoder import RandomDropPath
 from l4p_tpu_torch.models.l4p import L4P, Draws
+from l4p_tpu_torch.parallel.mesh import gather_params, gather_state, shard_state
 from l4p_tpu_torch.train import AdamW, make_optimizer, train_step, trainable_mask
 
 Model = Union[nn.Module, Mapping[str, torch.Tensor]]
@@ -62,21 +71,26 @@ class Trainer:
 
     def __init__(self, model_cfg: L4PConfig, tasks: Sequence[str], trainer_cfg: TrainerConfig = TrainerConfig(),
                  metrics_fn: Optional[Callable] = l4p_metrics, device: Union[str, torch.device] = "cuda",
-                 draws: Optional[Draws] = None):
+                 draws: Optional[Draws] = None, mesh=None):
         self.model_cfg = model_cfg
         self.tasks = tuple(tasks)
         self.cfg = trainer_cfg
         self.metrics_fn = metrics_fn
         self.device = torch.device(device)
-        self.session = InferenceSession(model_cfg, self.tasks, self.device, draws=draws)
+        self.mesh = mesh
+        self.is_main = mesh is None or dist.get_rank() == 0
+        self.session = InferenceSession(model_cfg, self.tasks, self.device, draws=draws, mesh=mesh)
         os.makedirs(trainer_cfg.out_dir, exist_ok=True)
         self._log_path = os.path.join(trainer_cfg.out_dir, "scalars.jsonl")
-        # the resolved run config (LightningCLI's save_config, reference main.py:11)
-        with open(os.path.join(trainer_cfg.out_dir, "config.json"), "w") as f:
-            json.dump({"tasks": list(self.tasks), "trainer": dataclasses.asdict(trainer_cfg),
-                       "model": repr(model_cfg)}, f, indent=2)
+        if self.is_main:
+            # the resolved run config (LightningCLI's save_config, reference main.py:11)
+            with open(os.path.join(trainer_cfg.out_dir, "config.json"), "w") as f:
+                json.dump({"tasks": list(self.tasks), "trainer": dataclasses.asdict(trainer_cfg),
+                           "model": repr(model_cfg)}, f, indent=2)
 
     def log(self, phase: str, step: int, scalars: Mapping[str, float]) -> None:
+        if not self.is_main:
+            return
         rec = {"step": step, **{f"scalars/{phase}/{k}": float(v) for k, v in scalars.items()}}
         with open(self._log_path, "a") as f:
             f.write(json.dumps(rec) + "\n")
@@ -119,9 +133,17 @@ class Trainer:
                               weight_decay=self.cfg.weight_decay, mask=trainable_mask(model, self.model_cfg))
 
     def save(self, model: L4P, optimizer: AdamW, step: int) -> str:
-        """`out_dir/ckpt_<step>.pt`: the model's state dict, the optimizer's state and the step."""
+        """`out_dir/ckpt_<step>.pt`: the model's state dict, the optimizer's
+        state and the step; under a mesh gathered whole (a collective) and
+        written by rank 0."""
         path = os.path.join(self.cfg.out_dir, f"ckpt_{step:07d}.pt")
-        torch.save({"model": model.state_dict(), "optimizer": optimizer.state_dict(), "step": step}, path)
+        state = optimizer.state_dict()
+        state.update(mu=gather_state(state["mu"], self.mesh), nu=gather_state(state["nu"], self.mesh))
+        ckpt = {"model": gather_params(model, self.mesh), "optimizer": state, "step": step}
+        if self.is_main:
+            torch.save(ckpt, path)
+        if self.mesh is not None:
+            dist.barrier()
         return path
 
     def restore(self, path: str, model: L4P, optimizer: Optional[AdamW] = None) -> Tuple[L4P, AdamW, int]:
@@ -129,9 +151,11 @@ class Trainer:
         the state into `optimizer` (a new one of `make_optimizer` if None);
         returns (model, optimizer, step)."""
         ckpt = torch.load(path, map_location=self.device, weights_only=True)
-        model.load_state_dict(ckpt["model"], strict=True)
+        model.load_state_dict(shard_state(ckpt["model"], self.mesh), strict=True)
         optimizer = self.make_optimizer(model) if optimizer is None else optimizer
-        optimizer.load_state_dict(ckpt["optimizer"])
+        state = ckpt["optimizer"]
+        state.update(mu=shard_state(state["mu"], self.mesh), nu=shard_state(state["nu"], self.mesh))
+        optimizer.load_state_dict(state)
         return model, optimizer, int(ckpt["step"])
 
     def fit(self, model: L4P, train_iter: Iterable[Mapping], val_iter: Optional[Callable[[], Iterable[Mapping]]] = None,
@@ -153,7 +177,7 @@ class Trainer:
                 continue
             data = {k: torch.as_tensor(v, device=self.device) for k, v in batch.items() if not isinstance(v, str)}
             loss, losses = train_step(model, optimizer, data, self.model_cfg, self.tasks,
-                                      drop_path_draws=RandomDropPath(0, step))
+                                      drop_path_draws=RandomDropPath(0, step), mesh=self.mesh)
             step += 1
             if step % self.cfg.log_every == 0:
                 scalars = {"loss": float(loss), **{k: float(v) for k, v in losses.items()}}

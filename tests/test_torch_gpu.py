@@ -1376,3 +1376,101 @@ def test_pretrain_cli_refuses_fp32_on_card(cuda, tmp_path, capsys):
         main(["--size", "tiny", "--fp32", "--out-dir", str(tmp_path / "never")])
     assert exit_info.value.code == 2 and "takes bf16 only" in capsys.readouterr().err
     assert not (tmp_path / "never").exists()
+
+
+# --- multi-GPU: the kernels at a rank's shapes, a one-rank NCCL session, the dry run ---
+
+# (kernel, size): the default encoder's chunk of 2 windows and its last chunk
+# of 1 at 8 of the 16 heads (a model axis of 2); the track chunk of 128
+# queries over a data axis of 2 and of 4
+SHARD_CASES = [("attention", (2, 8, 2048, 88)), ("attention", (1, 8, 2048, 88)),
+               ("t2i_flash", 64), ("t2i_flash", 32), ("i2t_ln_t2i", 64), ("i2t_ln_t2i", 32),
+               ("fused_upscale_hypernet", 64), ("fused_upscale_hypernet", 32)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kernel,size", SHARD_CASES)
+def test_kernels_at_shard_local_shapes_match_plain_on_card(cuda, kernel, size):
+    if kernel == "attention":
+        g = torch.Generator(device=cuda).manual_seed(0)
+        q, k, v = (torch.randn(size, generator=g, device=cuda).bfloat16() for _ in range(3))
+        err = (flash_attention(q, k, v, size[3] ** -0.5).float()
+               - flash_attention_plain(q, k, v, size[3] ** -0.5).float()).abs().max().item()
+        assert err <= 8e-3  # test_kernel_matches_plain_on_card's band
+    elif kernel == "fused_upscale_hypernet":
+        args = upscale_operands(size, 2048, 1408, 352, 176, 3, cuda)
+        assert band_err(FU.fused_upscale_hypernet(*args), FU.fused_upscale_hypernet_plain(*args)) <= UPSCALE_BAND
+    else:
+        o = keys_operands(size, 2048, 1408, 48, 48, cuda)
+        if kernel == "t2i_flash":
+            err = band_err(FK.t2i_flash(o["keys"], o["st"], o["spe"]), FK.t2i_flash_plain(o["keys"], o["st"], o["spe"]))
+        else:
+            args = [o[x] for x in ("keys", "r", "per", "v2", "ob", "lnw", "lnb", "st", "spe")]
+            err = max(band_err(a, b) for a, b in zip(FK.i2t_ln_t2i(*args, 8), FK.i2t_ln_t2i_plain(*args, 8)))
+        assert err <= KEYS_BAND
+
+
+@pytest.mark.gpu
+def test_one_rank_nccl_session_on_card_matches_the_session_without_a_mesh(cuda, tmp_path):
+    """The tiny model's five tasks through InferenceSession(mesh=) on an NCCL
+    group of one rank (a (1, 1) mesh): the same kernel launches and the same
+    outputs, bit for bit, as the session without a mesh."""
+    import dataclasses
+
+    import torch.distributed as dist
+
+    from l4p_tpu_torch import ALL_TASKS, L4P, InferenceSession
+    from l4p_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = tiny_cfg()
+    heads = tuple((n, dataclasses.replace(h, dpt=dataclasses.replace(h.dpt, output_size=(4, 8, 8))))
+                  if n == "camray" else (n, h) for n, h in cfg.heads)
+    cfg = dataclasses.replace(cfg, heads=heads)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    model = L4P(cfg, device=cuda, dtype=torch.bfloat16).eval()
+    model.init_weights(g)
+    n, t = 11, 8
+    k = torch.diag(torch.tensor([28.0, 28.0, 1.0, 1.0], device=cuda))
+    k[0, 2] = k[1, 2] = 14.0
+    data = {"rgb_u8_bthw3": torch.randint(0, 256, (1, t, 28, 28, 3), generator=g, device=cuda, dtype=torch.uint8),
+            "intrinsics_b44t": k[None, :, :, None].expand(1, 4, 4, t).contiguous(),
+            "track_2d_pointquerries_bn3": torch.stack([torch.rand(n, generator=g, device=cuda) * t,
+                                                       torch.rand(n, generator=g, device=cuda) * 28,
+                                                       torch.rand(n, generator=g, device=cuda) * 28], -1)[None],
+            "track_2d_pointlabels_bn": torch.ones((1, n), device=cuda)}
+    counters = (flash_attention, FK.t2i_flash, FK.i2t_ln_t2i, FU.fused_upscale_hypernet)
+    ref = InferenceSession(cfg, ALL_TASKS, cuda)(model, data)
+    dist.init_process_group("nccl", init_method=f"file://{tmp_path}/rendezvous", rank=0, world_size=1)
+    try:
+        before = [f.launches for f in counters]
+        out = InferenceSession(cfg, ALL_TASKS, cuda, mesh=make_mesh(1, 1, device=cuda))(model, data)
+        torch.cuda.synchronize()
+    finally:
+        dist.destroy_process_group()
+    nw, chunks = 3, 2
+    assert [f.launches - b for f, b in zip(counters, before)] == [4 * 2, nw * chunks, 2 * nw * chunks, nw * chunks]
+    assert set(out) == set(ref)
+    for key, r in ref.items():
+        assert torch.equal(out[key], r), key
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("procs,backend", [(1, "nccl"), (2, "gloo")])
+def test_dryrun_on_card(cuda, procs, backend):
+    """`torchrun -m l4p_tpu_torch.parallel.dryrun --device cuda` on the card:
+    one NCCL rank (a (1, 1) mesh), and two gloo ranks sharing the card (a
+    (1, 2) mesh: the encoder split over `model`, its training step too)."""
+    import math
+    import os
+    import re
+    import subprocess
+    import sys
+
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", str(procs), "-m",
+           "l4p_tpu_torch.parallel.dryrun", "--device", "cuda", "--backend", backend]
+    res = subprocess.run(cmd, capture_output=True, text=True, timeout=600,
+                         cwd=os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    assert res.returncode == 0, res.stderr[-3000:]
+    mesh = "{'data': 1, 'model': %d}" % procs
+    m = re.search(r"dryrun OK: mesh=(\{.*?\}) loss=(\S+) ", res.stdout)
+    assert m is not None and m.group(1) == mesh and math.isfinite(float(m.group(2))), res.stdout
