@@ -57,6 +57,7 @@ from l4p_tpu_torch.models.sam import KERNELS, TrackKernels
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 from l4p_tpu_torch.ops.fused_encoder import fused_encoder_blocks
 from l4p_tpu_torch.parallel.mesh import shard_params
+from l4p_tpu_torch.utils import profiling
 
 ALL_TASKS = ("flow_2d_backward", "track_2d", "depth", "dyn_mask", "camray")  # bench.py's request
 SLICE_TASKS = ("flow_2d_backward", "track_2d", "depth", "dyn_mask")  # the dense tasks and tracks
@@ -127,11 +128,18 @@ class InferenceSession:
         return self._loaded[1]
 
     def _encode(self, model: L4P, rgb, rgb_u8, intr, ext, hooks=None) -> Dict[str, object]:
-        return encode_windows(model.video_encoder, self.cfg, rgb, rgb_u8, self.attention, self.encoder_blocks, hooks,
-                              intr, ext, self.mesh)
+        with profiling.span("encode"):
+            return encode_windows(model.video_encoder, self.cfg, rgb, rgb_u8, self.attention, self.encoder_blocks,
+                                  hooks, intr, ext, self.mesh)
 
     @torch.inference_mode()
     def __call__(self, model_or_state, data: Mapping) -> Dict[str, torch.Tensor]:
+        with profiling.span("request", device=self.device):
+            return self._serve(model_or_state, data)
+
+    def _serve(self, model_or_state, data: Mapping) -> Dict[str, torch.Tensor]:
+        """The request's stages, each in its span (utils/profiling.py), each
+        called through this module's globals."""
         model = self.model(model_or_state)
         cfg = self.cfg
         rgb_u8 = data.get("rgb_u8_bthw3")
@@ -152,30 +160,37 @@ class InferenceSession:
         del enc
         img_info = tuple(cfg.window_size)
         stride, chunk = cfg.window_stride_t, cfg.dense_window_chunk
-        dense = {t_: run_dense_head(model.task_heads[t_], hooks, img_info, chunk, self.mesh)
-                 for t_ in self.stitch_tasks if t_ in DENSE_TASKS}
+
+        def dense_head(task):
+            with profiling.span("dense_head", task=task):
+                return run_dense_head(model.task_heads[task], hooks, img_info, chunk, self.mesh)
+
+        dense = {t_: dense_head(t_) for t_ in self.stitch_tasks if t_ in DENSE_TASKS}
         pose_w = intr_w = None
         if "camray" in self.stitch_tasks:
-            rays = run_dense_head(model.task_heads["camray"], hooks, img_info, chunk, self.mesh).float()
-            pose_w, intr_w = camray_windows_to_cameras(rays, cfg.head_dict["camray"], img_info, intr, stride,
-                                                       self.draws)
+            rays = dense_head("camray").float()
+            with profiling.span("camera_solve"):
+                pose_w, intr_w = camray_windows_to_cameras(rays, cfg.head_dict["camray"], img_info, intr, stride,
+                                                           self.draws)
             del rays
         rays_out = {}
         for t_ in self.rays_tasks:
             # raw rays, overwrite-stitched with no aligner (reference dense_heads.py:220-254)
             hcfg = cfg.head_dict[t_]
-            rays_out[f"{hcfg.task_name}_est_b{hcfg.out_nchan}thw"] = stitch_overwrite(
-                run_dense_head(model.task_heads[t_], hooks, img_info, chunk, self.mesh), stride, t)
+            rays_out[f"{hcfg.task_name}_est_b{hcfg.out_nchan}thw"] = stitch_overwrite(dense_head(t_), stride, t)
         del hooks  # the hook pyramid is freed before the track stage, the largest
-        out = stitch_dense_outputs(cfg, self.stitch_tasks, dense, stride, t, pose_w, intr_w, self.draws)
+        with profiling.span("stitch"):
+            out = stitch_dense_outputs(cfg, self.stitch_tasks, dense, stride, t, pose_w, intr_w, self.draws)
         out.update(rays_out)
         del dense, rays_out
         if "track_2d" in self.tasks:
             head, dirs = model.task_heads["track_2d"], tuple(cfg.track.estimation_directions)
             queries = torch.as_tensor(data["track_2d_pointquerries_bn3"], device=self.device)
             labels = torch.as_tensor(data["track_2d_pointlabels_bn"], device=self.device)
-            fwd = run_track_chunked(head, final, queries, labels, stride, self.track_kernels,
-                                    self.mesh) if 1 in dirs else None
+            fwd = None
+            if 1 in dirs:
+                with profiling.span("track", direction=1):
+                    fwd = run_track_chunked(head, final, queries, labels, stride, self.track_kernels, self.mesh)
             del final  # freed before the flipped video is encoded, so peak memory does not double
             if -1 in dirs:
                 # the backward pass encodes the time-flipped video, its cameras flipped with it (the
@@ -183,8 +198,9 @@ class InferenceSession:
                 # sparse_heads.py:242-245; l4p_tpu/models/l4p.py:743-752)
                 flipped = self._encode(model, *(None if v is None else v.flip(d) for v, d in
                                                 ((rgb, 2), (rgb_u8, 1), (intr, 3), (ext, 3))), hooks=())["final"]
-                bwd = run_track_chunked(head, flipped, flip_query_times(queries, t), labels, stride,
-                                        self.track_kernels, self.mesh)
+                with profiling.span("track", direction=-1):
+                    bwd = run_track_chunked(head, flipped, flip_query_times(queries, t), labels, stride,
+                                            self.track_kernels, self.mesh)
                 del flipped
                 fwd = merge_directions(fwd, {k: v.flip(-1) for k, v in bwd.items()}, queries, t)
             out.update(fwd)

@@ -477,8 +477,8 @@ def run_track_chunked(head: TrackHead, enc_final: torch.Tensor, queries: torch.T
     del labels
     nd = axis_size(mesh, DATA)
     outs = []
-    for q in query_chunks(queries, head.cfg.max_queries, nd):
-        o = track_forward_windowed(head, head.cfg, enc_final, shard_rows(q, mesh, dim=1), None, stride, kernels)
+    for i, q in enumerate(query_chunks(queries, head.cfg.max_queries, nd)):
+        o = track_forward_windowed(head, head.cfg, enc_final, shard_rows(q, mesh, dim=1), None, stride, kernels, i)
         outs.append({k: gather_rows(v, q.shape[1], mesh, dim=1) for k, v in o.items()})
     return {k: merge_query_chunks(torch.stack([o[k] for o in outs]), queries.shape[1]) for k in outs[0]}
 

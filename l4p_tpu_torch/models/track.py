@@ -31,6 +31,7 @@ from l4p_tpu_torch.models.sam import (
 from l4p_tpu_torch.ops.conv import linear
 from l4p_tpu_torch.ops.misc import apply_fn
 from l4p_tpu_torch.ops.resize import interp_matrix
+from l4p_tpu_torch.utils import profiling
 
 XY_CHUNK = 32  # queries per full-resolution heatmap (the heatmap is the head's largest tensor)
 TRACK_BUFFERS = ("traj", "vis", "depth")  # the windowed scan's per-frame outputs
@@ -285,18 +286,21 @@ def track_outputs(cfg: TrackConfig, parts: Dict[str, torch.Tensor]) -> Dict[str,
 
 def track_forward_windowed(head: TrackHead, cfg: TrackConfig, enc_final_wbpc: torch.Tensor,
                            queries_bn3: torch.Tensor, labels_bn: Optional[torch.Tensor], window_stride: int = 8,
-                           kernels: TrackKernels = KERNELS) -> Dict[str, torch.Tensor]:
+                           kernels: TrackKernels = KERNELS, chunk: int = 0) -> Dict[str, torch.Tensor]:
     """Causal sliding-window tracking, forward direction: `track_window_step`
     over the windows of enc_final_wbpc (num_windows, B, P, C) -> traj (B, N,
     2, T), vis and depth (B, N, 1, T). Frames before a query's time keep the
     buffers' initial values. The labels are recomputed per window from the
-    queries' validity, as the reference does."""
+    queries' validity, as the reference does. `chunk` (the query chunk's
+    index) labels each window's span."""
     del labels_bn
     nw, _, p, _ = enc_final_wbpc.shape
     carry = init_track_carry(head, cfg, queries_bn3, p, enc_final_wbpc.dtype)
     emits = []
     for w in range(nw):
-        carry, emit = track_window_step(head, cfg, carry, enc_final_wbpc[w], queries_bn3, w, window_stride, kernels)
+        with profiling.span("track.window", window=w, chunk=chunk):
+            carry, emit = track_window_step(head, cfg, carry, enc_final_wbpc[w], queries_bn3, w, window_stride,
+                                            kernels)
         emits.append(emit)
     emits.append(track_tail(carry, window_stride))
     return track_outputs(cfg, {k: torch.cat([e[k] for e in emits], dim=-1) for k in TRACK_BUFFERS})
