@@ -4,9 +4,9 @@
 
 Phases; a failed check fails the run (non-zero exit, no result lines):
   1. build the kernels (csrc/flash_attention.cu, fused_keys.cu,
-     fused_upscale.cu, fused_encoder.cu) with nvcc for sm_90a, one nvcc per
-     library, all started together, and print the build seconds and ptxas
-     lines;
+     fused_upscale.cu, fused_encoder.cu, resize.cu) with nvcc for sm_90a, one
+     nvcc per library, all started together, and print the build seconds and
+     ptxas lines;
   2. hold each kernel against its plain PyTorch version and time both,
      beside its bound (the larger of its FLOP over the bf16 peak and its
      bytes, each input read once and each output written once, over the
@@ -30,6 +30,13 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      block's four products (qkv, proj, fc1, fc2) at M = 4096 and 10240,
      against its plain version (GEMM_BAND) and beside torch.matmul (timed
      through its launch thunk and through the gemm_nt wrapper); all bf16;
+     interpolate_trilinear at the DPT heads' five resizes (2 windows a head
+     call, bf16, channels_last_3d, align_corners), equal to F.interpolate
+     bit for bit, its device ms beside F.interpolate's (the plain version
+     and the one library call are that one call) and the bytes bound; the
+     session phases 4, 7 and 10 check its launches: 5 a head call of flow,
+     depth and dyn_mask (four fusion upsamples and the final resize), 2 of
+     camray's, whose last two fusions and final resize keep the size;
   3. build the released giant model (ViT-giant encoder, flow/depth/dyn_mask
      and camray DPT heads, the track head, configs/model.yaml values) with
      random bf16 weights from a seeded generator, tracking 128 queries per
@@ -679,6 +686,70 @@ def compare_fused_encoder(FE, cfg, b, n, ends, bands, gen, iters, log, checks, w
 # (name, epilogue, N, K) of a giant block's four products (E = 1408, MLP 6144)
 BLOCK_PRODUCTS = (("qkv", "QKV", 4224, 1408), ("proj", "RESIDUAL", 1408, 1408), ("fc1", "GELU", 6144, 1408),
                   ("fc2", "RESIDUAL", 1408, 6144))
+
+
+# the DPT heads' five resizes at a head call of 2 windows: the four fusion
+# upsamples (256 channels) and the final resize to the window (128)
+DPT_RESIZES = (((2, 256, 4, 8, 8), (8, 16, 16)), ((2, 256, 8, 16, 16), (16, 32, 32)),
+               ((2, 256, 16, 32, 32), (16, 64, 64)), ((2, 256, 16, 64, 64), (16, 128, 128)),
+               ((2, 128, 16, 128, 128), (16, 224, 224)))
+RESIZES_PER_HEAD_CALL = {"camray": 2, "camera_rays": 2}  # the others' DPT: 5
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """fn's device time: the launches queue behind a sleeping kernel, so the
+    host's time to launch them is not counted."""
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def compare_resizes(RS, dev, log, checks) -> list:
+    """interpolate_trilinear at DPT_RESIZES in bf16, channels_last_3d as the
+    DPT trunk's convs hand it over: equal to F.interpolate, device ms in turns
+    with it (F.interpolate, kernel, kernel, F.interpolate). Its inputs come
+    from a generator of its own, so the later phases draw what they drew
+    before it was added."""
+    gen = torch.Generator(device=dev).manual_seed(18)
+    rows, total = [], [0.0, 0.0, 0.0]
+    for shape, size in DPT_RESIZES:
+        x = torch.randn(shape, generator=gen, device=gen.device).bfloat16().contiguous(
+            memory_format=torch.channels_last_3d)
+        kernel = functools.partial(RS.interpolate_trilinear, x, size, True)
+        plain = functools.partial(F.interpolate, x, size=size, mode="trilinear", align_corners=True)
+        checks.expect(torch.equal(kernel(), plain()),
+                      f"interpolate_trilinear {shape} -> {size} differs from F.interpolate")
+        p1, k1, k2, p2 = device_ms(plain), device_ms(kernel), device_ms(kernel), device_ms(plain)
+        rec = {"shape": list(shape), "size": list(size), "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2,
+               **bound(0.0, (x.numel() + shape[0] * shape[1] * math.prod(size)) * x.element_size())}
+        rec["library_ms"] = rec["plain_ms"]
+        for i, key in enumerate(("ms", "plain_ms", "bound_ms")):
+            total[i] += rec[key]
+        log(f"interpolate_trilinear {tuple(shape)} -> {size} bf16: kernel {rec['ms']:.4f} ms, F.interpolate (the "
+            f"plain version and the one library call) {rec['plain_ms']:.4f} ms; {bound_text(rec)}")
+        rows.append(rec)
+        del x
+    log(f"interpolate_trilinear, the five resizes of a head call: kernel {total[0]:.4f} ms, F.interpolate "
+        f"{total[1]:.4f} ms, bound {total[2]:.4f} ms")
+    return rows
+
+
+def resize_launches(cfg, tasks, frames: int) -> int:
+    """interpolate_trilinear's launches for one request: each DPT head runs
+    its windows dense_window_chunk at a time, RESIZES_PER_HEAD_CALL a call."""
+    from l4p_tpu_torch.models.l4p import num_windows
+
+    calls = math.ceil(num_windows(cfg, frames) / cfg.dense_window_chunk)
+    heads = [t for t in tasks if t in cfg.head_dict]
+    return calls * sum(RESIZES_PER_HEAD_CALL.get(t, 5) for t in heads)
 
 
 def compare_block_products(FE, gen, log, checks) -> dict:
@@ -2254,6 +2325,7 @@ def main() -> int:
     from l4p_tpu_torch.ops import fused_encoder as FE
     from l4p_tpu_torch.ops import fused_keys as FK
     from l4p_tpu_torch.ops import fused_upscale as FU
+    from l4p_tpu_torch.ops import resize as RS
 
     card = card_line()
     print(f"card: {card}", flush=True)
@@ -2270,7 +2342,8 @@ def main() -> int:
     t_start = time.perf_counter()
 
     # 1. build, one nvcc per library, all at once
-    libraries = {FA.NAME: FA.SOURCES, FK.NAME: FK.SOURCES, FU.NAME: FU.SOURCES, FE.NAME: FE.SOURCES}
+    libraries = {FA.NAME: FA.SOURCES, FK.NAME: FK.SOURCES, FU.NAME: FU.SOURCES, FE.NAME: FE.SOURCES,
+                 RS.NAME: RS.SOURCES}
     t0 = time.perf_counter()
     seconds = _build.build_all(libraries)
     log(f"built {len(libraries)} kernel libraries in {time.perf_counter() - t0:.2f} s wall: "
@@ -2325,6 +2398,7 @@ def main() -> int:
     compare_fused_encoder(FE, small, 2, 300, (1, 2), {1: RAGGED_ENCODER_BAND, 2: RAGGED_ENCODER_BAND}, gen, 20,
                           log, checks)
     record["fused_encoder_blocks"]["products"] = compare_block_products(FE, gen, log, checks)
+    resizes = compare_resizes(RS, dev, log, checks)
     torch.cuda.empty_cache()
 
     # 3. the released giant model, random bf16 weights
@@ -2367,14 +2441,17 @@ def main() -> int:
         nw = PL.num_windows(cfg, frames)
         want = cfg.encoder.depth * math.ceil(nw / cfg.enc_window_chunk)
         times = []
+        want_resizes = resize_launches(cfg, dense_tasks, frames)
         for _ in range(REPEATS):
-            before = FA.flash_attention.launches
+            before, resizes_before = FA.flash_attention.launches, RS.interpolate_trilinear.launches
             t0 = time.perf_counter()
             out = sess(model, {"rgb_u8_bthw3": videos[frames]})
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
             got = FA.flash_attention.launches - before
             checks.expect(got == want, f"{got} kernel launches for {frames} frames, expected {want}")
+            got = RS.interpolate_trilinear.launches - resizes_before
+            checks.expect(got == want_resizes, f"{got} resize launches for {frames} frames, expected {want_resizes}")
             check_outputs(out, DENSE_KEYS, frames, hw, checks)
         outputs[frames] = out
         best = min(times)
@@ -2437,7 +2514,7 @@ def main() -> int:
     for n in (*TRACK_QUERIES, PADDED_QUERIES):
         times = []
         for _ in range(REPEATS if n in TRACK_QUERIES else 1):
-            before = counts()
+            before, resizes_before = counts(), RS.interpolate_trilinear.launches
             t0 = time.perf_counter()
             out = sess(model, requests[n])
             torch.cuda.synchronize()
@@ -2445,6 +2522,9 @@ def main() -> int:
             got = {name: c - before[name] for name, c in counts().items()}
             checks.expect(got == expected(n, False), f"kernel launches {got} at {n} queries, "
                                                      f"expected {expected(n, False)}")
+            got = RS.interpolate_trilinear.launches - resizes_before
+            want = resize_launches(cfg, tasks, TRACK_FRAMES)
+            checks.expect(got == want, f"{got} resize launches at {n} queries, expected {want}")
             check_outputs(out, {**DENSE_KEYS, **TRACK_KEYS}, TRACK_FRAMES, hw, checks,
                           requests[n]["track_2d_pointquerries_bn3"])
         if n == TRACK_QUERIES[0]:
@@ -2529,7 +2609,7 @@ def main() -> int:
         inner0 = FE.fused_encoder_blocks.kernel_launches
         times = []
         for _ in range(REPEATS):
-            before = counts()
+            before, resizes_before = counts(), RS.interpolate_trilinear.launches
             t0 = time.perf_counter()
             out = sess_a(model, request)
             torch.cuda.synchronize()
@@ -2537,6 +2617,9 @@ def main() -> int:
             got = {name: c_ - before[name] for name, c_ in counts().items()}
             checks.expect(got == expected(n_q, fused), f"kernel launches {got} on the all-task request ({label}), "
                                                        f"expected {expected(n_q, fused)}")
+            got = RS.interpolate_trilinear.launches - resizes_before
+            want = resize_launches(c, P.ALL_TASKS, TRACK_FRAMES)
+            checks.expect(got == want, f"{got} resize launches on the all-task request ({label}), expected {want}")
             check_outputs(out, {**DENSE_KEYS, **TRACK_KEYS, **CAMRAY_KEYS}, TRACK_FRAMES, hw, checks,
                           request["track_2d_pointquerries_bn3"])
         got_counts = counts()
@@ -2867,6 +2950,8 @@ def main() -> int:
     sources = {"flash_attention": "flash_attention.cu", "t2i_flash": "fused_keys.cu", "i2t_ln_t2i": "fused_keys.cu",
                "fused_upscale_hypernet": "fused_upscale.cu", "fused_encoder_blocks": "fused_encoder.cu"}
     launches = {**main_counts, "fused_encoder_blocks": fused_counts["fused_encoder_blocks"]}
+    print(json.dumps({"card": card, "interpolate_trilinear": {
+        "route": "cuda", "source": "l4p_tpu_torch/csrc/resize.cu", "replaces": None, "resizes": resizes}}))
     print(json.dumps({"card": card, "kernels": [{
         "name": name,
         "route": "cuda",

@@ -5,16 +5,35 @@ The JAX package builds per-axis interpolation matrices because
 jax.image.resize has no align_corners=True mode; F.interpolate has both
 modes, and given the explicit output size it computes the same sampling
 positions. `interp_matrix` is kept for the track head's exact column means.
+
+`interpolate_trilinear` launches ``csrc/resize.cu`` for CUDA tensors: a
+hand-written kernel that replaces no TPU kernel (the source's header says
+why it exists, what bounds it and how the design answers that) and equals
+F.interpolate bit for bit, in the memory format F.interpolate keeps (the DPT
+trunk's tensors are channels_last_3d). For tensors on the CPU it runs
+F.interpolate, the plain version; for CUDA tensors it launches the kernel or
+raises, never falls back. On either device it goes through
+`TrilinearFunction`, whose backward recomputes the plain version
+(ops/recompute.py).
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import math
-from typing import Sequence
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from l4p_tpu_torch import _build
+from l4p_tpu_torch.ops.recompute import recompute_grads
+
+NAME = "resize"
+SOURCES = ("resize.cu",)
+ENTRY = {torch.bfloat16: "l4p_resize_trilinear_bf16", torch.float32: "l4p_resize_trilinear_f32"}
 
 
 def interp_matrix(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
@@ -36,12 +55,74 @@ def interp_matrix(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
     return m.astype(np.float32)
 
 
+def interpolate_trilinear_plain(x: torch.Tensor, size: Tuple[int, int, int], align_corners: bool) -> torch.Tensor:
+    return F.interpolate(x, size=size, mode="trilinear", align_corners=align_corners)
+
+
+@functools.lru_cache(maxsize=None)
+def _kernel(dtype: torch.dtype):
+    """The entry point for `dtype`, built and bound once (a head call makes five resizes)."""
+    fn = getattr(_build.load(NAME, SOURCES), ENTRY[dtype])
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _forward(x: torch.Tensor, size: Tuple[int, int, int], align_corners: bool) -> torch.Tensor:
+    if x.device.type == "cpu":
+        return interpolate_trilinear_plain(x, size, align_corners)
+    if x.device.type != "cuda":
+        raise ValueError(f"interpolate_trilinear: a CPU or CUDA tensor, got {x.device}")
+    if x.dtype not in ENTRY:
+        raise TypeError(f"interpolate_trilinear: the kernel takes bf16 or fp32, got {x.dtype}")
+    if x.dim() != 5:
+        raise ValueError(f"interpolate_trilinear: x must be (B, C, T, H, W), got {tuple(x.shape)}")
+    b, c = x.shape[:2]
+    # the kernel reads (N, T, H, W, C): channels_last_3d as it is (the DPT trunk's convs hand that over, and
+    # F.interpolate keeps it), NCDHW as C = 1 and N the planes
+    if x.is_contiguous():
+        n, ch, fmt = b * c, 1, torch.contiguous_format
+    elif x.is_contiguous(memory_format=torch.channels_last_3d):
+        n, ch, fmt = b, c, torch.channels_last_3d
+    else:
+        raise ValueError("interpolate_trilinear: x must be contiguous, NCDHW or channels_last_3d")
+    out = torch.empty((b, c, *size), device=x.device, dtype=x.dtype, memory_format=fmt)
+    with torch.cuda.device(x.device):
+        err = _kernel(x.dtype)(x.data_ptr(), out.data_ptr(), n, ch, *x.shape[2:], *size, int(align_corners),
+                               torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"interpolate_trilinear: kernel launch failed with CUDA error {err}")
+    interpolate_trilinear.launches += 1
+    return out
+
+
+class TrilinearFunction(torch.autograd.Function):
+    """The kernel forward (F.interpolate on the CPU); the backward
+    recomputes `interpolate_trilinear_plain`."""
+
+    @staticmethod
+    def forward(ctx, x, size, align_corners):
+        ctx.save_for_backward(x)
+        ctx.size, ctx.align_corners = size, align_corners
+        return _forward(x, size, align_corners)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        (gx,) = recompute_grads(lambda t: interpolate_trilinear_plain(t, ctx.size, ctx.align_corners), (x,),
+                                ctx.needs_input_grad[:1], (grad,))
+        return gx, None, None
+
+
 def interpolate_trilinear(x: torch.Tensor, size: Sequence[int], align_corners: bool = False) -> torch.Tensor:
     """x: (B, C, T, H, W) -> (B, C, *size); F.interpolate(mode='trilinear')."""
     size = tuple(int(s) for s in size)
-    if tuple(x.shape[-3:]) == size:
+    if tuple(x.shape[-3:]) == size and x.dim() == 5:
         return x
-    return F.interpolate(x, size=size, mode="trilinear", align_corners=align_corners)
+    return TrilinearFunction.apply(x, size, bool(align_corners))
+
+
+interpolate_trilinear.launches = 0  # kernel launches since the last reset
 
 
 def interpolate_scale(x: torch.Tensor, scale_factor: Sequence[float], align_corners: bool = True) -> torch.Tensor:

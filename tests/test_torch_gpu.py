@@ -285,6 +285,78 @@ def test_track_kernels_raise_instead_of_falling_back(cuda):
         FU.fused_upscale_hypernet(*wide)
 
 
+# the DPT heads' five resizes at the heads' widths, per window: the four
+# fusion upsamples (256 channels) and the final resize to the window (128)
+DPT_RESIZES = [((256, 4, 8, 8), (8, 16, 16)), ((256, 8, 16, 16), (16, 32, 32)), ((256, 16, 32, 32), (16, 64, 64)),
+               ((256, 16, 64, 64), (16, 128, 128)), ((128, 16, 128, 128), (16, 224, 224))]
+
+
+def resize_equal(x, size, align_corners):
+    """The kernel against F.interpolate, bit for bit and in the same memory
+    format, and one launch a call."""
+    import torch.nn.functional as F
+
+    from l4p_tpu_torch.ops.resize import interpolate_trilinear
+
+    before = interpolate_trilinear.launches
+    out = interpolate_trilinear(x, size, align_corners)
+    torch.cuda.synchronize()
+    assert interpolate_trilinear.launches == before + 1
+    ref = F.interpolate(x, size=size, mode="trilinear", align_corners=align_corners)
+    assert torch.equal(out, ref)
+    assert [out.is_contiguous(memory_format=f) for f in (torch.contiguous_format, torch.channels_last_3d)] == [
+        ref.is_contiguous(memory_format=f) for f in (torch.contiguous_format, torch.channels_last_3d)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [torch.channels_last_3d, torch.contiguous_format])
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("shape,size", DPT_RESIZES)
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resize_equals_interpolate_on_card_at_dpt_shapes(cuda, dtype, align_corners, shape, size, batch, layout):
+    """channels_last_3d is the layout the DPT trunk's convs hand over."""
+    g = torch.Generator(device=cuda).manual_seed(5)
+    x = torch.randn((batch, *shape), generator=g, device=cuda).to(dtype).contiguous(memory_format=layout)
+    resize_equal(x, size, align_corners)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,size", [
+    ((1, 3, 5, 7, 9), (11, 13, 29)),     # W_out not a multiple of 8
+    ((1, 2, 1, 1, 1), (3, 4, 5)),        # input axes of size 1
+    ((2, 3, 6, 6, 6), (1, 1, 1)),        # output axes of size 1
+    ((2, 8, 50, 40, 100), (13, 17, 37)),  # a downscale
+    ((2, 4, 6, 10, 16), (6, 20, 32)),    # an identity axis
+    ((1, 2, 3, 4, 100), (5, 6, 300)),    # long rows
+    ((2, 12, 4, 5, 6), (7, 9, 11)),      # channels_last with channels not a multiple of the 16-byte vector
+])
+@pytest.mark.parametrize("layout", [torch.channels_last_3d, torch.contiguous_format])
+@pytest.mark.parametrize("align_corners", [True, False])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_resize_equals_interpolate_on_card_at_edges(cuda, dtype, align_corners, shape, size, layout):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    resize_equal(torch.randn(shape, generator=g, device=cuda).to(dtype).contiguous(memory_format=layout), size,
+                 align_corners)
+
+
+@pytest.mark.gpu
+def test_resize_raises_instead_of_falling_back(cuda):
+    from l4p_tpu_torch.ops.resize import interpolate_trilinear
+
+    x = torch.randn((1, 2, 4, 8, 8), device=cuda)
+    before = interpolate_trilinear.launches
+    with pytest.raises(ValueError, match="contiguous"):
+        interpolate_trilinear(x.transpose(3, 4), (8, 16, 16), True)
+    with pytest.raises(ValueError, match="contiguous"):
+        interpolate_trilinear(x[..., ::2], (8, 16, 16), True)
+    with pytest.raises(TypeError):
+        interpolate_trilinear(x.half(), (8, 16, 16), True)
+    with pytest.raises(ValueError, match="B, C, T, H, W"):
+        interpolate_trilinear(x[0], (8, 16, 16), True)
+    assert interpolate_trilinear.launches == before
+
+
 # per hook end: max |kernel - plain| <= band * max |plain hook|. Both paths
 # round q/k/v, probabilities, GELU outputs and every residual add to bf16 but
 # sum in other orders, so a value can land one bf16 step apart and the

@@ -267,15 +267,51 @@ def test_interpolate_scale_matches_jax(sf):
     check(PRES.interpolate_scale(T(x), sf), interpolate_scale(J(x), sf, align_corners=True), 8e-7)  # measured <= 3.9e-7
 
 
+# the DPT heads' five resizes (four fusion upsamples, the final resize to the
+# window) at a small channel count
+DPT_RESIZES = [((1, 2, 4, 8, 8), (8, 16, 16)), ((1, 2, 8, 16, 16), (16, 32, 32)), ((1, 2, 16, 32, 32), (16, 64, 64)),
+               ((1, 2, 16, 64, 64), (16, 128, 128)), ((1, 1, 16, 128, 128), (16, 224, 224))]
+
+
+# tolerances about twice the error measured at each shape (at most 3.5e-6,
+# 2.6e-6, 3.8e-6, 9.7e-6, 4.4e-5): the JAX package builds fp32 interpolation
+# matrices from float64 positions, torch computes each position in fp32 as
+# scale * index, whose error grows with the output index
+@pytest.mark.parametrize("shape,size,tol", [((1, 2, 4, 16, 16), (4, 28, 28), 7e-6)]
+                         + [(*r, tol) for r, tol in zip(DPT_RESIZES, (7e-6, 7e-6, 7e-6, 2e-5, 9e-5))])
 @pytest.mark.parametrize("align_corners", [True, False])
-def test_interpolate_trilinear_matches_jax(align_corners):
+def test_interpolate_trilinear_matches_jax(align_corners, shape, size, tol):
     from l4p_tpu.ops.resize import interpolate_trilinear
 
-    x, size = rand((1, 2, 4, 16, 16), 0), (4, 28, 28)
+    x = rand(shape, 0)
     port = PRES.interpolate_trilinear(T(x), size, align_corners)
-    # measured <= 3.5e-6: the JAX package builds fp32 interpolation matrices
-    # from float64 positions, torch computes the weights in fp32
-    check(port, interpolate_trilinear(J(x), size, align_corners=align_corners), 7e-6)
+    check(port, interpolate_trilinear(J(x), size, align_corners=align_corners), tol)
+
+
+@pytest.mark.parametrize("shape,size", DPT_RESIZES[:3])
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_interpolate_trilinear_on_cpu_is_the_plain_version(align_corners, shape, size):
+    """CPU tensors take F.interpolate and launch nothing."""
+    x = T(rand(shape, 1))
+    before = PRES.interpolate_trilinear.launches
+    out = PRES.interpolate_trilinear(x, size, align_corners)
+    assert PRES.interpolate_trilinear.launches == before
+    assert torch.equal(out, torch.nn.functional.interpolate(x, size=size, mode="trilinear",
+                                                            align_corners=align_corners))
+
+
+@pytest.mark.parametrize("shape,size", [((2, 3, 4, 5, 6), (7, 9, 11)), ((1, 2, 6, 8, 8), (3, 5, 8))])
+@pytest.mark.parametrize("align_corners", [True, False])
+def test_interpolate_trilinear_gradient_matches_plain(align_corners, shape, size):
+    """The autograd.Function's backward (the plain version recomputed)
+    gives F.interpolate's gradient, up- and downsampling."""
+    x = T(rand(shape, 2)).requires_grad_(True)
+    g = T(rand((shape[0], shape[1], *size), 3))
+    (got,) = torch.autograd.grad(PRES.interpolate_trilinear(x, size, align_corners), x, g)
+    ref_x = x.detach().clone().requires_grad_(True)
+    ref = torch.nn.functional.interpolate(ref_x, size=size, mode="trilinear", align_corners=align_corners)
+    (want,) = torch.autograd.grad(ref, ref_x, g)
+    assert torch.equal(got, want)
 
 
 @pytest.mark.parametrize("n_in,n_out", [(8, 16), (16, 224), (5, 3), (7, 7), (1, 4)])
