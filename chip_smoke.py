@@ -37,6 +37,16 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      session phases 4, 7 and 10 check its launches: 5 a head call of flow,
      depth and dyn_mask (four fusion upsamples and the final resize), 2 of
      camray's, whose last two fusions and final resize keep the size;
+     VGGT's cell (64 frames of 294 x 518): the attention at its frame (64,
+     16, 782, 64) and global (1, 16, 50048, 64) shapes against the plain
+     version computed 1024 queries at a time (max |error| over max |plain|,
+     VGGT_ATTENTION_TOL) and beside scaled_dot_product_attention; the
+     resize kernel at its DPT heads' five bilinear resizes (an 8-frame
+     chunk, bf16, channels_last, align_corners) equal to F.interpolate bit
+     for bit; one launch a call; then one request of VGGT-1B at the cell's
+     shapes through InferenceSession, its launches counted (a launch a
+     transformer block; 5 resizes a DPT head call of 8 frames) and its
+     outputs finite;
   3. build the released giant model (ViT-giant encoder, flow/depth/dyn_mask
      and camray DPT heads, the track head, configs/model.yaml values) with
      random bf16 weights from a seeded generator, tracking 128 queries per
@@ -694,6 +704,14 @@ DPT_RESIZES = (((2, 256, 4, 8, 8), (8, 16, 16)), ((2, 256, 8, 16, 16), (16, 32, 
                ((2, 256, 16, 32, 32), (16, 64, 64)), ((2, 256, 16, 64, 64), (16, 128, 128)),
                ((2, 128, 16, 128, 128), (16, 224, 224)))
 RESIZES_PER_HEAD_CALL = {"camray": 2, "camera_rays": 2}  # the others' DPT: 5
+# VGGT's cell (portbench/traffic/vggt-64f-294x518.json): frame and global
+# attention; the DPT heads' five bilinear resizes of an 8-frame chunk
+VGGT_ATTENTION = ((64, 16, 782, 64), (1, 16, 50048, 64))
+VGGT_RESIZES = (((8, 256, 11, 19), (21, 37)), ((8, 256, 21, 37), (42, 74)), ((8, 256, 42, 74), (84, 148)),
+                ((8, 256, 84, 148), (168, 296)), ((8, 128, 168, 296), (294, 518)))
+# the attention kernel against its plain version at VGGT's shapes, max
+# |error| over max |plain|
+VGGT_ATTENTION_TOL = 0.02
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -750,6 +768,84 @@ def resize_launches(cfg, tasks, frames: int) -> int:
     calls = math.ceil(num_windows(cfg, frames) / cfg.dense_window_chunk)
     heads = [t for t in tasks if t in cfg.head_dict]
     return calls * sum(RESIZES_PER_HEAD_CALL.get(t, 5) for t in heads)
+
+
+def compare_vggt_kernels(FA, RS, dev, log, checks) -> dict:
+    """The attention and resize kernels at VGGT's cell's shapes, and one
+    VGGT-1B request at them (phase 2's docstring). Inputs and weights from
+    a generator of its own, so the later phases draw what they drew before
+    it was added."""
+    from l4p_tpu_torch.config import VGGT_TASKS, VGGTConfig
+    from l4p_tpu_torch.inference import InferenceSession
+    from l4p_tpu_torch.models.vggt import VGGT
+    from portbench.weights import seeded_state_dict
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+    rec = {"attention": [], "resize": []}
+    for shape in VGGT_ATTENTION:
+        b, h, n, d = shape
+        q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16() for _ in range(3))
+        scale = d ** -0.5
+        before = FA.flash_attention.launches
+        out = FA.flash_attention(q, k, v, scale)
+        launches = FA.flash_attention.launches - before
+        err = top = 0.0
+        for i in range(0, n, 1024):  # a row's softmax is its own: the plain version a block of queries at a time
+            plain = FA.flash_attention_plain(q[:, :, i:i + 1024], k, v, scale).float()
+            err = max(err, (out[:, :, i:i + 1024].float() - plain).abs().max().item())
+            top = max(top, plain.abs().max().item())
+            del plain
+        ms = time_ms(lambda: FA.flash_attention(q, k, v, scale), 10)
+        r = {"shape": list(shape), "max_abs_err": err, "max_abs_plain": top, "ms": ms,
+             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 10),
+             **bound(4 * b * h * n * n * d, nbytes(q, k, v, out))}
+        log(f"attention {shape} bf16 (VGGT): max|kernel-plain| {err:.3g} = {err / top:.3g} of max|plain| {top:.3g} "
+            f"(tol {VGGT_ATTENTION_TOL}), {launches} launch; kernel {ms:.4f} ms "
+            f"({4 * b * h * n * n * d / ms / 1e9:.1f} TFLOP/s), scaled_dot_product_attention {r['library_ms']:.4f} ms; "
+            f"{bound_text(r)}")
+        checks.expect(launches == 1, f"attention {shape}: {launches} launches, expected 1")
+        checks.expect(math.isfinite(err) and err <= VGGT_ATTENTION_TOL * top,
+                      f"attention kernel vs plain at {shape}: {err} against max|plain| {top}")
+        rec["attention"].append(r)
+        del q, k, v, out
+    for shape, size in VGGT_RESIZES:
+        x = torch.randn(shape, generator=gen, device=dev).bfloat16().contiguous(memory_format=torch.channels_last)
+        before = RS.interpolate_trilinear.launches
+        got = RS.interpolate_bilinear(x, size, True)
+        launches = RS.interpolate_trilinear.launches - before
+        checks.expect(launches == 1 and torch.equal(got, F.interpolate(x, size=size, mode="bilinear",
+                                                                       align_corners=True)),
+                      f"interpolate_bilinear {shape} -> {size}: {launches} launches, or differs from F.interpolate")
+        kernel = functools.partial(RS.interpolate_bilinear, x, size, True)
+        plain = functools.partial(F.interpolate, x, size=size, mode="bilinear", align_corners=True)
+        p1, k1, k2, p2 = device_ms(plain), device_ms(kernel), device_ms(kernel), device_ms(plain)
+        r = {"shape": list(shape), "size": list(size), "ms": (k1 + k2) / 2, "library_ms": (p1 + p2) / 2,
+             **bound(0.0, (x.numel() + shape[0] * shape[1] * math.prod(size)) * x.element_size())}
+        log(f"interpolate_bilinear {shape} -> {size} bf16 (VGGT): {launches} launch, kernel {r['ms']:.4f} ms, "
+            f"F.interpolate {r['library_ms']:.4f} ms; {bound_text(r)}")
+        rec["resize"].append(r)
+        del x, got
+    cfg = VGGTConfig()
+    frames, hw = 64, (294, 518)
+    model = VGGT(cfg, device=dev, dtype=torch.bfloat16).eval()
+    model.load_state_dict(seeded_state_dict(model, 19, dev, torch.bfloat16), strict=True)  # the benchmark's scales
+    video = torch.randint(0, 256, (1, frames, *hw, 3), generator=gen, device=dev, dtype=torch.uint8)
+    before = FA.flash_attention.launches, RS.interpolate_trilinear.launches
+    out = InferenceSession(cfg, VGGT_TASKS, dev)(model, {"rgb_u8_bthw3": video})
+    torch.cuda.synchronize()
+    got = FA.flash_attention.launches - before[0], RS.interpolate_trilinear.launches - before[1]
+    want = (cfg.embed_depth + 2 * cfg.depth + cfg.camera_iterations * cfg.camera_trunk_depth,
+            2 * math.ceil(frames / cfg.frames_chunk_size) * 5)
+    bad = [key for key in ("pose_enc", "depth", "depth_conf", "world_points", "world_points_conf")
+           if not bool(out[key].isfinite().all())]
+    log(f"VGGT-1B request, {frames} frames of {hw}: {got[0]} attention and {got[1]} resize launches "
+        f"(expected {want[0]} and {want[1]}); outputs not finite: {bad or 'none'}")
+    checks.expect(got == want, f"VGGT request launches {got}, expected {want}")
+    checks.expect(not bad, f"VGGT request: outputs not finite {bad}")
+    rec["request_launches"] = list(got)
+    del model, out, video
+    torch.cuda.empty_cache()
+    return rec
 
 
 def compare_block_products(FE, gen, log, checks) -> dict:
@@ -2399,6 +2495,7 @@ def main() -> int:
                           log, checks)
     record["fused_encoder_blocks"]["products"] = compare_block_products(FE, gen, log, checks)
     resizes = compare_resizes(RS, dev, log, checks)
+    vggt = compare_vggt_kernels(FA, RS, dev, log, checks)
     torch.cuda.empty_cache()
 
     # 3. the released giant model, random bf16 weights
@@ -2952,6 +3049,7 @@ def main() -> int:
     launches = {**main_counts, "fused_encoder_blocks": fused_counts["fused_encoder_blocks"]}
     print(json.dumps({"card": card, "interpolate_trilinear": {
         "route": "cuda", "source": "l4p_tpu_torch/csrc/resize.cu", "replaces": None, "resizes": resizes}}))
+    print(json.dumps({"card": card, "vggt": vggt}))
     print(json.dumps({"card": card, "kernels": [{
         "name": name,
         "route": "cuda",

@@ -93,8 +93,40 @@ class EncoderConfig:
     def head_dim(self) -> int:
         return self.embed_dim // self.num_heads
 
+    @property
+    def block(self) -> "BlockConfig":
+        return BlockConfig(self.embed_dim, self.num_heads, self.mlp_ratio, self.ln_eps, self.init_values,
+                           self.cos_attn)
+
 
 GIANT = EncoderConfig()
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockConfig:
+    """One pre-LN transformer block (models/encoder.py `Block`): the video
+    encoder's (`EncoderConfig.block`) or VGGT's (`VGGTConfig`), which has a
+    bias on each of q, k and v (`qkv_bias`, where VideoMAE has q and v
+    biases only), exact GELU in every dtype (`exact_gelu`) and LayerNorm on
+    q and k over the head dim (`qk_norm`)."""
+
+    embed_dim: int
+    num_heads: int
+    mlp_ratio: float
+    ln_eps: float
+    init_values: float = 0.0  # LayerScale gains when > 0
+    cos_attn: bool = False
+    qkv_bias: bool = False
+    exact_gelu: bool = False
+    qk_norm: bool = False
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.embed_dim * self.mlp_ratio)
+
+    @property
+    def head_dim(self) -> int:
+        return self.embed_dim // self.num_heads
 
 # JAX encoder keys that steer only XLA's compilation (the flash-kernel
 # switch, scan unrolling, matmul output dtype, rematerialisation, Pallas
@@ -268,6 +300,114 @@ class L4PConfig:
         return tuple(sorted(hooks))
 
 
+VGGT_CLASS = "vggt.models.vggt.VGGT"
+VGGT_TASKS = ("camera", "depth", "world_points")
+
+
+@dataclasses.dataclass(frozen=True)
+class VGGTConfig:
+    """VGGT (facebookresearch/vggt, vggt/models/vggt.py): the defaults are
+    VGGT-1B's published settings, which upstream's constructors hard-code;
+    the LayerNorm epsilons are nn.LayerNorm's default where upstream passes
+    none (the aggregator's blocks, their q/k norms, the camera head's and
+    the DPT heads' token norms) and DINOv2's 1e-6 in the patch embedder. The
+    track head is not built (models/vggt.py)."""
+
+    img_size: int = 518  # the DINOv2 position table's side: img_size / patch_size positions a side
+    patch_size: int = 14
+    embed_dim: int = 1024
+    depth: int = 24  # frame blocks, and as many global blocks
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    num_register_tokens: int = 4
+    qk_norm: bool = True
+    rope_freq: float = 100.0
+    init_values: float = 0.01
+    ln_eps: float = 1e-5
+    # the patch embedder, DINOv2 ViT-L/14 with registers
+    embed_depth: int = 24
+    embed_num_heads: int = 16
+    embed_ln_eps: float = 1e-6
+    embed_init_values: float = 1.0
+    # the camera head on 2 * embed_dim
+    camera_trunk_depth: int = 4
+    camera_num_heads: int = 16
+    camera_iterations: int = 4
+    # the depth and point DPT heads on 2 * embed_dim
+    dpt_features: int = 256
+    dpt_out_channels: Tuple[int, ...] = (256, 512, 1024, 1024)
+    dpt_layers: Tuple[int, ...] = (4, 11, 17, 23)  # the aggregator outputs the heads read
+    frames_chunk_size: int = 8
+
+    def block(self, dim: int, heads: int, eps: float, init_values: float, qk_norm: bool = False) -> BlockConfig:
+        """A VGGT block of width `dim` (DINOv2's: q, k and v biases, exact GELU)."""
+        return BlockConfig(dim, heads, self.mlp_ratio, eps, init_values, qkv_bias=True, exact_gelu=True,
+                           qk_norm=qk_norm)
+
+    @property
+    def embed_block(self) -> BlockConfig:
+        return self.block(self.embed_dim, self.embed_num_heads, self.embed_ln_eps, self.embed_init_values)
+
+    @property
+    def aggregator_block(self) -> BlockConfig:
+        return self.block(self.embed_dim, self.num_heads, self.ln_eps, self.init_values, self.qk_norm)
+
+    @property
+    def camera_block(self) -> BlockConfig:
+        return self.block(2 * self.embed_dim, self.camera_num_heads, self.ln_eps, self.init_values)
+
+    @property
+    def patch_start(self) -> int:
+        return 1 + self.num_register_tokens  # the camera token and the registers come first in every frame
+
+
+# what the port builds of VGGT: each key of a file's group that must hold this value
+_VGGT_FIXED = {
+    "init_args": {"enable_camera": True, "enable_depth": True, "enable_point": True, "enable_track": False},
+    "aggregator": {"qkv_bias": True, "proj_bias": True, "ffn_bias": True, "patch_embed": "dinov2_vitl14_reg",
+                   "aa_order": ["frame", "global"], "aa_block_size": 1},
+    "camera_head": {"pose_encoding_type": "absT_quaR_FoV", "trans_act": "linear", "quat_act": "linear",
+                    "fl_act": "relu"},
+    "depth_head": {"output_dim": 2, "activation": "exp", "conf_activation": "expp1", "pos_embed": True},
+    "point_head": {"output_dim": 4, "activation": "inv_log", "conf_activation": "expp1", "pos_embed": True},
+}
+
+
+def vggt_config_from_tree(tree: Mapping[str, Any]) -> VGGTConfig:
+    """A VGGT configuration file (VGGT's constructor arguments under
+    `init_args`, the aggregator's and each head's under their module names)
+    -> VGGTConfig. A setting the port does not build raises ValueError."""
+    init, agg, cam = tree.get("init_args", {}), tree.get("aggregator", {}), tree.get("camera_head", {})
+    dpt = tree.get("depth_head", {})
+    for group, fixed in _VGGT_FIXED.items():
+        for k, v in fixed.items():
+            if k in tree.get(group, {}) and tree[group][k] != v:
+                raise ValueError(f"{group}.{k} = {tree[group][k]!r}: the port builds {v!r} only")
+    if "enable_track" not in init:
+        raise ValueError("init_args.enable_track: upstream builds the track head by default, the port does not")
+    for k in ("features", "out_channels", "intermediate_layer_idx", "frames_chunk_size"):
+        if dpt.get(k) != tree.get("point_head", {}).get(k):
+            raise ValueError(f"depth_head.{k} differs from point_head's: the port builds the two trunks alike")
+    e = init.get("embed_dim", 1024)
+    for group in ("camera_head", "depth_head", "point_head"):
+        if tree.get(group, {}).get("dim_in", 2 * e) != 2 * e:
+            raise ValueError(f"{group}.dim_in must be 2 * embed_dim = {2 * e}")
+    eps = tree.get("layer_norm_eps", {})
+    return VGGTConfig(
+        img_size=init.get("img_size", 518), patch_size=init.get("patch_size", 14), embed_dim=e,
+        depth=agg.get("depth", 24), num_heads=agg.get("num_heads", 16), mlp_ratio=float(agg.get("mlp_ratio", 4.0)),
+        num_register_tokens=agg.get("num_register_tokens", 4), qk_norm=agg.get("qk_norm", True),
+        rope_freq=float(agg.get("rope_freq", 100)), init_values=float(agg.get("init_values", 0.01)),
+        ln_eps=float(eps.get("default", 1e-5)), embed_depth=agg.get("embed_depth", 24),
+        embed_num_heads=agg.get("embed_num_heads", 16), embed_ln_eps=float(eps.get("patch_embed", 1e-6)),
+        embed_init_values=float(agg.get("embed_init_values", 1.0)),
+        camera_trunk_depth=cam.get("trunk_depth", 4), camera_num_heads=cam.get("num_heads", 16),
+        camera_iterations=cam.get("num_iterations", 4), dpt_features=dpt.get("features", 256),
+        dpt_out_channels=tuple(dpt.get("out_channels", (256, 512, 1024, 1024))),
+        dpt_layers=tuple(dpt.get("intermediate_layer_idx", (4, 11, 17, 23))),
+        frames_chunk_size=dpt.get("frames_chunk_size", 8))
+
+
 def _dense_head_from_yaml(name: str, cls: str, args: Mapping[str, Any]) -> DenseHeadConfig:
     """A dense head's init_args with the YAML schema's defaults
     (l4p_tpu/config.py:76-108): camray and camera_rays have 6 channels and
@@ -349,8 +489,10 @@ def _encoder_from_yaml(args: Mapping[str, Any]) -> EncoderConfig:
     return EncoderConfig(**{k: v for k, v in args.items() if k in known})
 
 
-def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
-    """Parse a reference-schema model YAML into (L4PConfig, tasks).
+def load_model_config(path: str) -> Tuple[Any, Tuple[str, ...]]:
+    """Parse a reference-schema model YAML into (L4PConfig, tasks), or a
+    VGGT configuration (`class_path` vggt.models.vggt.VGGT) into
+    (VGGTConfig, tasks).
 
     The flow, depth, dyn_mask, camray, camera_rays and track_2d heads are
     read, and `tasks` is returned as written (InferenceSession refuses the
@@ -360,6 +502,8 @@ def load_model_config(path: str) -> Tuple[L4PConfig, Tuple[str, ...]]:
 
     with open(path) as f:
         tree = yaml.safe_load(f)
+    if tree.get("class_path") == VGGT_CLASS:
+        return vggt_config_from_tree(tree), tuple(tree.get("tasks", VGGT_TASKS))
     init = tree["init_args"]
     m = init["l4p_model"]["init_args"]
     heads = []

@@ -26,6 +26,10 @@ once more after the forward tracks (l4p_tpu/models/l4p.py:735-766).
 point of the demo and the CLI's `predict`: one collated sequence through a
 cached session, or frame by frame through StreamingL4P, then the panel mp4
 and the 4D PLY exports.
+
+A session on a `VGGTConfig` (config.py) serves VGGT (models/vggt.py):
+tasks of `camera`, `depth` and `world_points`, `rgb_u8_bthw3` (B, S, H, W,
+3) in, upstream's outputs and layouts out (`VGGT.forward`).
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from l4p_tpu_torch.config import L4PConfig
+from l4p_tpu_torch.config import L4PConfig, VGGTConfig
 from l4p_tpu_torch.models.encoder import AttentionFn, EncoderBlocksFn
 from l4p_tpu_torch.models.l4p import (
     L4P,
@@ -54,6 +58,7 @@ from l4p_tpu_torch.models.l4p import (
     stitch_overwrite,
 )
 from l4p_tpu_torch.models.sam import KERNELS, TrackKernels
+from l4p_tpu_torch.models.vggt import VGGT, check_tasks, load_upstream_state_dict
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 from l4p_tpu_torch.ops.fused_encoder import fused_encoder_blocks
 from l4p_tpu_torch.parallel.mesh import shard_params
@@ -84,12 +89,29 @@ class InferenceSession:
     RANSAC then run on the gathered outputs on every rank, with the same
     draws, so every rank returns the same outputs. The fused encoder takes
     no mesh: a request with `encoder.fused_encoder` and one raises
-    ValueError (`VideoEncoder.forward`)."""
+    ValueError (`VideoEncoder.forward`). A `VGGTConfig` gets a VGGT session
+    (the module's docstring), which takes `attention` and no mesh."""
 
-    def __init__(self, cfg: L4PConfig, tasks: Sequence[str], device: Union[str, torch.device],
+    def __init__(self, cfg: Union[L4PConfig, VGGTConfig], tasks: Sequence[str], device: Union[str, torch.device],
                  attention: AttentionFn = flash_attention, track_kernels: TrackKernels = KERNELS,
                  encoder_blocks: EncoderBlocksFn = fused_encoder_blocks, draws: Optional[Draws] = None, mesh=None):
         self.tasks = tuple(tasks)
+        self.cfg = cfg
+        self.mesh = mesh
+        self.device = torch.device(device)
+        self.attention = attention
+        self.track_kernels = track_kernels
+        self.encoder_blocks = encoder_blocks
+        self.draws = RandomDraws() if draws is None else draws
+        self._loaded = None  # (state dict, model built from it)
+        if isinstance(cfg, VGGTConfig):
+            check_tasks(self.tasks)
+            if mesh is not None:
+                raise ValueError("a VGGT session takes no mesh")
+        else:
+            self._check_tasks(cfg)
+
+    def _check_tasks(self, cfg: L4PConfig) -> None:
         heads = cfg.head_dict
         # a camera_rays head is served by its kind, whatever its name (l4p_tpu/models/l4p.py:774)
         self.rays_tasks = tuple(t for t in self.tasks if t in heads and heads[t].kind == "camera_rays")
@@ -108,22 +130,18 @@ class InferenceSession:
             dirs = tuple(cfg.track.estimation_directions)
             if not dirs or not set(dirs) <= {1, -1} or len(set(dirs)) != len(dirs):
                 raise ValueError(f"estimation_directions {dirs}: expected (1,), (-1,) or (1, -1)")
-        self.cfg = cfg
-        self.mesh = mesh
-        self.device = torch.device(device)
-        self.attention = attention
-        self.track_kernels = track_kernels
-        self.encoder_blocks = encoder_blocks
-        self.draws = RandomDraws() if draws is None else draws
-        self._loaded = None  # (state dict, model built from it)
 
-    def model(self, model_or_state: Union[nn.Module, Mapping[str, torch.Tensor]]) -> L4P:
+    def model(self, model_or_state: Union[nn.Module, Mapping[str, torch.Tensor]]) -> nn.Module:
         if isinstance(model_or_state, nn.Module):
             return model_or_state
         if self._loaded is None or self._loaded[0] is not model_or_state:
             dtype = next(iter(model_or_state.values())).dtype
-            model = L4P(self.cfg, device=self.device, dtype=dtype)
-            model.load_state_dict(model_or_state, strict=True)
+            if isinstance(self.cfg, VGGTConfig):
+                model = VGGT(self.cfg, device=self.device, dtype=dtype)
+                load_upstream_state_dict(model, model_or_state)
+            else:
+                model = L4P(self.cfg, device=self.device, dtype=dtype)
+                model.load_state_dict(model_or_state, strict=True)
             self._loaded = (model_or_state, shard_params(model, self.mesh).eval())
         return self._loaded[1]
 
@@ -135,6 +153,9 @@ class InferenceSession:
     @torch.inference_mode()
     def __call__(self, model_or_state, data: Mapping) -> Dict[str, torch.Tensor]:
         with profiling.span("request", device=self.device):
+            if isinstance(self.cfg, VGGTConfig):
+                rgb_u8 = torch.as_tensor(data["rgb_u8_bthw3"], device=self.device)
+                return self.model(model_or_state)(rgb_u8, self.tasks, self.attention)
             return self._serve(model_or_state, data)
 
     def _serve(self, model_or_state, data: Mapping) -> Dict[str, torch.Tensor]:

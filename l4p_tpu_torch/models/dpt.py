@@ -6,6 +6,11 @@ JAX package): `dpt.act_postprocess.{i}.{0,1}`, `dpt.scratch.layer{1-4}_rn`
 and their alias `dpt.scratch.layer_rn.{i}` (the reference registers the same
 convs twice, so its state dict carries both names), `dpt.scratch.refinenet{1-4}`,
 `dpt.head1.0`, `dpt.head2.{0,2}`. All convs are 3D, NCDHW.
+
+The fusion trunk (`ResidualConvUnit`, `FeatureFusionBlock`, `Scratch`,
+`fuse`) is generic over 2D and 3D (`nd`): VGGT's DPT heads (models/vggt.py)
+run the same topology on 2D frames, with refinenet4's residual unit left
+out and the residual units adding their ReLU'd input (`relu_skip`).
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import torch.nn.functional as F
 
 from l4p_tpu_torch.config import DPTConfig
 from l4p_tpu_torch.ops.conv import conv3d, conv_transpose3d
-from l4p_tpu_torch.ops.resize import interpolate_scale, interpolate_trilinear
+from l4p_tpu_torch.ops.resize import interpolate_bilinear, interpolate_trilinear, scaled_size
 
 
 def rescale_kind(sf: Tuple[int, int, int]) -> str:
@@ -33,53 +38,95 @@ def rescale_kind(sf: Tuple[int, int, int]) -> str:
     return "id"
 
 
-def _conv(cin: int, cout: int, k, device, dtype, **kw) -> nn.Conv3d:
-    return nn.Conv3d(cin, cout, k, device=device, dtype=dtype, **kw)
+def _conv(cin: int, cout: int, k, device, dtype, nd: int = 3, **kw) -> nn.Module:
+    return (nn.Conv3d if nd == 3 else nn.Conv2d)(cin, cout, k, device=device, dtype=dtype, **kw)
+
+
+def conv(x: torch.Tensor, w: torch.Tensor, b: Optional[torch.Tensor] = None, stride=1, padding=0) -> torch.Tensor:
+    """F.conv3d on (B, C, T, H, W), F.conv2d on (B, C, H, W), in x's dtype."""
+    f = F.conv3d if x.dim() == 5 else F.conv2d
+    return f(x, w.to(x.dtype), None if b is None else b.to(x.dtype), stride=stride, padding=padding)
+
+
+def resize(x: torch.Tensor, size: Sequence[int], align_corners: bool) -> torch.Tensor:
+    """Trilinear on (B, C, T, H, W), bilinear on (B, C, H, W): both on the
+    resize kernel (ops/resize.py)."""
+    return (interpolate_trilinear if x.dim() == 5 else interpolate_bilinear)(x, size, align_corners)
 
 
 class ResidualConvUnit(nn.Module):
-    """relu-conv-relu-conv + x (reference dpt_block.py:136-157)."""
+    """relu-conv-relu-conv + x (reference dpt_block.py:136-157); with
+    `relu_skip`, + relu(x): VGGT's unit applies an in-place ReLU to its
+    input first, so its skip adds the ReLU'd input (vggt/heads/dpt_head.py,
+    `_make_fusion_block`'s `nn.ReLU(inplace=True)`)."""
 
-    def __init__(self, f: int, device=None, dtype=None):
+    def __init__(self, f: int, device=None, dtype=None, nd: int = 3, relu_skip: bool = False):
         super().__init__()
-        self.conv1 = _conv(f, f, 3, device, dtype, padding=1)
-        self.conv2 = _conv(f, f, 3, device, dtype, padding=1)
+        self.relu_skip = relu_skip
+        self.conv1 = _conv(f, f, 3, device, dtype, nd, padding=1)
+        self.conv2 = _conv(f, f, 3, device, dtype, nd, padding=1)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = conv3d(F.relu(x), self.conv1.weight, self.conv1.bias, padding=1)
-        out = conv3d(F.relu(out), self.conv2.weight, self.conv2.bias, padding=1)
-        return out + x
+        rx = F.relu(x)
+        out = conv(rx, self.conv1.weight, self.conv1.bias, padding=1)
+        out = conv(F.relu(out), self.conv2.weight, self.conv2.bias, padding=1)
+        return out + (rx if self.relu_skip else x)
 
 
 class FeatureFusionBlock(nn.Module):
-    """Residual merge, residual conv unit, trilinear upsample
-    (align_corners=True), 1x1 conv (reference dpt_block.py:210-238)."""
+    """Residual merge, residual conv unit, linear resize to `size`
+    (align_corners=True), 1x1 conv (reference dpt_block.py:210-238).
+    Without `has_residual` there is no resConfUnit1 (VGGT's refinenet4)."""
 
-    def __init__(self, f: int, device=None, dtype=None):
+    def __init__(self, f: int, device=None, dtype=None, nd: int = 3, has_residual: bool = True,
+                 relu_skip: bool = False):
         super().__init__()
-        self.resConfUnit1 = ResidualConvUnit(f, device, dtype)
-        self.resConfUnit2 = ResidualConvUnit(f, device, dtype)
-        self.out_conv = _conv(f, f, 1, device, dtype)
+        if has_residual:
+            self.resConfUnit1 = ResidualConvUnit(f, device, dtype, nd, relu_skip)
+        self.resConfUnit2 = ResidualConvUnit(f, device, dtype, nd, relu_skip)
+        self.out_conv = _conv(f, f, 1, device, dtype, nd)
 
-    def forward(self, x: torch.Tensor, res: Optional[torch.Tensor], sf: Tuple[int, int, int]) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, res: Optional[torch.Tensor], size: Sequence[int]) -> torch.Tensor:
         out = x
         if res is not None:
             out = out + self.resConfUnit1(res)
         out = self.resConfUnit2(out)
-        out = interpolate_scale(out, sf, align_corners=True)
-        return conv3d(out, self.out_conv.weight, self.out_conv.bias)
+        out = resize(out, size, align_corners=True)
+        return conv(out, self.out_conv.weight, self.out_conv.bias)
 
 
 class Scratch(nn.Module):
-    def __init__(self, cfg: DPTConfig, device=None, dtype=None):
+    """layer{1-4}_rn (3x3 convs to `f` channels, no bias) and
+    refinenet{1-4}. `alias` also registers the convs as `layer_rn` (L4P's
+    checkpoint carries both names); `nd`, `first_residual` and `relu_skip`
+    as FeatureFusionBlock takes them (refinenet4's)."""
+
+    def __init__(self, layer_dims: Sequence[int], f: int, device=None, dtype=None, nd: int = 3, alias: bool = True,
+                 first_residual: bool = True, relu_skip: bool = False):
         super().__init__()
-        f = cfg.feature_dim
-        convs = [_conv(cfg.layer_dims[i], f, 3, device, dtype, padding=1, bias=False) for i in range(4)]
+        convs = [_conv(layer_dims[i], f, 3, device, dtype, nd, padding=1, bias=False) for i in range(4)]
         for i, c in enumerate(convs):
             setattr(self, f"layer{i + 1}_rn", c)
-        self.layer_rn = nn.ModuleList(convs)  # alias of layer{1-4}_rn, as registered upstream
+        if alias:
+            self.layer_rn = nn.ModuleList(convs)  # alias of layer{1-4}_rn, as registered upstream
         for i in range(4):
-            setattr(self, f"refinenet{i + 1}", FeatureFusionBlock(f, device, dtype))
+            setattr(self, f"refinenet{i + 1}", FeatureFusionBlock(f, device, dtype, nd, first_residual or i < 3,
+                                                                  relu_skip))
+
+
+def fuse(scratch: Scratch, layers: Sequence[torch.Tensor], sizes: Sequence[Sequence[int]],
+         crop: bool = False) -> torch.Tensor:
+    """The four rescaled features through layer{1-4}_rn and refinenet4 ..
+    refinenet1, refinenet i resizing to sizes[i - 1]. `crop` cuts
+    refinenet4's output to layer 3's T and H, not W, as L4P's reference
+    does (dpt_head.py:70-72)."""
+    rn = [conv(x, getattr(scratch, f"layer{i + 1}_rn").weight, None, padding=1) for i, x in enumerate(layers)]
+    out = scratch.refinenet4(rn[3], None, sizes[3])
+    if crop:
+        out = out[:, :, : rn[2].shape[2], : rn[2].shape[3]]
+    for i in (2, 1, 0):
+        out = getattr(scratch, f"refinenet{i + 1}")(out, rn[i], sizes[i])
+    return out
 
 
 class DPTAdapter(nn.Module):
@@ -102,7 +149,7 @@ class DPTAdapter(nn.Module):
                 rescale = nn.Identity()
             post.append(nn.Sequential(_conv(cfg.dim_tokens, ld, 1, device, dtype), rescale))
         self.act_postprocess = nn.ModuleList(post)
-        self.scratch = Scratch(cfg, device, dtype)
+        self.scratch = Scratch(cfg.layer_dims, cfg.feature_dim, device, dtype)
         f = cfg.feature_dim
         self.head1 = nn.Sequential(_conv(f, f // 2, 3, device, dtype, padding=1))
         self.head2 = nn.Sequential(
@@ -138,16 +185,15 @@ class DPTHead(nn.Module):
             elif kind == "down":
                 x = conv3d(x, rescale.weight, rescale.bias, stride=rescale.stride, padding=rescale.padding)
             layers.append(x)
-        layers = [conv3d(x, d.scratch.layer_rn[i].weight, None, padding=1) for i, x in enumerate(layers)]
-
+        # refinenet i scales its input grid by fusion_scale_factors[i - 1]; refinenet4's is its own layer's
         sfs = cfg.fusion_scale_factors
-        s = d.scratch
-        path4 = s.refinenet4(layers[3], None, sfs[3])
-        # the reference crops path_4 on T and H only, not W (dpt_head.py:70-72)
-        path4 = path4[:, :, : layers[2].shape[2], : layers[2].shape[3]]
-        path3 = s.refinenet3(path4, layers[2], sfs[2])
-        path2 = s.refinenet2(path3, layers[1], sfs[1])
-        path1 = s.refinenet1(path2, layers[0], sfs[0])
+        sizes = [None] * 4
+        sizes[3] = scaled_size(layers[3].shape[2:], sfs[3])
+        grid4 = (min(sizes[3][0], layers[2].shape[2]), min(sizes[3][1], layers[2].shape[3]), sizes[3][2])
+        sizes[2] = scaled_size(grid4, sfs[2])
+        sizes[1] = scaled_size(sizes[2], sfs[1])
+        sizes[0] = scaled_size(sizes[1], sfs[0])
+        path1 = fuse(d.scratch, layers, sizes, crop=True)
 
         out = conv3d(path1, d.head1[0].weight, d.head1[0].bias, padding=1)
         out = interpolate_trilinear(out, cfg.output_size or img_info, align_corners=True)

@@ -37,8 +37,9 @@ from typing import Callable, Dict, Optional, Protocol, Sequence
 import numpy as np
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
-from l4p_tpu_torch.config import GIANT, EncoderConfig
+from l4p_tpu_torch.config import GIANT, BlockConfig, EncoderConfig
 from l4p_tpu_torch.geometry.core import get_rays_plucker
 from l4p_tpu_torch.ops.conv import gelu, layer_norm, linear, linear_fp32
 from l4p_tpu_torch.ops.flash_attention import flash_attention
@@ -47,6 +48,8 @@ from l4p_tpu_torch.parallel.comm import Group, copy_to_model, reduce_from_model
 from l4p_tpu_torch.parallel.mesh import MODEL, axis_group, axis_rank, axis_size
 
 AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, float], torch.Tensor]
+# (B, H, N, D) fp32 -> the same, rotated by each token's position (models/vggt.py's 2D RoPE)
+RopeFn = Callable[[torch.Tensor], torch.Tensor]
 # (blocks, x, cfg, hook_ends) -> (B, len(hook_ends), N, E): fused_encoder_blocks or its plain version
 EncoderBlocksFn = Callable[[Sequence[nn.Module], torch.Tensor, EncoderConfig, Sequence[int]], torch.Tensor]
 
@@ -143,15 +146,24 @@ COS_ATTN_MAX_LOG_SCALE = 4.6052
 
 
 class Attention(nn.Module):
-    def __init__(self, cfg: EncoderConfig, device=None, dtype=None):
+    def __init__(self, cfg: BlockConfig, device=None, dtype=None):
         super().__init__()
         dim = cfg.embed_dim
-        self.qkv = nn.Linear(dim, 3 * dim, bias=False, device=device, dtype=dtype)
-        self.q_bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
-        self.v_bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+        self.qkv = nn.Linear(dim, 3 * dim, bias=cfg.qkv_bias, device=device, dtype=dtype)
+        if not cfg.qkv_bias:  # VideoMAE's q and v biases, no k bias
+            self.q_bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+            self.v_bias = nn.Parameter(torch.zeros(dim, device=device, dtype=dtype))
+        if cfg.qk_norm:
+            self.q_norm = nn.LayerNorm(cfg.head_dim, eps=cfg.ln_eps, device=device, dtype=dtype)
+            self.k_norm = nn.LayerNorm(cfg.head_dim, eps=cfg.ln_eps, device=device, dtype=dtype)
         if cfg.cos_attn:
             self.scale = nn.Parameter(torch.full((cfg.num_heads, 1, 1), math.log(10.0), device=device, dtype=dtype))
         self.proj = nn.Linear(dim, dim, device=device, dtype=dtype)
+
+    def qkv_bias(self) -> torch.Tensor:
+        if self.qkv.bias is not None:
+            return self.qkv.bias
+        return torch.cat([self.q_bias, torch.zeros_like(self.v_bias), self.v_bias])  # no k bias
 
 
 class Mlp(nn.Module):
@@ -164,12 +176,15 @@ class Mlp(nn.Module):
 class Block(nn.Module):
     """Pre-LN transformer block (reference modeling_finetune.py:245-252):
     x + gamma_1 * attn(ln(x)), x + gamma_2 * mlp(ln(x)), the gammas only
-    when init_values > 0 (:239-243). `drop` ((B,) keep mask of the
+    when init_values > 0 (:239-243). VGGT's blocks (`BlockConfig`) add a k
+    bias and exact GELU; with `qk_norm` q and k pass a LayerNorm over the
+    head dim, and `rope` rotates them after it, both in fp32 before the
+    attention function. `drop` ((B,) keep mask of the
     attention branch, of the MLP branch, the keep probability), given in
     training only, applies stochastic depth to both branches after their
     gains (l4p_tpu/models/encoder.py:268-282)."""
 
-    def __init__(self, cfg: EncoderConfig, device=None, dtype=None):
+    def __init__(self, cfg: BlockConfig, device=None, dtype=None):
         super().__init__()
         self.cfg = cfg
         e = cfg.embed_dim
@@ -192,18 +207,24 @@ class Block(nn.Module):
         xavier_uniform_(a.qkv.weight, e, e, generator)
         for w in (a.proj.weight, self.mlp.fc1.weight, self.mlp.fc2.weight):
             xavier_uniform_(w, *w.shape, generator)
-        for bias in (a.q_bias, a.v_bias, a.proj.bias, self.mlp.fc1.bias, self.mlp.fc2.bias, self.norm1.bias,
+        qkv_biases = (a.qkv.bias,) if cfg.qkv_bias else (a.q_bias, a.v_bias)
+        for bias in (*qkv_biases, a.proj.bias, self.mlp.fc1.bias, self.mlp.fc2.bias, self.norm1.bias,
                      self.norm2.bias):
             bias.zero_()
         self.norm1.weight.fill_(1.0)
         self.norm2.weight.fill_(1.0)
+        if cfg.qk_norm:
+            for norm in (a.q_norm, a.k_norm):
+                norm.weight.fill_(1.0)
+                norm.bias.zero_()
         if cfg.cos_attn:
             a.scale.fill_(math.log(10.0))
         if cfg.init_values > 0:
             self.gamma_1.fill_(cfg.init_values)
             self.gamma_2.fill_(cfg.init_values)
 
-    def forward(self, x: torch.Tensor, attention: AttentionFn, drop=None, mesh=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attention: AttentionFn, drop=None, mesh=None,
+                rope: Optional[RopeFn] = None) -> torch.Tensor:
         """`mesh` (a DeviceMesh) splits the block over its `model` axis; the
         block's parameters must then be this rank's shard (`shard_params`)."""
         b, n, e = x.shape
@@ -215,9 +236,16 @@ class Block(nn.Module):
             raise ValueError(f"block qkv weight {tuple(a.qkv.weight.shape)} is not the shard of a model axis of {nm} "
                              "ranks: split the model with parallel.shard_params for this mesh")
         h = copy_to_model(layer_norm(x, self.norm1.weight, self.norm1.bias, eps), group)
-        qkv_bias = torch.cat([a.q_bias, torch.zeros_like(a.v_bias), a.v_bias])  # no k bias
-        qkv = linear(h, a.qkv.weight, qkv_bias).view(b, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
-        if self.cfg.cos_attn:
+        qkv = linear(h, a.qkv.weight, a.qkv_bias()).view(b, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        if self.cfg.qk_norm or rope is not None:
+            q, k = qkv[0].float(), qkv[1].float()
+            if self.cfg.qk_norm:
+                q = F.layer_norm(q, (hd,), a.q_norm.weight.float(), a.q_norm.bias.float(), eps)
+                k = F.layer_norm(k, (hd,), a.k_norm.weight.float(), a.k_norm.bias.float(), eps)
+            if rope is not None:
+                q, k = rope(q), rope(k)
+            o = attention(q.to(x.dtype), k.to(x.dtype), qkv[2], hd ** -0.5)
+        elif self.cfg.cos_attn:
             # JAX's order of dtypes (l4p_tpu/models/encoder.py:256-261): q and k over their fp32 norms
             # cast to the compute dtype, the logit scale in fp32, q times it in the compute dtype
             q, k = (t / torch.linalg.vector_norm(t, dim=-1, keepdim=True, dtype=torch.float32).to(x.dtype)
@@ -232,7 +260,8 @@ class Block(nn.Module):
             branch = branch * self.gamma_1.to(x.dtype)
         x = x + (branch if drop is None else drop_path(branch, drop[0], drop[2]))
         h = copy_to_model(layer_norm(x, self.norm2.weight, self.norm2.bias, eps), group)
-        h = gelu(linear(h, self.mlp.fc1.weight, self.mlp.fc1.bias))
+        h = linear(h, self.mlp.fc1.weight, self.mlp.fc1.bias)
+        h = F.gelu(h) if self.cfg.exact_gelu else gelu(h)
         branch = row_parallel_linear(h, self.mlp.fc2.weight, self.mlp.fc2.bias, group)
         if self.cfg.init_values > 0:
             branch = branch * self.gamma_2.to(x.dtype)
@@ -286,7 +315,7 @@ class VideoEncoder(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.patch_embed = PatchEmbed(cfg, device, dtype)
-        self.blocks = nn.ModuleList(Block(cfg, device, dtype) for _ in range(cfg.depth))
+        self.blocks = nn.ModuleList(Block(cfg.block, device, dtype) for _ in range(cfg.depth))
         self.norm = nn.LayerNorm(cfg.embed_dim, eps=cfg.ln_eps, device=device, dtype=dtype)
         table = torch.as_tensor(sinusoid_pos_embed(cfg.num_tokens, cfg.embed_dim), device=device)
         table = table.to(dtype or torch.get_default_dtype())

@@ -21,6 +21,21 @@ IMAGENET_MEAN = np.array([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.array([0.229, 0.224, 0.225], np.float32)
 
 
+def folded_patch_weights(proj: torch.nn.Module, mean: Optional[np.ndarray] = None,
+                         std: Optional[np.ndarray] = None):
+    """The patch embedding `proj` (a Conv3d or Conv2d with kernel == stride)
+    as fp32 (W', b') that take uint8 pixels: W' = W * scale_c, b' = b + W @
+    shift_c, the features in `patchify`'s order (c, dt, dh, dw)."""
+    mean = IMAGENET_MEAN if mean is None else np.asarray(mean, np.float32)
+    std = IMAGENET_STD if std is None else np.asarray(std, np.float32)
+    device = proj.weight.device
+    w_flat = proj.weight.flatten(1).float()  # (E, C*tt*p*p), feature order (c, dt, dh, dw)
+    k_per_c = proj.weight[0, 0].numel()
+    scale_k = torch.as_tensor(np.repeat(1.0 / (255.0 * std), k_per_c), dtype=torch.float32, device=device)
+    shift_k = torch.as_tensor(np.repeat(-mean / std, k_per_c), dtype=torch.float32, device=device)
+    return w_flat * scale_k, proj.bias.float() + w_flat @ shift_k
+
+
 def ingest_video_tokens(
     encoder: VideoEncoder,
     rgb_u8_bthw3: torch.Tensor,
@@ -33,17 +48,8 @@ def ingest_video_tokens(
     With add_pos_embed=False the caller adds the per-window position table
     (encode_windows tokenizes the whole video once, then slices windows)."""
     cfg = encoder.cfg
-    mean = IMAGENET_MEAN if mean is None else np.asarray(mean, np.float32)
-    std = IMAGENET_STD if std is None else np.asarray(std, np.float32)
-    proj = encoder.patch_embed.proj
-    dtype, device = proj.weight.dtype, proj.weight.device
-    w_flat = proj.weight.flatten(1).float()  # (E, C*tt*p*p), feature order (c, dt, dh, dw)
-    k_per_c = cfg.tubelet_size * cfg.patch_size * cfg.patch_size
-    scale_k = torch.as_tensor(np.repeat(1.0 / (255.0 * std), k_per_c), dtype=torch.float32, device=device)
-    shift_k = torch.as_tensor(np.repeat(-mean / std, k_per_c), dtype=torch.float32, device=device)
-    w_fold = w_flat * scale_k
-    b_fold = proj.bias.float() + w_flat @ shift_k
-
+    dtype = encoder.patch_embed.proj.weight.dtype
+    w_fold, b_fold = folded_patch_weights(encoder.patch_embed.proj, mean, std)
     x = patchify(rgb_u8_bthw3.to(dtype).permute(0, 4, 1, 2, 3), cfg)
     tok = linear(x, w_fold.to(dtype), b_fold.to(dtype))
     if add_pos_embed:

@@ -73,7 +73,7 @@ class MAEDecoder(nn.Module):
     def __init__(self, cfg: MAEConfig, device=None, dtype=None):
         super().__init__()
         dcfg = cfg.decoder_cfg
-        self.blocks = nn.ModuleList(Block(dcfg, device, dtype) for _ in range(dcfg.depth))
+        self.blocks = nn.ModuleList(Block(dcfg.block, device, dtype) for _ in range(dcfg.depth))
         self.norm = nn.LayerNorm(dcfg.embed_dim, eps=dcfg.ln_eps, device=device, dtype=dtype)
         self.head = nn.Linear(dcfg.embed_dim, cfg.decoder_num_classes, device=device, dtype=dtype)
 

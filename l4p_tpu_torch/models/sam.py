@@ -22,6 +22,7 @@ The two-way transformer has two image-side schedules:
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Callable, Dict, Optional, Tuple
 
@@ -174,6 +175,14 @@ def dense_pe(gauss: torch.Tensor, cfg: SamConfig) -> torch.Tensor:
     return pe.permute(3, 0, 1, 2)[None]
 
 
+@functools.lru_cache(maxsize=16)
+def point_scale(t: int, w: int, h: int, dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """(t, w, h) on `device`, made once: a copy from host memory waits for
+    the device, and every window of the track scan divides by it."""
+    with torch.inference_mode(False):  # read by training steps too
+        return torch.tensor([t, w, h], dtype=dtype, device=device)
+
+
 def embed_points(pe: PromptEncoder, cfg: SamConfig, points_n13: torch.Tensor, labels_n1: torch.Tensor,
                  pad: bool = True) -> torch.Tensor:
     """(t, x, y) point prompts, normalised by (T, W, H), plus per-label
@@ -184,7 +193,7 @@ def embed_points(pe: PromptEncoder, cfg: SamConfig, points_n13: torch.Tensor, la
         points_n13 = torch.cat([points_n13, points_n13.new_zeros((n, 1, 3))], dim=1)
         labels_n1 = torch.cat([labels_n1, -labels_n1.new_ones((n, 1))], dim=1)
     t, h, w = cfg.input_image_size
-    coords = points_n13 / torch.tensor([t, w, h], dtype=points_n13.dtype, device=points_n13.device)
+    coords = points_n13 / point_scale(t, w, h, points_n13.dtype, points_n13.device)
     emb = pe_encoding(coords, pe.pe_layer.positional_encoding_gaussian_matrix).to(points_n13.dtype)
     lab = labels_n1[..., None]
     emb = torch.where(lab == -1, pe.not_a_point_embed.weight[0].to(emb.dtype), emb)

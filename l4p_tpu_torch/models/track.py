@@ -11,6 +11,7 @@ the same step. The JAX package's lax.scan exists for XLA's compiler.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -90,6 +91,18 @@ def softargmax_xy(logits_nthw: torch.Tensor) -> torch.Tensor:
     return torch.stack([(z * grid_x).sum(-1) / s, (z * grid_y).sum(-1) / s], dim=-1)
 
 
+@functools.lru_cache(maxsize=64)
+def interp_weights(n_in: int, n_out: int, column_means: bool, dtype: torch.dtype,
+                   device: torch.device) -> torch.Tensor:
+    """interp_matrix(n_in, n_out, align_corners=False), or its column means,
+    rounded to `dtype` and held in fp32 on `device`. Made once a shape: a
+    copy from host memory waits for the device, and every window of the
+    scan reads them."""
+    m = interp_matrix(n_in, n_out, False)
+    with torch.inference_mode(False):  # read by training steps too
+        return torch.as_tensor(m.mean(axis=0) if column_means else m, device=device).to(dtype).float()
+
+
 def track_forward_item(head: TrackHead, cfg: TrackConfig, enc_features: torch.Tensor, queries_n3: torch.Tensor,
                        labels_n: torch.Tensor, prompt_features_nc: Optional[torch.Tensor] = None,
                        prompt_feature_labels_n: Optional[torch.Tensor] = None,
@@ -122,13 +135,9 @@ def track_forward_item(head: TrackHead, cfg: TrackConfig, enc_features: torch.Te
         t2, h2, w2 = logits.shape[-3:]
         big_t, big_h, big_w = cfg.image_size
         dt, dev = logits.dtype, logits.device
-
-        def weights(m):
-            return torch.as_tensor(m, device=dev).to(dt).float()
-
-        wh = weights(interp_matrix(h2, big_h, False).mean(axis=0))
-        ww = weights(interp_matrix(w2, big_w, False).mean(axis=0))
-        mt = weights(interp_matrix(t2, big_t, False))
+        wh = interp_weights(h2, big_h, True, dt, dev)
+        ww = interp_weights(w2, big_w, True, dt, dev)
+        mt = interp_weights(t2, big_t, False, dt, dev)
         spatial = torch.einsum("nmthw,h,w->nmt", logits.float(), wh, ww).to(dt)
         per_frame = torch.einsum("nmt,Tt->nmT", spatial.float(), mt).to(dt)
         if cfg.estimate_vis:

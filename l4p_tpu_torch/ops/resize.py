@@ -14,7 +14,8 @@ trunk's tensors are channels_last_3d). For tensors on the CPU it runs
 F.interpolate, the plain version; for CUDA tensors it launches the kernel or
 raises, never falls back. On either device it goes through
 `TrilinearFunction`, whose backward recomputes the plain version
-(ops/recompute.py).
+(ops/recompute.py). `interpolate_bilinear` is the same kernel on 2D
+images as a depth-1 volume (VGGT's DPT heads).
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
-from typing import Sequence, Tuple
+from typing import List, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -125,8 +126,20 @@ def interpolate_trilinear(x: torch.Tensor, size: Sequence[int], align_corners: b
 interpolate_trilinear.launches = 0  # kernel launches since the last reset
 
 
+def interpolate_bilinear(x: torch.Tensor, size: Sequence[int], align_corners: bool = False) -> torch.Tensor:
+    """x: (B, C, H, W) -> (B, C, *size), F.interpolate(mode='bilinear'): a
+    trilinear resize of depth 1, which weighs the one plane by 1. A
+    channels_last x is a channels_last_3d volume once unsqueezed, so it
+    keeps its layout."""
+    return interpolate_trilinear(x.unsqueeze(2), (1, *size), align_corners).squeeze(2)
+
+
 def interpolate_scale(x: torch.Tensor, scale_factor: Sequence[float], align_corners: bool = True) -> torch.Tensor:
     """Scale-factor form over (T, H, W): output size floor(in * scale), as
     torch computes it, then resized at that explicit size."""
-    size = [int(math.floor(n * s)) for n, s in zip(x.shape[-3:], scale_factor)]
-    return interpolate_trilinear(x, size, align_corners)
+    return interpolate_trilinear(x, scaled_size(x.shape[-3:], scale_factor), align_corners)
+
+
+def scaled_size(shape: Sequence[int], scale_factor: Sequence[float]) -> List[int]:
+    """floor(n * s) per axis: the output size torch's scale-factor form gives."""
+    return [int(math.floor(n * s)) for n, s in zip(shape, scale_factor)]

@@ -1546,3 +1546,102 @@ def test_dryrun_on_card(cuda, procs, backend):
     mesh = "{'data': 1, 'model': %d}" % procs
     m = re.search(r"dryrun OK: mesh=(\{.*?\}) loss=(\S+) ", res.stdout)
     assert m is not None and m.group(1) == mesh and math.isfinite(float(m.group(2))), res.stdout
+
+
+# VGGT (models/vggt.py): the DPT heads' bilinear resizes at 294 x 518, a chunk of 8 frames
+VGGT_RESIZES = [((11, 19), (21, 37), 256), ((21, 37), (42, 74), 256), ((42, 74), (84, 148), 256),
+                ((84, 148), (168, 296), 256), ((168, 296), (294, 518), 128)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", [torch.channels_last, torch.contiguous_format])
+@pytest.mark.parametrize("shape,size,channels", VGGT_RESIZES)
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_bilinear_resize_equals_interpolate_on_card(cuda, dtype, shape, size, channels, layout):
+    """The resize kernel as a depth-1 trilinear resize against
+    F.interpolate(mode='bilinear', align_corners=True), in the memory format
+    F.interpolate keeps, one launch a call: bit for bit in bf16 (VGGT's
+    dtype) and in fp32 NCHW; fp32 channels_last within one ulp of the
+    largest input, where PyTorch's NHWC kernel rounds its partial sums
+    otherwise (measured on an H100: up to 18% of the values off, by 4.8e-7
+    at most for inputs up to 5.3)."""
+    import torch.nn.functional as F
+
+    from l4p_tpu_torch.ops.resize import interpolate_bilinear, interpolate_trilinear
+
+    g = torch.Generator(device=cuda).manual_seed(19)
+    x = torch.randn((8, channels, *shape), generator=g, device=cuda).to(dtype).contiguous(memory_format=layout)
+    before = interpolate_trilinear.launches
+    out = interpolate_bilinear(x, size, True)
+    torch.cuda.synchronize()
+    assert interpolate_trilinear.launches == before + 1
+    ref = F.interpolate(x, size=size, mode="bilinear", align_corners=True)
+    if dtype == torch.float32 and layout == torch.channels_last:
+        assert (out - ref).abs().max().item() <= torch.finfo(dtype).eps * x.abs().max().item()
+    else:
+        assert torch.equal(out, ref)
+    assert out.is_contiguous(memory_format=layout) and ref.is_contiguous(memory_format=layout)
+
+
+@pytest.mark.gpu
+def test_attention_kernel_at_vggt_global_shape(cuda):
+    """VGGT's global attention, (1, 16, 50048, 64), against the plain
+    version computed 1024 queries at a time (a row's softmax is its own).
+    Over 50,048 keys the softmax of N(0, 1) scores is near uniform and the
+    output small (max |plain| about 0.05), so the error is taken relative
+    to max |plain|: a kernel that drops part of the keys reads O(1)."""
+    g = torch.Generator(device=cuda).manual_seed(20)
+    q, k, v = (torch.randn((1, 16, 50048, 64), generator=g, device=cuda).bfloat16() for _ in range(3))
+    out = flash_attention(q, k, v, 0.125).float()
+    err = top = 0.0
+    for i in range(0, q.shape[2], 1024):
+        want = flash_attention_plain(q[:, :, i:i + 1024], k, v, 0.125).float()
+        err = max(err, (out[:, :, i:i + 1024] - want).abs().max().item())
+        top = max(top, want.abs().max().item())
+    assert err <= VGGT_GLOBAL_ATTENTION_TOL * top, (err, top)
+
+
+# max |kernel - plain| / max |plain| at (1, 16, 50048, 64), about 4x what an H100 read (in brackets:
+# chip_smoke.py phase 2, the same shape and draw distribution; 4.2e-3 at (64, 16, 782, 64))
+VGGT_GLOBAL_ATTENTION_TOL = 0.02  # [4.9e-3]
+
+
+@pytest.mark.gpu
+def test_vggt_kernel_path_matches_plain_on_card(cuda):
+    """VGGT at 8 frames of 294 x 518 with 4 aggregator blocks (every other
+    width published): the session on the attention and resize kernels
+    against the session on the plain attention, each output within the
+    bands below of the plain path's (the intrinsics follow the pose
+    encoding through tan(fov / 2)), and the kernel launches counted."""
+    from l4p_tpu_torch.config import VGGTConfig
+    from l4p_tpu_torch.inference import InferenceSession
+    from l4p_tpu_torch.models.vggt import VGGT
+    from l4p_tpu_torch.ops.resize import interpolate_trilinear
+    from portbench.drivers.vggt import seeded_weights
+
+    cfg = VGGTConfig(depth=4, dpt_layers=(0, 1, 2, 3))
+    tasks = ("camera", "depth", "world_points")
+    model = VGGT(cfg, device=cuda, dtype=torch.bfloat16).eval()
+    model.load_state_dict(seeded_weights(model, 19, cuda, torch.bfloat16))
+    g = torch.Generator(device=cuda).manual_seed(21)
+    data = {"rgb_u8_bthw3": torch.randint(0, 256, (1, 8, 294, 518, 3), generator=g, device=cuda, dtype=torch.uint8)}
+    before = flash_attention.launches, interpolate_trilinear.launches
+    out = InferenceSession(cfg, tasks, cuda)(model, data)
+    torch.cuda.synchronize()
+    # 24 embedder blocks, 4 frame and 4 global blocks, 4 passes of the 4-block camera trunk; 5 resizes a
+    # DPT head call, one chunk of 8 frames a head
+    assert (flash_attention.launches - before[0], interpolate_trilinear.launches - before[1]) == (48, 10)
+    plain = InferenceSession(cfg, tasks, cuda, attention=flash_attention_plain)(model, data)
+    for key, band in VGGT_PATH_BANDS.items():
+        a, b = out[key].double(), plain[key].double()
+        rel = ((a - b).norm() / b.norm()).item()
+        assert rel <= band, (key, rel)
+
+
+# relative L2 of the kernel path against the plain path, about 4x what an H100 read (in brackets)
+VGGT_PATH_BANDS = {"pose_enc": 2.5e-2,  # [5.6e-3]
+                   "extrinsic": 3e-2,  # [6.7e-3]
+                   "depth": 2e-4,  # [5.0e-5]
+                   "depth_conf": 1e-4,  # [2.4e-5]
+                   "world_points": 2.5e-2,  # [5.3e-3]
+                   "world_points_conf": 1.5e-4}  # [3.5e-5]

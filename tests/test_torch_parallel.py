@@ -347,7 +347,7 @@ def test_shard_params_refuses_what_the_model_axis_does_not_divide():
     odd = L4P(dataclasses.replace(cfg, encoder=EncoderConfig(num_heads=4, mlp_ratio=4.03125, **base)))
     with pytest.raises(ValueError, match=r"hidden 258 % 4 != 0"):
         PM.shard_params(odd, FakeMesh(4))
-    blk = Block(EncoderConfig(num_heads=4, **base))  # left whole under a model axis of 2
+    blk = Block(EncoderConfig(num_heads=4, **base).block)  # left whole under a model axis of 2
     with pytest.raises(ValueError, match="not the shard of a model axis of 2"):
         blk(torch.zeros(1, 8, 64), lambda q, k, v, scale: q, None, FakeMesh(2))
 

@@ -136,6 +136,37 @@ def test_windowed_scan_keeps_frames_before_the_query():
     assert (vis[1, 9:] != -10).all() and (vis[0] != -10).all()
 
 
+def test_the_scans_constants_are_made_once_and_serve_a_backward_pass():
+    """The head's interpolation weights and prompt scale are made once a
+    shape (a copy from host memory waits for the device), as each window
+    made them before, and are no inference tensors: a scan under
+    inference_mode, then one that takes gradients, give the same outputs."""
+    from l4p_tpu_torch.models import sam as PS
+    from l4p_tpu_torch.ops.resize import interp_matrix
+
+    _, _, pcfg, head = models("released")
+    enc = torch.from_numpy(rand((3, 1, 256, 128), 13) * 0.5)
+    q = torch.from_numpy(queries(2, 16, (112, 112), 14))
+    PT.interp_weights.cache_clear()
+    PS.point_scale.cache_clear()
+    with torch.inference_mode():
+        first = PT.track_forward_windowed(head, pcfg, enc, q, torch.ones(1, 2), 4)
+    weights, scale = PT.interp_weights.cache_info(), PS.point_scale.cache_info()
+    # three windows, three reads of weights a window in two shapes (h and w are equal here), one scale
+    assert (weights.misses, weights.hits, scale.misses, scale.hits) == (2, 3 * 3 - 2, 1, 2)
+    cpu = torch.device("cpu")
+    with torch.inference_mode():
+        made = PT.interp_weights(8, 112, True, torch.bfloat16, cpu)
+    assert not made.is_inference() and PT.interp_weights(8, 112, True, torch.bfloat16, cpu) is made
+    assert torch.equal(made, torch.as_tensor(interp_matrix(8, 112, False).mean(axis=0)).to(torch.bfloat16).float())
+    enc.requires_grad_(True)
+    again = PT.track_forward_windowed(head, pcfg, enc, q, torch.ones(1, 2), 4)
+    sum(v.float().sum() for v in again.values()).backward()
+    assert enc.grad is not None and torch.isfinite(enc.grad).all()
+    for k in first:
+        assert torch.equal(first[k], again[k].detach()), k
+
+
 def tiny_track():
     """The JAX tiny model's track config and parameters (tests/test_l4p_forward.py)
     with the port's head on the same weights."""
