@@ -16,32 +16,42 @@
 // owning W = C / S columns (S = 8, W = 176 at C = 1408; 16 blocks where
 // C / 8 is wider than the kernel's registers take):
 //   - resident in each block for its whole life: its columns of the token
-//     operands (rT, v2, sT, and ob, lnw, lnb), loaded once;
+//     operands (rT and sT as wgmma's K-major operands in 32-byte swizzled
+//     boxes, v2, and ob, lnw, lnb), loaded once;
 //   - its columns of 128-row keys tiles stream through a 2-stage TMA ring
 //     (boxes of 16 columns, 32-byte swizzle), each tile's load issued while
-//     the previous tiles are computed, so loads run across the cluster
-//     barriers below;
-//   - per tile (8 warps, 16 rows each, mma.sync): the partial i2t logits
-//     keys . rT over the block's columns; a reduce-scatter of the
-//     (128 x K) fp32 partials through distributed shared memory (each block
-//     sums 128 / S rows over the cluster), after which the owner takes each
-//     head's softmax over its tokens (fp32, normalised, cast to bf16) and
-//     writes the probabilities into every block; y = keys + attn . v2 + ob
-//     in fp32 registers; the LayerNorm's moments over C, two-pass within a
-//     block and combined across the cluster with Chan's formula in one
-//     exchange; the new keys written over the tile in shared memory and
-//     stored by TMA; the partial next t2i logits keys_new . sT, reduced the
-//     same way; then every block takes the tile's column maxima, and with
-//     a running max m and sum l per token (fp32) adds exp(logit - m) (as a
-//     bf16 hi + lo pair, below) times the tile into its (K2 x W) fp32
-//     accumulator in registers, as _t2i_update does;
+//     the previous tile is computed;
+//   - 16 warps in 4 warpgroups: wgmma products where the operands sit in
+//     shared memory (the logits: warpgroup (row half, token half); the
+//     weighted sum: warpgroups 0-2, a 64-column block each), mma.sync for
+//     y, where each 16-row group takes two warps, one a half of the block's
+//     column boxes;
+//   - per tile: the partial i2t logits keys . rT over the block's columns,
+//     staged as rows, go to each row's owner block (128 / S rows each) by
+//     bulk copies into its shared memory, counted on an mbarrier there; the
+//     owner adds them (+ per), takes each head's softmax over its tokens
+//     (fp32, normalised, cast to bf16) and bulk-copies its rows of
+//     probabilities into every block, again counted on an mbarrier;
+//     y = keys + attn . v2 + ob in fp32, box by box, for the LayerNorm's
+//     moments over C (merged box by box, over the warp's quad, over the
+//     block's two halves and over the cluster, Chan et al.; each block's
+//     (mean, M2) of the tile bulk-copied to every block), then once more for
+//     the new keys, written over the tile in shared memory and stored by TMA;
+//     the partial next t2i logits keys_new . sT to the owners, their sums +
+//     spe bulk-copied back the same way; then per token the tile's max over
+//     its rows and, with a running max m and sum l (fp32), exp(logit - m)
+//     (as a bf16 hi + lo pair, below) into shared memory, and acc^T (the
+//     block's columns x the tokens, fp32 registers) = acc^T * alpha + tile^T
+//     . e, as _t2i_update does;
 //   - t2i_flash is the same kernel without the i2t front and the store;
 //     with two stages it runs the previous tile's softmax and accumulation
-//     between arriving at and waiting on the cluster barrier after a tile's
-//     logits, so the two overlap.
+//     while the partial logits of a tile travel to their owners, so the two
+//     overlap.
 //   A cluster writes wsum = acc / l for its columns, or, where P is split
 //   over clusters to fill the card (few queries), (m, l, acc) partials that
-//   t2i_combine rescales and adds.
+//   t2i_combine rescales and adds. Builds: the weighted sum's token width,
+//   48 or 64 (K2 > 48), and t2i_flash's widest blocks (C > 2816: 16 blocks
+//   of up to 24 boxes); ops/fused_keys.py:kernel_variant names them.
 //
 // Passes over keys (each 738 MB at the giant shape): t2i_flash reads it
 // once; i2t_ln_t2i reads it once and writes the new keys once, which are
@@ -49,28 +59,43 @@
 // logits never leave the cluster.
 //
 // What bounds them on the card (scripts/keys_bounds.py, PERF.md): not the
-// bytes. The keys stream alone runs near the memory rate, but each 128-row
-// tile is a chain of dependent steps (products, 5 cluster barriers for
-// i2t_ln_t2i and 2 for t2i_flash, owner reductions, the softmaxes) run by
-// the 8 warps of the one block an SM holds (shared memory: the ring and the
-// resident token operands), so a tile takes ~63,000 cycles of i2t_ln_t2i
-// and ~20,000 of t2i_flash (keys_bounds.py --clocks), ~10x and ~7x what
-// its keys traffic takes at the memory rate. Spreading a block over 16
-// warps (the columns split in halves) spilled at 128 registers and ran
-// slower.
+// bytes, and not the products. Each 128-row tile is a chain of dependent
+// steps whose exchanges and per-warp latencies decide its time. So every
+// exchange is a bulk copy counted on an mbarrier in the receiving block
+// (on the card one exchange round took ~3,700 cycles so, ~6,600 through
+// remote stores and two cluster barriers; a block now waits ~300-1,100
+// cycles a tile for remote data), 16 warps share each step, and the
+// products whose operands sit in shared memory run on wgmma. What bounds it
+// now is the register file: 16 warps leave 128 registers a thread, and
+// every step is a chain within a warp (the owners' sums and softmaxes, y
+// box by box, the exponentials): ~40,000 cycles of i2t_ln_t2i a tile and
+// ~14,000 of t2i_flash (keys_bounds.py --clocks). y is computed twice
+// because holding it across the moments' exchange, or running it on wgmma,
+// spilled and ran slower.
+//
+// Exchanges and their buffers: each barrier (bar_red: the owned rows'
+// partials; bar_rcv: the other owners' rows; bar_mom: the moments) opens one
+// phase per use, thread 0 expecting its bytes. A buffer is written again only
+// after its last readers have answered: a block sends a tile's partials once
+// it holds every owner's rows of the tile before, which each owner sent once
+// it had summed its partials; the rows a block receives from an owner land
+// where its partials for that owner were staged, which the owner has
+// received; an owner sends its rows from `out`, which it rewrites only after
+// every block has sent it partials that needed them.
 //
 // Build-time hooks for scripts/keys_bounds.py only (each -D gives a build
 // whose times mean something and whose results do not; each stops
 // i2t_ln_t2i's tile after one more part):
 //   L4P_KEYS_LOADS_ONLY      the keys tiles stream through the ring;
-//   L4P_KEYS_NO_V2           ... and the i2t logits and their reduction;
+//   L4P_KEYS_NO_V2           ... and the i2t logits, their owners' softmax and
+//                            its rows sent back;
 //   L4P_KEYS_NO_LN           ... and y = keys + attn . v2 + ob;
 //   L4P_KEYS_NO_NEXT_LOGITS  ... and the LayerNorm and the new keys' store;
-//   L4P_KEYS_NO_ACC          ... and the next t2i logits and their reduction;
+//   L4P_KEYS_NO_ACC          ... and the next t2i logits and their exchange;
 //   L4P_KEYS_NO_COMBINE      t2i_combine left out (P split over clusters);
 //   L4P_KEYS_CLOCKS          thread 0 of each block counts each part's cycles
-//                            (clock64) and query 0's first cluster writes
-//                            them over its wsum.
+//                            (clock64, into shared memory) and query 0's
+//                            first cluster writes them over its wsum.
 //
 // Numerics: logits, softmax statistics, accumulators, residual and
 // LayerNorm are fp32; the i2t probabilities are normalised then cast to
@@ -80,8 +105,9 @@
 // significant bits where the TPU kernel and the plain version round to
 // bf16's 8, one product more per tile. (With one bf16 each the kernel path's
 // tracks moved farther from an fp32 attention than the plain path's on
-// chip_smoke's witness requests; PERF.md.) Requires C % 16 == 0 and
-// K, K2 multiples of 16 up to 64; ragged P is masked.
+// chip_smoke's witness requests; PERF.md.) The next logits come from the
+// bf16 new keys, as in the plain version. Requires C % 16 == 0 and K, K2
+// multiples of 16 up to 64; ragged P is masked.
 
 #include <math.h>
 
@@ -94,8 +120,8 @@ using namespace l4p::sm90;
 using bf16 = __nv_bfloat16;
 
 constexpr int kMaxK = 64;
-constexpr int kRows = 128;  // keys rows per tile: 8 warps x 16
-constexpr int kWarps = 8;
+constexpr int kRows = 128;   // keys rows per tile: 8 row groups of 16
+constexpr int kWarps = 16;   // 4 warpgroups; in y, two warps a 16-row group, a column half each
 constexpr int kThreads = kWarps * 32;
 constexpr int kBoxCols = 16;                      // a TMA box: 16 columns (32 bytes) x 128 rows
 constexpr int kBoxBytes = kRows * kBoxCols * 2;  // 4096
@@ -104,7 +130,7 @@ constexpr int kMaxCluster = 16;
 constexpr int kKS = 11;      // k16 column steps a block takes: W <= 176
 constexpr int kKSWide = 24;  // t2i_flash beyond that: W <= 384 (16 blocks, C <= 6144)
 constexpr int kMaxSmem = 232448;
-constexpr int kClockParts = 11;  // the parts L4P_KEYS_CLOCKS times (scripts/keys_bounds.py --clocks)
+constexpr int kClockParts = 16;  // the parts L4P_KEYS_CLOCKS times (scripts/keys_bounds.py --clocks)
 constexpr int kStop =  // the part after which the hooks stop i2t_ln_t2i's tile (6: none)
 #if defined(L4P_KEYS_LOADS_ONLY)
     1;
@@ -126,10 +152,10 @@ struct Plan {
   int s;       // blocks per cluster
   int ks;      // k16 column steps per block (the last block may own fewer)
   int w;       // columns per block, 16 * ks
-  int rpo;     // tile rows each block reduces: ceil(128 / s) up to a multiple of 4
-  int ldr;     // the reduce buffer's row stride in floats: max(K, K2) + 2, so rows fall on other banks
+  int rpo;     // tile rows each block owns (reduces): ceil(128 / s) up to a multiple of 4
+  int ldx;     // fp32 row stride of the exchanged rows: max(K, K2) + 4 (16-byte rows on other banks)
   int stages;  // ring stages
-  int ring, rt, v2, st, vec, pre, red, xbuf, et, mom, stat, bar, total;
+  int ring, rt, v2, st, vec, pre, red, xbuf, et, out, mom, stat, bar, total;
 };
 
 // The kernel's other operands. rT, sT: (N, K|K2, C); v2T: (N, C, K);
@@ -153,6 +179,13 @@ struct Args {
   float eps;
 };
 
+// Token rows of a token operand's boxes in shared memory: the tokens and
+// room for the 32-token products of the upper half to read past them.
+__host__ __device__ constexpr int tok_rows(int tokens) { return tokens / 2 + 32; }
+
+// Tokens of the weighted sum's products (wgmma's N): 48, or 64 past 48.
+__host__ __device__ constexpr int acc_tokens(int k2) { return k2 > 48 ? 64 : 48; }
+
 Plan make_plan(bool i2t, int c, int k, int k2, int stages) {
   Plan q{};
   const int cw = c / 16;
@@ -161,7 +194,7 @@ Plan make_plan(bool i2t, int c, int k, int k2, int stages) {
   q.s = (cw + q.ks - 1) / q.ks;
   q.w = 16 * q.ks;
   q.rpo = ((kRows + q.s - 1) / q.s + 3) / 4 * 4;
-  q.ldr = (i2t && k > k2 ? k : k2) + 2;
+  q.ldx = (i2t && k > k2 ? k : k2) + 4;
   q.stages = stages;
   int off = 0;
   auto take = [&](int bytes, int align) {
@@ -171,23 +204,27 @@ Plan make_plan(bool i2t, int c, int k, int k2, int stages) {
     return at;
   };
   q.ring = take(stages * q.ks * kBoxBytes, 1024);
-  q.rt = i2t ? take(k * (q.w + 8) * 2, 16) : 0;
+  q.rt = i2t ? take(q.ks * tok_rows(k) * 32, 256) : 0;
   q.v2 = i2t ? take(q.w * (k + 8) * 2, 16) : 0;
-  q.st = take(k2 * (q.w + 8) * 2, 16);
+  q.st = take(q.ks * tok_rows(k2) * 32, 256);
   q.vec = i2t ? take(3 * q.w * 4, 16) : 0;
   q.pre = take(q.rpo * ((i2t ? k + 4 : 0) + k2 + 4) * 4, 16);
-  q.red = take(q.s * q.rpo * q.ldr * 4, 16);
-  // the i2t probabilities (128, K + 8) bf16, then the next logits token-major
-  // (K2, 132) fp32; their exponentials as bf16 hi and lo parts, 2 x (K2, 136)
-  const int attn_bytes = i2t ? kRows * (k + 8) * 2 : 0, lg_bytes = k2 * (kRows + 4) * 4;
-  const int et_bytes = 2 * k2 * (kRows + 8) * 2;  // the exponentials' bf16 hi and lo parts
-  q.xbuf = take(max(max(lg_bytes, attn_bytes), i2t || stages == 1 ? et_bytes : 0), 16);
+  const int row_bytes = q.ldx * 4;
+  q.red = take(q.s * q.rpo * row_bytes, 16);
+  // the tile's rows (128, ldx): this block's partial logits as they are sent,
+  // then each owner's rows of i2t probabilities (bf16) or next logits (fp32);
+  // then their exponentials as bf16 hi and lo parts, wgmma's K-major B
+  // operand: per 16-row k-step a box of (token, 32 bytes) rows, 32-byte swizzle
+  const int et_bytes = 2 * (kRows / 16) * (q.ks > kKS ? 64 : acc_tokens(k2)) * 32;  // the widest build takes 64
+  q.xbuf = take(max(kRows * row_bytes, i2t || stages == 1 ? et_bytes : 0), 256);
   // without the window (i2t_ln_t2i, or one stage) the exponentials take xbuf's place
-  q.et = !i2t && stages == 2 ? take(et_bytes, 16) : q.xbuf;
+  q.et = !i2t && stages == 2 ? take(et_bytes, 256) : q.xbuf;
+  q.out = take(q.s > 1 ? q.rpo * row_bytes : 0, 16);  // the owned rows as they are sent
   q.mom = i2t ? take(q.s * kRows * 8, 16) : 0;
   q.stat = take(3 * kMaxK * 4, 16);
-  q.bar = take(stages * 8, 8);
-  q.total = off + 1024;  // and the slack to align the base
+  q.bar = take((stages + 3) * 8, 8);
+  // the weighted sum reads the last stage in 64-column blocks, warpgroup 3's past the block's columns
+  q.total = max(off, ((stages - 1) * q.ks + (q.ks > kKS ? 28 : 16)) * kBoxBytes) + 1024;  // and the slack to align the base
   return q;
 }
 
@@ -200,126 +237,118 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(0xffffffffu, v, 2);
 }
 
-__device__ __forceinline__ float quad_max(float v) {
-  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
-  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
-}
-
-// Copies `rows` rows of columns [c0, c0 + nv) of a (rows, c) bf16 matrix
-// into a (rows, ld) shared matrix (cp.async; the caller waits).
-__device__ void load_cols(bf16* dst, const bf16* src, int rows, int c, int c0, int nv, int ld) {
+// Copies columns [c0, c0 + nv) of a (tokens, c) bf16 matrix into shared
+// memory as wgmma's K-major operand: a box of 16 columns after another,
+// each `trows` rows of 32 bytes with 32-byte swizzle (cp.async; the caller
+// waits).
+__device__ void load_tokens(bf16* dst, const bf16* src, int tokens, int c, int c0, int nv, int trows) {
   const int chunks = nv / 8;
-  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
-    const int r = i / chunks, cc = (i % chunks) * 8;
-    cp_async_16(smem_addr(dst + r * ld + cc), src + static_cast<size_t>(r) * c + c0 + cc, 16);
+  for (int i = threadIdx.x; i < tokens * chunks; i += kThreads) {
+    const int j = i / chunks, cc = i % chunks;
+    cp_async_16(smem_addr(reinterpret_cast<unsigned char*>(dst) + (cc >> 1) * trows * 32 + sw32(j, cc & 1)),
+                src + static_cast<size_t>(j) * c + c0 + 8 * cc, 16);
   }
 }
 
-// Copies `items` 16-byte chunks of this block's shared memory, chunk i at
-// byte offset off(i) from `base`, to the same place in the cluster's other
-// s - 1 blocks.
-template <class Off>
-__device__ __forceinline__ void copy_out(const unsigned char* base, int items, Off off, int s, uint32_t rank) {
-  for (int i = threadIdx.x; i < items; i += kThreads) {
-    const int o = off(i);
-    const uint4 v = *reinterpret_cast<const uint4*>(base + o);
-    for (int d = 1; d < s; ++d) {
-      const int dst = static_cast<int>(rank) + d < s ? static_cast<int>(rank) + d : static_cast<int>(rank) + d - s;
-      st_cluster_v4(map_shared(base, dst) + o, v);
-    }
-  }
-}
-
-// acc[j] = this block's part of the tile's logits for its warp's 16 rows:
-// rows 16 warp + g (+ 8), tokens 8j + 2t (+ 1); the tile's kv column boxes
-// against bT (tokens x columns, row stride ldb) in shared memory.
-template <int KS>
-__device__ __forceinline__ void tile_logits(float (&acc)[kMaxK / 8][4], const unsigned char* tile, const bf16* bT,
-                                            int ldb, int tokens, int kv) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-#pragma unroll
-  for (int j = 0; j < kMaxK / 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-#pragma unroll
-  for (int s = 0; s < KS; ++s) {
-    if (s >= kv) break;
-    uint32_t a[4];
-    ldmatrix_x4(a, smem_addr(tile + s * kBoxBytes + sw32(warp * 16 + (lane & 15), lane >> 4)));
-#pragma unroll
-    for (int j = 0; j < kMaxK / 8; j += 2) {
-      if (j * 8 < tokens) {
-        uint32_t b[4];
-        ldmatrix_x4(b, smem_addr(bT + (j * 8 + (lane & 7) + ((lane >> 4) << 3)) * ldb + s * 16 +
-                                 ((lane >> 3) & 1) * 8));
-        mma_16816(acc[j], a, b[0], b[1]);
-        mma_16816(acc[j + 1], a, b[2], b[3]);
-      }
-    }
-  }
-}
-
-// Writes the warp's partial logits into the reduce buffer of each row's
-// owner block: red[rank][row - owner * rpo][token] there (row stride ldr).
-__device__ __forceinline__ void send_partials(const float (&acc)[kMaxK / 8][4], const float* red, int tokens,
-                                              int rpo, int ldr, uint32_t rank) {
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+// Writes the warp's partial logits (token chunks j0 .. j0 + nj of the wgmma
+// fragment d) into the tile's rows x (row stride ldx), from which they go
+// to their owners.
+__device__ __forceinline__ void stage_partials(const float (&d)[16], float* x, int j0, int nj, int ldx, int rg) {
+  const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
-    const int row = warp * 16 + g + 8 * h, owner = row / rpo;
-    const uint32_t base = map_shared(red, owner) + ((rank * rpo + row - owner * rpo) * ldr + 2 * t) * 4;
+    float* row = x + (rg * 16 + g + 8 * h) * ldx + 8 * j0 + 2 * t;
 #pragma unroll
-    for (int j = 0; j < kMaxK / 8; ++j)
-      if (j * 8 < tokens) st_cluster_f32x2(base + j * 32, acc[j][2 * h], acc[j][2 * h + 1]);
+    for (int i = 0; i < 4; ++i)
+      if (i < nj) *reinterpret_cast<float2*>(row + 8 * i) = make_float2(d[4 * i + 2 * h], d[4 * i + 2 * h + 1]);
   }
 }
 
-// One cluster per (query n, split sp of P); grid (s, splits, n), 256
+// Each owner's rows of the staged tile x (row_bytes each) into its red[rank]
+// (this block's own too, so that an owner's sums read red alone),
+// completing on its barrier `bar`; threads 0 .. s - 1 issue one copy each
+// (after the writers' fence_proxy_async and a barrier).
+__device__ __forceinline__ void send_partials(const unsigned char* x, const unsigned char* red, const uint64_t* bar,
+                                              int rpo, int row_bytes, int s, uint32_t rank) {
+  const int d = threadIdx.x;
+  const int count = min(rpo, kRows - d * rpo);
+  if (d < s && count > 0)
+    bulk_copy_cluster(map_shared(red + rank * rpo * row_bytes, d), x + d * rpo * row_bytes, count * row_bytes,
+                      map_shared(bar, d));
+}
+
+// Copies `count` rows of `row_bytes` from `src` to rows [first, first + count)
+// of `dst` in every other block of the cluster, each copy completing on the
+// barrier `bar` there; threads 0 .. s - 1 issue one copy each.
+__device__ __forceinline__ void send_rows(const void* dst, const void* src, const uint64_t* bar, int first, int count,
+                                          int row_bytes, int s, uint32_t rank) {
+  const int d = threadIdx.x;
+  if (d < s && d != static_cast<int>(rank) && count > 0)
+    bulk_copy_cluster(map_shared(static_cast<const unsigned char*>(dst) + first * row_bytes, d), src,
+                      count * row_bytes, map_shared(bar, d));
+}
+
+// One cluster per (query n, split sp of P); grid (s, splits, n), 512
 // threads. kI2T: i2t_ln_t2i (else t2i_flash); KS: the k16 column steps a
-// block's registers hold (y, the accumulator); MT2: the m16 tiles of K2
-// the accumulator holds (K2 <= 16 MT2).
-template <bool kI2T, int KS, int MT2>
+// block takes (11, or 24 for t2i_flash's widest); NT: acc_tokens(K2).
+template <bool kI2T, int KS, int NT>
 __global__ void __launch_bounds__(kThreads, 1)
     keys_cluster_kernel(const __grid_constant__ CUtensorMap tm_keys, const __grid_constant__ CUtensorMap tm_new,
                         const Plan q, const Args a) {
-  constexpr int kChunks = (2 * KS + kWarps - 1) / kWarps;  // n8 accumulator column chunks per warp
+  constexpr int KSH = (KS + 1) / 2;     // column boxes of y a warp takes
+  constexpr int CBW = KS > 12 ? 2 : 1;  // 64-column blocks of the weighted sum a warpgroup of 0-2 takes
   constexpr int kStopAt = kI2T ? kStop : (kStop == 1 ? 1 : kStop >= 5 ? kStop : 6);
   // t2i_flash with two stages runs the previous tile's accumulation (and the
-  // next tile's load into its stage) inside the cluster barrier after a
-  // tile's logits ("the window"); i2t_ln_t2i loads the next tile after its
-  // i2t reduction (by then the previous tile's store has read the stage).
+  // next tile's load into its stage) while its partial logits travel to
+  // their owners ("the window")
   constexpr bool kWindow = !kI2T && kStopAt >= 5;
-  const bool windowed = kWindow && q.stages == 2;
+  const bool windowed = kWindow && kStopAt >= 6 && q.stages == 2;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+  const int rg = warp & 7, hf = warp >> 3;  // the warp's rows 16 rg .. 16 rg + 15; its half
+  const int wg = warp >> 2, w4 = warp & 3;  // its warpgroup: rows 64 (wg & 1) .., token half wg >> 1 (= hf)
   const uint32_t rank = cluster_rank();
   const int n = blockIdx.z, sp = blockIdx.y, splits = gridDim.y;
   const int c = a.c, k = a.k, k2 = a.k2;
   const int c0 = rank * q.w;
   const int nv = min(q.w, c - c0);  // this block's columns, a multiple of 16
   const int kv = nv / 16;
+  const int kv0 = (kv + 1) / 2, yb0 = hf ? kv0 : 0, ynb = hf ? kv - kv0 : kv0;  // the warp's boxes of y
   const int p_lo = sp * a.split, p_hi = min(a.p, p_lo + a.split);
   const int tiles = (p_hi - p_lo + kRows - 1) / kRows;
-  const int ldw = q.w + 8, ldk = k + 8, ldl = kRows + 4, lde = kRows + 8, ldp = k + 4, lds = k2 + 4;
+  const int ldv = k + 8, ldp = k + 4, lds = k2 + 4, ldx = q.ldx, ldk = 2 * ldx;
+  const int row_bytes = ldx * 4;  // a row of xbuf, red and out
+  const int nj = k / 16, nj2 = k2 / 16;  // each half's n8 token chunks of the logits
   unsigned char* ring = smem + q.ring;
   bf16* rT_s = reinterpret_cast<bf16*>(smem + q.rt);
   bf16* v2_s = reinterpret_cast<bf16*>(smem + q.v2);
   bf16* sT_s = reinterpret_cast<bf16*>(smem + q.st);
   float* vec_s = reinterpret_cast<float*>(smem + q.vec);  // ob, lnw, lnb
-  float* per_s = reinterpret_cast<float*>(smem + q.pre);  // this block's reduced rows of per, then spe
+  float* per_s = reinterpret_cast<float*>(smem + q.pre);  // this block's owned rows of per, then spe
   float* spe_s = per_s + (kI2T ? q.rpo * ldp : 0);
-  float* red = reinterpret_cast<float*>(smem + q.red);
-  bf16* attn = reinterpret_cast<bf16*>(smem + q.xbuf);   // i2t probabilities (kRows, ldk)
-  float* lg2T = reinterpret_cast<float*>(smem + q.xbuf);  // next logits (k2, ldl), after attn's use
-  bf16* eT = reinterpret_cast<bf16*>(smem + q.et);        // their exponentials (k2, lde)
-  float2* mom = reinterpret_cast<float2*>(smem + q.mom);
+  float* red = reinterpret_cast<float*>(smem + q.red);    // (s, rpo, ldx): the owned rows' partials by block
+  float* xs = reinterpret_cast<float*>(smem + q.xbuf);    // the tile's rows (kRows, ldx): partials as sent
+  bf16* attn = reinterpret_cast<bf16*>(smem + q.xbuf);    // then i2t probabilities (kRows, ldk)
+  float* lg2 = xs;                                        // or next logits
+  unsigned char* eT = smem + q.et;                        // their exponentials, hi then lo
+  unsigned char* out = smem + q.out;                      // the owned rows as sent
+  float2* mom = reinterpret_cast<float2*>(smem + q.mom);  // (s, kRows): each block's (mean, M2) per row
   float* m_run = reinterpret_cast<float*>(smem + q.stat);
   float* l_run = m_run + kMaxK;
   float* alpha = l_run + kMaxK;
   uint64_t* full = reinterpret_cast<uint64_t*>(smem + q.bar);
-  const int my_rows = rank * q.rpo;  // the tile rows this block reduces
-  const int own = min(q.rpo, kRows - my_rows);
+  uint64_t* bar_red = full + q.stages;  // the owned rows' partial logits, from every block
+  uint64_t* bar_rcv = bar_red + 1;      // every other owner's rows of probabilities or logits
+  uint64_t* bar_mom = bar_red + 2;      // every block's LayerNorm moments
+  uint32_t ph_red = 0, ph_rcv = 0, ph_mom = 0;
+  const int my_rows = rank * q.rpo;  // the tile rows this block owns
+  const int own = max(0, min(q.rpo, kRows - my_rows));
 #ifdef L4P_KEYS_CLOCKS
-  long long ticks[kClockParts] = {}, tick_last = clock64();
+  // the counts in shared memory, so that the build holds no more registers than the kernel
+  __shared__ long long ticks[kClockParts];
+  if (tid < kClockParts) ticks[tid] = 0;
+  long long tick_last = clock64();
 #define L4P_TICK(i)                  \
   if (tid == 0) {                    \
     const long long now = clock64(); \
@@ -333,10 +362,10 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid == 0) {
     prefetch_tensor_map(&tm_keys);
     if (kI2T) prefetch_tensor_map(&tm_new);
-    for (int s = 0; s < q.stages; ++s) mbar_init(&full[s], 1);
+    for (int s = 0; s < q.stages + 3; ++s) mbar_init(&full[s], 1);
     fence_barrier_init();
   }
-  // this block's reduced rows of per and spe for tile tt (zero past P), by cp.async
+  // this block's owned rows of per and spe for tile tt (zero past P), by cp.async
   auto prefetch_rows = [&](int tt) {
     const int kc = kI2T ? k / 4 : 0, kc2 = k2 / 4;  // 16-byte chunks per row
     const int row0 = p_lo + tt * kRows + my_rows;
@@ -351,13 +380,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     cp_async_commit();
   };
-  load_cols(sT_s, a.sT + static_cast<size_t>(n) * k2 * c, k2, c, c0, nv, ldw);
+  load_tokens(sT_s, a.sT + static_cast<size_t>(n) * k2 * c, k2, c, c0, nv, tok_rows(k2));
   if (kI2T) {
-    load_cols(rT_s, a.rT + static_cast<size_t>(n) * k * c, k, c, c0, nv, ldw);
+    load_tokens(rT_s, a.rT + static_cast<size_t>(n) * k * c, k, c, c0, nv, tok_rows(k));
     const int chunks = k / 8;
     for (int i = tid; i < nv * chunks; i += kThreads) {
       const int cc = i / chunks, kc = (i % chunks) * 8;
-      cp_async_16(smem_addr(v2_s + cc * ldk + kc), a.v2T + (static_cast<size_t>(n) * c + c0 + cc) * k + kc, 16);
+      cp_async_16(smem_addr(v2_s + cc * ldv + kc), a.v2T + (static_cast<size_t>(n) * c + c0 + cc) * k + kc, 16);
     }
     for (int i = tid; i < nv; i += kThreads) {
       vec_s[i] = a.ob[c0 + i];
@@ -368,9 +397,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (tid < kMaxK) {
     m_run[tid] = -INFINITY;
     l_run[tid] = 0.f;
+    alpha[tid] = 0.f;
   }
   prefetch_rows(0);
-  cluster_sync();  // residents' copies issued, barriers ready; every block of the cluster running
+  cp_async_wait<0>();  // the residents in place, and visible to wgmma's (async proxy) reads
+  fence_proxy_async();
+  cluster_sync();  // barriers ready; every block of the cluster running
 
   auto issue = [&](int tt) {  // thread 0: tile tt's boxes into its stage
     const int s = tt % q.stages;
@@ -388,104 +420,117 @@ __global__ void __launch_bounds__(kThreads, 1)
       issue(tt + 1);
     }
   };
+  // thread 0 opens a phase of `bar` that expects `bytes` from the cluster
+  auto expect = [&](uint64_t* bar, int bytes) {
+    if (tid == 0) mbar_arrive_expect_tx(bar, bytes);
+  };
+  auto wait = [&](uint64_t* bar, uint32_t& ph) {
+    mbar_wait_cluster(bar, ph);
+    ph ^= 1;
+  };
   if (tid == 0)
     for (int tt = 0; tt < min(q.stages, tiles); ++tt) issue(tt);
 
-  float acc[kChunks][MT2][4];
+  // the warpgroup's part of the tile's logits against a token operand (in
+  // its swizzled boxes): rows 64 (wg & 1) .. + 64, 32 tokens from (wg >> 1)
+  // tokens / 2 (those past the half are not used), over the block's boxes
+  auto logits = [&](float (&d)[16], const unsigned char* stage, const bf16* tok, int tokens) {
+    const unsigned char* tb = reinterpret_cast<const unsigned char*>(tok) + (wg >> 1) * (tokens / 2) * 32;
+    // the descriptors step by 16-byte units (a rolled loop: unrolled, their
+    // hoisted copies would take the registers)
+    const uint64_t da = smem_desc(stage + (wg & 1) * 64 * 32, 16, 256, kSwizzle32B);
+    const uint64_t db = smem_desc(tb, 16, 256, kSwizzle32B);
+    wgmma_fence();
+#pragma unroll 1
+    for (int b = 0; b < kv; ++b)
+      wgmma_m64n32k16_ss(d, da + b * (kBoxBytes >> 4), db + b * tok_rows(tokens) * 2, b > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(d);
+  };
+  float lgd[16];
+
+  // The weighted sum, transposed: warpgroups 0-2 keep acc^T, their 64-column
+  // blocks (64 cb + 16 w4 + g, + 8; cb = wg + 3i) x NT tokens (8j + 2t, + 1),
+  // in fp32 registers, with a running max m and sum l per token in shared
+  // memory. Per tile: the online softmax over P per token from the logits in
+  // x (a half-warp per token of pairs warp, warp + 16, ..., rows o + 16u a
+  // lane), e = exp(logit - m) as bf16 hi + lo into eT; then acc^T = acc^T *
+  // alpha + tile^T . e (wgmma, the tile MN-major as A from its boxes, e
+  // K-major as B).
+  float acc[CBW][NT / 2];
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i)
+  for (int i = 0; i < CBW; ++i)
 #pragma unroll
-    for (int mt = 0; mt < MT2; ++mt) acc[i][mt][0] = acc[i][mt][1] = acc[i][mt][2] = acc[i][mt][3] = 0.f;
-  float lg[kMaxK / 8][4];
-  // online softmax over P per token from the logits in x: a half-warp per
-  // token (of pairs warp, warp + 8, ...), 8 rows a lane; e = exp(logit - m)
-  // in bf16 into eT; then acc (K2 x the warp's column chunks) = acc * alpha
-  // + e^T . the tile in `stage`
-  constexpr int kPairs = (8 * MT2 + kWarps - 1) / kWarps;
+    for (int v = 0; v < NT / 2; ++v) acc[i][v] = 0.f;
+  constexpr int kPairs = (NT / 2 + kWarps - 1) / kWarps;
   const int o = lane & 15;
   float x[kPairs][8];
   auto softmax_acc = [&](const unsigned char* stage) {
 #pragma unroll
-      for (int pi = 0; pi < kPairs; ++pi) {
-        const int p = warp + kWarps * pi;
-        if (p < k2 / 2) {
-          const int j = 2 * p + (lane >> 4);
-          float mx = x[pi][0];
+    for (int pi = 0; pi < kPairs; ++pi) {
+      const int p = warp + kWarps * pi;
+      if (p < k2 / 2) {
+        const int j = 2 * p + (lane >> 4);
+        float mx = x[pi][0];
 #pragma unroll
-          for (int u = 1; u < 8; ++u) mx = fmaxf(mx, x[pi][u]);
+        for (int u = 1; u < 8; ++u) mx = fmaxf(mx, x[pi][u]);
 #pragma unroll
-          for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-          const float m_old = m_run[j], m_new = fmaxf(m_old, mx);
-          uint32_t hi[4], lo[4];
-          float sum = 0.f;
+        for (int off = 1; off < 16; off <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_old = m_run[j], m_new = fmaxf(m_old, mx);
+        float sum = 0.f;
+        // row o + 16u of token j: k-step u, element o of its 32-byte row
+        unsigned char* ej = eT + j * 32 + (((o >> 3) ^ (j >> 2)) & 1) * 16 + (o & 7) * 2;
 #pragma unroll
-          for (int u = 0; u < 4; ++u) {
-            const float e0 = expf(x[pi][2 * u] - m_new), e1 = expf(x[pi][2 * u + 1] - m_new);
-            const float h0 = bf16_round(e0), h1 = bf16_round(e1);
-            const float l0 = bf16_round(e0 - h0), l1 = bf16_round(e1 - h1);
-            hi[u] = pack_bf16x2(h0, h1);
-            lo[u] = pack_bf16x2(l0, l1);
-            sum += (h0 + l0) + (h1 + l1);
-          }
-          *reinterpret_cast<uint4*>(eT + j * lde + 8 * o) = make_uint4(hi[0], hi[1], hi[2], hi[3]);
-          *reinterpret_cast<uint4*>(eT + (k2 + j) * lde + 8 * o) = make_uint4(lo[0], lo[1], lo[2], lo[3]);
+        for (int u = 0; u < 8; ++u) {
+          const float e = expf(x[pi][u] - m_new);
+          const bf16 h = __float2bfloat16(e);
+          const bf16 l = __float2bfloat16(e - __bfloat162float(h));
+          *reinterpret_cast<bf16*>(ej + u * NT * 32) = h;
+          *reinterpret_cast<bf16*>(ej + (8 + u) * NT * 32) = l;
+          sum += __bfloat162float(h) + __bfloat162float(l);
+        }
 #pragma unroll
-          for (int off = 1; off < 16; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-          if (o == 0) {
-            const float al = expf(m_old - m_new);
-            alpha[j] = al;
-            m_run[j] = m_new;
-            l_run[j] = l_run[j] * al + sum;
-          }
+        for (int off = 1; off < 16; off <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
+        if (o == 0) {
+          const float al = expf(m_old - m_new);
+          alpha[j] = al;
+          m_run[j] = m_new;
+          l_run[j] = l_run[j] * al + sum;
         }
       }
-      __syncthreads();
-      // acc (K2 x the warp's column chunks) = acc * alpha + e^T . tile
+    }
+    if (!kI2T) L4P_TICK(14);
+    fence_proxy_async();  // eT is read by wgmma
+    __syncthreads();
+    if (!kI2T) L4P_TICK(15);
+    {
 #pragma unroll
-      for (int mt = 0; mt < MT2; ++mt) {
-        if (mt * 16 < k2) {
-          const float al0 = alpha[mt * 16 + g], al1 = alpha[mt * 16 + g + 8];
+      for (int i = 0; i < CBW; ++i)
 #pragma unroll
-          for (int i = 0; i < kChunks; ++i) {
-            acc[i][mt][0] *= al0;
-            acc[i][mt][1] *= al0;
-            acc[i][mt][2] *= al1;
-            acc[i][mt][3] *= al1;
-          }
+        for (int j = 0; j < NT / 8; ++j) {
+          const float a0 = alpha[8 * j + 2 * t], a1 = alpha[8 * j + 2 * t + 1];
+          acc[i][4 * j] *= a0;
+          acc[i][4 * j + 1] *= a1;
+          acc[i][4 * j + 2] *= a0;
+          acc[i][4 * j + 3] *= a1;
         }
+      wgmma_fence();
+#pragma unroll
+      for (int i = 0; i < CBW; ++i) {
+        // warpgroup 3 (past the columns: read, not kept) takes a block too, so
+        // that every warpgroup runs the same wgmma; descriptors stepped as in logits
+        const uint64_t da = smem_desc(stage + 4 * (wg + 3 * i) * kBoxBytes, kBoxBytes, 256, kSwizzle32B);
+        const uint64_t db = smem_desc(eT, 16, 256, kSwizzle32B);
+#pragma unroll 1
+        for (int u = 0; u < 2 * kRows / 16; ++u)  // the hi parts' k-steps, then the lo parts'
+          wgmma_ss_ta<NT>(acc[i], da + (u & 7) * (16 * 32 >> 4), db + u * (NT * 32 >> 4), 1);
       }
+      wgmma_commit();
+      wgmma_wait<0>();
 #pragma unroll
-      for (int kk = 0; kk < kRows / 16; kk += 2) {
-        uint32_t b[kChunks][4];
-#pragma unroll
-        for (int part = 0; part < 2; ++part) {  // the exponentials' hi, then lo parts
-          uint32_t ea[MT2][2][4];
-#pragma unroll
-          for (int mt = 0; mt < MT2; ++mt)
-            if (mt * 16 < k2)
-#pragma unroll
-              for (int u = 0; u < 2; ++u)
-                ldmatrix_x4(ea[mt][u], smem_addr(eT + (part * k2 + mt * 16 + (lane & 15)) * lde + (kk + u) * 16 +
-                                                 (lane >> 4) * 8));
-#pragma unroll
-          for (int i = 0; i < kChunks; ++i) {
-            const int jc = warp + kWarps * i;
-            if (jc < 2 * kv) {
-              if (part == 0) {
-                const int row = (kk + (lane >> 4)) * 16 + ((lane >> 3) & 1) * 8 + (lane & 7);
-                ldmatrix_x4_trans(b[i], smem_addr(stage + (jc >> 1) * kBoxBytes + sw32(row, jc & 1)));
-              }
-#pragma unroll
-              for (int mt = 0; mt < MT2; ++mt) {
-                if (mt * 16 < k2) {
-                  mma_16816(acc[i][mt], ea[mt][0], b[i][0], b[i][1]);
-                  mma_16816(acc[i][mt], ea[mt][1], b[i][2], b[i][3]);
-                }
-              }
-            }
-          }
-        }
-      }
+      for (int i = 0; i < CBW; ++i) fence_regs(acc[i]);
+    }
   };
 
   for (int tt = 0; tt < tiles; ++tt) {
@@ -499,7 +544,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     // the window: the previous tile's accumulation, then the next tile's load into its stage
     auto window = [&]() {
       if (q.stages == 2) {
-        if (kStopAt >= 6 && tt > 0) {
+        if (windowed && tt > 0) {
           softmax_acc(ring + ((tt - 1) % 2) * q.ks * kBoxBytes);
           __syncthreads();  // every warp is done with that stage
         }
@@ -508,115 +553,158 @@ __global__ void __launch_bounds__(kThreads, 1)
     };
 
     if constexpr (kI2T && kStopAt >= 2) {
-      // i2t logits, reduced over the cluster; each owner's softmax per head into every block
-      tile_logits<KS>(lg, st, rT_s, ldw, k, kv);
-      send_partials(lg, red, k, q.rpo, q.ldr, rank);
-      cp_async_wait<0>();
-      cluster_sync();
+      // i2t logits to their owners; each owner's softmax per head into every block
+      logits(lgd, st, rT_s, k);
+      stage_partials(lgd, xs, hf * nj, nj, ldx, rg);
+      fence_proxy_async();
+      __syncthreads();
+      expect(bar_red, q.s * own * row_bytes);
+      send_partials(reinterpret_cast<unsigned char*>(xs), reinterpret_cast<unsigned char*>(red), bar_red, q.rpo,
+                    row_bytes, q.s, rank);
+      if (q.stages == 2) issue_next(tt);
       L4P_TICK(2);
-      // the owner's rows: sums over the cluster (+ per) with every thread, then each head's softmax
+      cp_async_wait<0>();
+      wait(bar_red, ph_red);
+      L4P_TICK(11);
+      __syncthreads();  // the per rows every thread copied
       for (int i = tid; i < own * k; i += kThreads) {
         const int slot = i / k, j = i - slot * k;
+        const float* src = red + slot * ldx + j;
         float v = per_s[slot * ldp + j];
-        for (int src = 0; src < q.s; ++src) v += red[(src * q.rpo + slot) * q.ldr + j];
-        red[slot * q.ldr + j] = v;
+#pragma unroll
+        for (int b = 0; b < kMaxCluster; ++b)
+          if (b < q.s) v += src[b * q.rpo * ldx];
+        red[(rank * q.rpo + slot) * ldx + j] = v;  // over this block's own partials, read
       }
       __syncthreads();
       const int heads = k / a.q;
+      bf16* out_p = reinterpret_cast<bf16*>(out);
       for (int i = tid; i < own * heads; i += kThreads) {
         const int slot = i / heads, h0 = (i - slot * heads) * a.q;
-        const float* x = red + slot * q.ldr + h0;
+        const float* xr = red + (rank * q.rpo + slot) * ldx + h0;
         float m = -INFINITY;
-        for (int j = 0; j < a.q; ++j) m = fmaxf(m, x[j]);
+        for (int j = 0; j < a.q; ++j) m = fmaxf(m, xr[j]);
         float sum = 0.f;
-        for (int j = 0; j < a.q; ++j) sum += expf(x[j] - m);
+        for (int j = 0; j < a.q; ++j) sum += expf(xr[j] - m);
         const float inv = 1.f / sum;
-        bf16* out = attn + (my_rows + slot) * ldk + h0;
-        for (int j = 0; j < a.q; ++j) out[j] = __float2bfloat16(expf(x[j] - m) * inv);
+        for (int j = 0; j < a.q; ++j) {
+          const bf16 pr = __float2bfloat16(expf(xr[j] - m) * inv);
+          attn[(my_rows + slot) * ldk + h0 + j] = pr;
+          out_p[slot * ldk + h0 + j] = pr;
+        }
       }
+      fence_proxy_async();
       __syncthreads();
-      {
-        const int kc = k / 8;  // 16-byte chunks of a row of probabilities
-        copy_out(reinterpret_cast<const unsigned char*>(attn), own * kc,
-                 [&](int i) { return ((my_rows + i / kc) * ldk + (i % kc) * 8) * 2; }, q.s, rank);
-      }
-      cluster_sync();
-      if (q.stages == 2) issue_next(tt);
+      expect(bar_rcv, (kRows - own) * row_bytes);
+      send_rows(attn, out, bar_rcv, my_rows, own, row_bytes, q.s, rank);
+      L4P_TICK(12);
+      wait(bar_rcv, ph_rcv);
       L4P_TICK(3);
     }
     if constexpr (kI2T && kStopAt >= 3) {
-      // y = keys + attn . v2 + ob for the warp's 16 rows and the block's columns, fp32 in registers
-      float y[2 * KS][4];
-      uint32_t af[kMaxK / 16][4];
+      // y = keys + attn . v2 + ob for the warp's 16 rows and its boxes, fp32:
+      // once for the LayerNorm's moments, once more (the same operations, so
+      // the same values) for the new keys, so that no y is held across the
+      // moments' exchange
+      const uint32_t a_row = smem_addr(attn + (rg * 16 + (lane & 15)) * ldk + (lane >> 4) * 8);
+      auto y_box = [&](int b, float (&y)[2][4]) {
+        y[0][0] = y[0][1] = y[0][2] = y[0][3] = 0.f;
+        y[1][0] = y[1][1] = y[1][2] = y[1][3] = 0.f;
 #pragma unroll
-      for (int kk = 0; kk < kMaxK / 16; ++kk)
-        if (kk * 16 < k) ldmatrix_x4(af[kk], smem_addr(attn + (warp * 16 + (lane & 15)) * ldk + kk * 16 + (lane >> 4) * 8));
-#pragma unroll
-      for (int jc = 0; jc < 2 * KS; jc += 2) {
-        if (jc < 2 * kv) {
-          y[jc][0] = y[jc][1] = y[jc][2] = y[jc][3] = 0.f;
-          y[jc + 1][0] = y[jc + 1][1] = y[jc + 1][2] = y[jc + 1][3] = 0.f;
-#pragma unroll
-          for (int kk = 0; kk < kMaxK / 16; ++kk) {
-            if (kk * 16 < k) {
-              uint32_t b[4];
-              ldmatrix_x4(b, smem_addr(v2_s + (jc * 8 + (lane & 7) + ((lane >> 4) << 3)) * ldk + kk * 16 +
-                                       ((lane >> 3) & 1) * 8));
-              mma_16816(y[jc], af[kk], b[0], b[1]);
-              mma_16816(y[jc + 1], af[kk], b[2], b[3]);
-            }
+        for (int kk = 0; kk < kMaxK / 16; ++kk) {
+          if (kk * 16 < k) {
+            uint32_t af[4], bm[4];  // attn's fragments reloaded a box: held, they would take the registers
+            ldmatrix_x4(af, a_row + kk * 32);
+            ldmatrix_x4(bm, smem_addr(v2_s + (b * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldv + kk * 16 +
+                                      ((lane >> 3) & 1) * 8));
+            mma_16816(y[0], af, bm[0], bm[1]);
+            mma_16816(y[1], af, bm[2], bm[3]);
           }
+        }
 #pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const int cj = jc + e, col = 8 * cj + 2 * t;
-            const float2 ob = *reinterpret_cast<const float2*>(vec_s + col);
+        for (int e = 0; e < 2; ++e) {
+          const float2 ob = *reinterpret_cast<const float2*>(vec_s + 16 * b + 8 * e + 2 * t);
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int r = warp * 16 + g + 8 * h;
-              const float2 kf = __bfloat1622float2(
-                  *reinterpret_cast<const __nv_bfloat162*>(st + (cj >> 1) * kBoxBytes + sw32(r, cj & 1) + 4 * t));
-              y[cj][2 * h] += kf.x + ob.x;
-              y[cj][2 * h + 1] += kf.y + ob.y;
-            }
+          for (int h = 0; h < 2; ++h) {
+            const float2 kf = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+                st + b * kBoxBytes + sw32(rg * 16 + g + 8 * h, e) + 4 * t));
+            y[e][2 * h] += kf.x + ob.x;
+            y[e][2 * h + 1] += kf.y + ob.y;
+          }
+        }
+      };
+      // each row's (mean, M2) over the warp's columns: a box's four values a
+      // lane, merged box by box, then over the quad (Chan et al.)
+      // each row's (mean, M2) over the warp's columns: a box's four values a
+      // lane, merged box by box, then over the quad (Chan et al.)
+      float mean[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+#pragma unroll
+      for (int bi = 0; bi < KSH; ++bi) {
+        if (bi < ynb) {
+          float y[2][4];
+          y_box(yb0 + bi, y);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const float v0 = y[0][2 * h], v1 = y[0][2 * h + 1], v2 = y[1][2 * h], v3 = y[1][2 * h + 1];
+            const float bm = ((v0 + v1) + (v2 + v3)) * 0.25f;
+            const float bm2 = (v0 - bm) * (v0 - bm) + (v1 - bm) * (v1 - bm) + (v2 - bm) * (v2 - bm) + (v3 - bm) * (v3 - bm);
+            const float d = bm - mean[h], f = 1.f / (bi + 1);  // 4 new values after 4 bi
+            mean[h] += d * f;
+            m2[h] += bm2 + d * d * (4.f * bi) * f;
           }
         }
       }
       L4P_TICK(4);
       if constexpr (kStopAt == 3) {
-        if (y[0][0] == -1.2345e-30f) a.wsum[0] = y[2 * KS - 1][3];  // keeps y
+        if (mean[0] == -1.2345e-30f) a.wsum[0] = m2[1];  // keeps y
       }
       if constexpr (kStopAt >= 4) {
-        // LayerNorm: each row's (mean, M2) over this block's columns, two-pass,
-        // into every block; combined over the cluster (Chan et al.)
-        float mean[2], m2[2] = {0.f, 0.f};
+        if (ynb > 0) {
+          float n_lane = 4.f * ynb;
 #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float sum = 0.f;
+          for (int off = 1; off < 4; off <<= 1) {
 #pragma unroll
-          for (int jc = 0; jc < 2 * KS; ++jc)
-            if (jc < 2 * kv) sum += y[jc][2 * h] + y[jc][2 * h + 1];
-          mean[h] = quad_sum(sum) / nv;
-#pragma unroll
-          for (int jc = 0; jc < 2 * KS; ++jc) {
-            if (jc < 2 * kv) {
-              const float d0 = y[jc][2 * h] - mean[h], d1 = y[jc][2 * h + 1] - mean[h];
-              m2[h] += d0 * d0 + d1 * d1;
+            for (int h = 0; h < 2; ++h) {
+              const float om = __shfl_xor_sync(0xffffffffu, mean[h], off), om2 = __shfl_xor_sync(0xffffffffu, m2[h], off);
+              const float d = om - mean[h];
+              m2[h] = (m2[h] + om2) + d * d * (0.5f * n_lane);
+              mean[h] = 0.5f * (mean[h] + om);
             }
-          }
-          m2[h] = quad_sum(m2[h]);
-        }
-        if (t == 0) {
-          for (int d = 0; d < q.s; ++d) {
-            const uint32_t base = map_shared(mom, d) + (rank * kRows + warp * 16 + g) * 8;
-            st_cluster_f32x2(base, mean[0], m2[0]);
-            st_cluster_f32x2(base + 64, mean[1], m2[1]);
+            n_lane *= 2.f;
           }
         }
-        cluster_sync();
+        // the row's two halves combined in this block's slot of mom, which
+        // goes to every block; then combined over the cluster
+        float2* mine = mom + rank * kRows;
+        if (hf == 1 && t == 0) {
+          mine[rg * 16 + g] = make_float2(mean[0], m2[0]);
+          mine[rg * 16 + g + 8] = make_float2(mean[1], m2[1]);
+        }
+        __syncthreads();
+        if (hf == 0 && t == 0) {
+          const float na = 16.f * kv0, nb = 16.f * (kv - kv0);
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int r = rg * 16 + g + 8 * h;
+            float2 v = make_float2(mean[h], m2[h]);
+            if (nb > 0.f) {
+              const float2 other = mine[r];
+              const float d = other.x - v.x, nn = na + nb;
+              v.x += d * (nb / nn);
+              v.y += other.y + d * d * (na * nb / nn);
+            }
+            mine[r] = v;
+          }
+        }
+        fence_proxy_async();
+        __syncthreads();
+        expect(bar_mom, (q.s - 1) * kRows * 8);
+        send_rows(mom, mine, bar_mom, rank, 1, kRows * 8, q.s, rank);
+        wait(bar_mom, ph_mom);
         L4P_TICK(5);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
-          const int r = warp * 16 + g + 8 * h;
+          const int r = rg * 16 + g + 8 * h;
           float mu = 0.f;
           for (int src = 0; src < q.s; ++src) mu += mom[src * kRows + r].x * min(q.w, c - src * q.w);
           mu /= c;
@@ -631,17 +719,21 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         // the new keys over the tile (the store and the next logits read them there)
 #pragma unroll
-        for (int jc = 0; jc < 2 * KS; ++jc) {
-          if (jc < 2 * kv) {
-            const int col = 8 * jc + 2 * t;
-            const float2 w = *reinterpret_cast<const float2*>(vec_s + q.w + col);
-            const float2 b = *reinterpret_cast<const float2*>(vec_s + 2 * q.w + col);
+        for (int bi = 0; bi < KSH; ++bi) {
+          if (bi < ynb) {
+            const int b = yb0 + bi;
+            float y[2][4];
+            y_box(b, y);
 #pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int r = warp * 16 + g + 8 * h;
-              *reinterpret_cast<uint32_t*>(st + (jc >> 1) * kBoxBytes + sw32(r, jc & 1) + 4 * t) =
-                  pack_bf16x2((y[jc][2 * h] - mean[h]) * m2[h] * w.x + b.x,
-                              (y[jc][2 * h + 1] - mean[h]) * m2[h] * w.y + b.y);
+            for (int e = 0; e < 2; ++e) {
+              const int col = 16 * b + 8 * e + 2 * t;
+              const float2 w = *reinterpret_cast<const float2*>(vec_s + q.w + col);
+              const float2 bb = *reinterpret_cast<const float2*>(vec_s + 2 * q.w + col);
+#pragma unroll
+              for (int h = 0; h < 2; ++h)
+                *reinterpret_cast<uint32_t*>(st + b * kBoxBytes + sw32(rg * 16 + g + 8 * h, e) + 4 * t) =
+                    pack_bf16x2((y[e][2 * h] - mean[h]) * m2[h] * w.x + bb.x,
+                                (y[e][2 * h + 1] - mean[h]) * m2[h] * w.y + bb.y);
             }
           }
         }
@@ -655,50 +747,56 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
     }
     if constexpr (kStopAt >= 5) {
-      // next t2i logits + spe, reduced over the cluster into every block (-inf past P), with
-      // each owner's column maxima
-      tile_logits<KS>(lg, st, sT_s, ldw, k2, kv);
-      send_partials(lg, red, k2, q.rpo, q.ldr, rank);
+      // next t2i logits to their owners; each owner's rows + spe (-inf past P) into every block
+      logits(lgd, st, sT_s, k2);
+      stage_partials(lgd, xs, hf * nj2, nj2, ldx, rg);
+      fence_proxy_async();
+      __syncthreads();
+      expect(bar_red, q.s * own * row_bytes);
+      send_partials(reinterpret_cast<unsigned char*>(xs), reinterpret_cast<unsigned char*>(red), bar_red, q.rpo,
+                    row_bytes, q.s, rank);
       cp_async_wait<0>();
-      cluster_arrive();
       if (!kI2T) window();
-      cluster_wait();
+      wait(bar_red, ph_red);
+      __syncthreads();  // the spe rows every thread copied
       L4P_TICK(7);
+      float* out_l = reinterpret_cast<float*>(out);
       for (int i = tid; i < own * k2; i += kThreads) {
-        const int j = i / own, slot = i - j * own;  // rows fastest: lg2T's stores on distinct banks
+        const int slot = i / k2, j = i - slot * k2;
         float v = -INFINITY;
         if (row0 + my_rows + slot < p_hi) {
+          const float* src = red + slot * ldx + j;
           v = spe_s[slot * lds + j];
-          for (int src = 0; src < q.s; ++src) v += red[(src * q.rpo + slot) * q.ldr + j];
+#pragma unroll
+          for (int b = 0; b < kMaxCluster; ++b)
+            if (b < q.s) v += src[b * q.rpo * ldx];
         }
-        lg2T[j * ldl + my_rows + slot] = v;
+        lg2[(my_rows + slot) * ldx + j] = v;
+        out_l[slot * ldx + j] = v;
       }
+      fence_proxy_async();
       __syncthreads();
       if (tt + 1 < tiles) prefetch_rows(tt + 1);  // per and spe are read for this tile
-      {
-        const int oc = own / 4;  // 16-byte chunks of a token's rows
-        copy_out(reinterpret_cast<const unsigned char*>(lg2T), k2 * oc,
-                 [&](int i) { return ((i / oc) * ldl + my_rows + (i % oc) * 4) * 4; }, q.s, rank);
-      }
-      cluster_sync();
+      expect(bar_rcv, (kRows - own) * row_bytes);
+      send_rows(lg2, out, bar_rcv, my_rows, own, row_bytes, q.s, rank);
+      L4P_TICK(13);
+      wait(bar_rcv, ph_rcv);
       L4P_TICK(8);
     }
     if constexpr (kStopAt >= 6) {
-      // this tile's next logits into registers, before other blocks may reuse
-      // xbuf; their softmax and accumulation follow at once, or in the next
-      // tile's window
+      // this tile's next logits into registers; their softmax and accumulation
+      // follow at once, or in the next tile's window
 #pragma unroll
       for (int pi = 0; pi < kPairs; ++pi) {
         const int p = warp + kWarps * pi;
         if (p < k2 / 2) {
-          const float* src = lg2T + (2 * p + (lane >> 4)) * ldl + 8 * o;
-          const float4 v0 = *reinterpret_cast<const float4*>(src), v1 = *reinterpret_cast<const float4*>(src + 4);
-          x[pi][0] = v0.x, x[pi][1] = v0.y, x[pi][2] = v0.z, x[pi][3] = v0.w;
-          x[pi][4] = v1.x, x[pi][5] = v1.y, x[pi][6] = v1.z, x[pi][7] = v1.w;
+          const int j = 2 * p + (lane >> 4);
+#pragma unroll
+          for (int u = 0; u < 8; ++u) x[pi][u] = lg2[(o + 16 * u) * ldx + j];
         }
       }
       if (!windowed) {
-        __syncthreads();
+        __syncthreads();  // every row read before eT takes xbuf's place
         softmax_acc(st);
       }
       L4P_TICK(9);
@@ -711,32 +809,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (q.stages == 1) issue_next(tt);
     L4P_TICK(10);
   }
-  if (kStopAt >= 6 && windowed && tiles > 0) {
+  if (windowed && tiles > 0) {
     __syncthreads();
     softmax_acc(ring + ((tiles - 1) % 2) * q.ks * kBoxBytes);
   }
 
   // this block's columns of wsum = acc / l, or the split's partials
   const size_t cell = static_cast<size_t>(n) * splits + sp;
+  if (wg < 3) {
 #pragma unroll
-  for (int i = 0; i < kChunks; ++i) {
-    const int jc = warp + kWarps * i;
-    if (jc < 2 * kv) {
-      const int col = c0 + 8 * jc + 2 * t;
+    for (int i = 0; i < CBW; ++i) {
 #pragma unroll
-      for (int mt = 0; mt < MT2; ++mt) {
-        if (mt * 16 < k2) {
+      for (int h = 0; h < 2; ++h) {
+        const int col = 64 * (wg + 3 * i) + 16 * w4 + g + 8 * h;
+        if (col < nv) {
 #pragma unroll
-          for (int h = 0; h < 2; ++h) {
-            const int j = mt * 16 + g + 8 * h;
-            float2 v = make_float2(acc[i][mt][2 * h], acc[i][mt][2 * h + 1]);
-            if (splits == 1) {
-              const float inv = 1.f / l_run[j];
-              v.x *= inv;
-              v.y *= inv;
-              *reinterpret_cast<float2*>(a.wsum + (static_cast<size_t>(n) * k2 + j) * c + col) = v;
-            } else {
-              *reinterpret_cast<float2*>(a.acc_ws + (cell * k2 + j) * c + col) = v;
+          for (int j = 0; j < NT / 8; ++j) {
+#pragma unroll
+            for (int v = 0; v < 2; ++v) {
+              const int tok = 8 * j + 2 * t + v;
+              if (tok < k2) {
+                const float val = acc[i][4 * j + 2 * h + v];
+                if (splits == 1)
+                  a.wsum[(static_cast<size_t>(n) * k2 + tok) * c + c0 + col] = val / l_run[tok];
+                else
+                  a.acc_ws[(cell * k2 + tok) * c + c0 + col] = val;
+              }
             }
           }
         }
@@ -796,14 +894,14 @@ Plan plan_for(bool i2t, int c, int k, int k2) {
 
 // Launches one cluster per (query, split) and, with P split, the combine.
 // Returns 0, a CUDA error code, or a negative sm90::tensor_map_error.
-template <bool kI2T, int KS, int MT2>
+template <bool kI2T, int KS, int NT>
 int launch(const Plan& q, const void* keys, void* keys_new, const Args& a, int n, cudaStream_t stream) {
   CUtensorMap tk, tn;
   int e = encode_bf16_3d(&tk, keys, a.c, a.c, a.p, n, kBoxCols, kRows, CU_TENSOR_MAP_SWIZZLE_32B);
   if (e == 0) e = encode_bf16_3d(&tn, kI2T ? keys_new : keys, a.c, a.c, a.p, n, kBoxCols, kRows,
                                  CU_TENSOR_MAP_SWIZZLE_32B);
   if (e != 0) return e;
-  auto kernel = keys_cluster_kernel<kI2T, KS, MT2>;
+  auto kernel = keys_cluster_kernel<kI2T, KS, NT>;
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, q.total);
   if (err == cudaSuccess && q.s > kPortableCluster)
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
@@ -838,21 +936,6 @@ int launch(const Plan& q, const void* keys, void* keys_new, const Args& a, int n
   return static_cast<int>(cudaGetLastError());
 }
 
-// launch<kI2T, KS, MT2> for MT2 = K2 / 16.
-template <bool kI2T, int KS>
-int launch_k2(const Plan& q, const void* keys, void* keys_new, const Args& a, int n, cudaStream_t stream) {
-  switch (a.k2 / 16) {
-    case 1:
-      return launch<kI2T, KS, 1>(q, keys, keys_new, a, n, stream);
-    case 2:
-      return launch<kI2T, KS, 2>(q, keys, keys_new, a, n, stream);
-    case 3:
-      return launch<kI2T, KS, 3>(q, keys, keys_new, a, n, stream);
-    default:
-      return launch<kI2T, KS, 4>(q, keys, keys_new, a, n, stream);
-  }
-}
-
 }  // namespace
 
 // Each returns 0 on success, else the CUDA error code of the refused launch
@@ -877,9 +960,9 @@ extern "C" int l4p_t2i_flash_bf16(const void* keys, const void* sT, const void* 
   a.k2 = k;
   a.split = split;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // the widest blocks (C > 2816, rare) take one build: K2 <= 64 guarded at run time
-  return q.ks <= kKS ? launch_k2<false, kKS>(q, keys, nullptr, a, n, s)
-                     : launch<false, kKSWide, 4>(q, keys, nullptr, a, n, s);
+  // the widest blocks (C > 2816, rare) take a build of their own
+  if (q.ks > kKS) return launch<false, kKSWide, 64>(q, keys, nullptr, a, n, s);
+  return k > 48 ? launch<false, kKS, 64>(q, keys, nullptr, a, n, s) : launch<false, kKS, 48>(q, keys, nullptr, a, n, s);
 }
 
 extern "C" int l4p_i2t_ln_t2i_bf16(const void* keys, const void* rT, const void* per, const void* v2T, const void* ob,
@@ -910,5 +993,6 @@ extern "C" int l4p_i2t_ln_t2i_bf16(const void* keys, const void* rT, const void*
   a.q = k / heads;
   a.split = split;
   a.eps = eps;
-  return launch_k2<true, kKS>(q, keys, keys_new, a, n, static_cast<cudaStream_t>(stream));
+  return k2 > 48 ? launch<true, kKS, 64>(q, keys, keys_new, a, n, static_cast<cudaStream_t>(stream))
+                 : launch<true, kKS, 48>(q, keys, keys_new, a, n, static_cast<cudaStream_t>(stream));
 }

@@ -26,6 +26,12 @@
 //   MN-major (N contiguous, transpose bit set): an atom is 32 N-columns x 8
 //     K-rows; LBO = bytes between atoms along N, SBO = 512 bytes between
 //     8-row groups along K.
+// 32-byte swizzle (layout 3), the layout a TMA box of 16 bf16 columns with
+// CU_TENSOR_MAP_SWIZZLE_32B writes: rows of 32 bytes, an atom of 8 rows (256
+// bytes); the 16-byte half h of row r lies at r * 32 + (h ^ ((r >> 2) & 1)) *
+// 16. K-major: SBO = 256 bytes between 8-row groups, LBO unused, a k16 step
+// is a whole row (the next atom column); MN-major: an atom is 16 N-columns x
+// 8 K-rows, LBO = bytes between atoms along N, SBO = 256 (fused_keys.cu).
 // 128-byte swizzle (layout 1), the layout a TMA box of 64 bf16 columns with
 // CU_TENSOR_MAP_SWIZZLE_128B writes: rows of 128 bytes, an atom of 8 rows
 // (1024 bytes), buffers aligned to 1024 bytes; the 16-byte chunk c of row r
@@ -203,15 +209,10 @@ __device__ __forceinline__ uint32_t cluster_rank() {
 
 // Every thread of every block of the cluster arrives and waits: the shared-
 // memory writes (local and remote) before the arrival are visible to every
-// thread after the wait; work between the two overlaps the barrier. The blocks of a cluster run together, so remote shared memory is
-// valid from the first cluster_sync to the last.
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void cluster_wait() { asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory"); }
+// thread after the wait. The blocks of a cluster run together, so remote
+// shared memory is valid from the first cluster_sync to the last.
 __device__ __forceinline__ void cluster_sync() {
-  cluster_arrive();
-  cluster_wait();
+  asm volatile("barrier.cluster.arrive.release.aligned;\nbarrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // The address of the shared variable `p` in block `rank` of the cluster.
@@ -221,14 +222,52 @@ __device__ __forceinline__ uint32_t map_shared(const void* p, uint32_t rank) {
   return r;
 }
 
-__device__ __forceinline__ void st_cluster_f32x2(uint32_t addr, float a, float b) {
-  asm volatile("st.shared::cluster.v2.f32 [%0], {%1, %2};\n" ::"r"(addr), "f"(a), "f"(b) : "memory");
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) of this block's
+// shared memory at `src` copied into a block of the cluster at `dst`, the
+// copy completing its bytes on the mbarrier at `bar` there (`dst` and `bar`
+// from map_shared). Generic-proxy writes of the source must be made visible
+// to the async proxy first (fence_proxy_async by every writing thread, then
+// a barrier). The sender is not told when the copy has read the source.
+__device__ __forceinline__ void bulk_copy_cluster(uint32_t dst, const void* src, uint32_t bytes, uint32_t bar) {
+  asm volatile("cp.async.bulk.shared::cluster.shared::cta.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+                   dst),
+               "r"(smem_addr(src)), "r"(bytes), "r"(bar)
+               : "memory");
 }
 
-__device__ __forceinline__ void st_cluster_v4(uint32_t addr, uint4 v) {
-  asm volatile("st.shared::cluster.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z),
-               "r"(v.w)
-               : "memory");
+// mbar_wait for a barrier that other blocks of the cluster complete (their
+// bulk_copy_cluster writes are visible after it), with the same debug
+// watchdog.
+__device__ __forceinline__ bool mbar_try_wait_cluster(uint32_t addr, uint32_t parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(addr), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+#ifdef L4P_BARRIER_WATCHDOG
+  uint64_t t0, t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t0));
+  while (!mbar_try_wait_cluster(addr, parity)) {
+    asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+    if (t - t0 > 10000000000ull) {
+      printf("mbar_wait_cluster: barrier at shared 0x%x, parity %u, never completed (block %d,%d,%d, thread %d)\n",
+             addr, parity, static_cast<int>(blockIdx.x), static_cast<int>(blockIdx.y), static_cast<int>(blockIdx.z),
+             static_cast<int>(threadIdx.x));
+      __trap();
+    }
+  }
+#else
+  while (!mbar_try_wait_cluster(addr, parity)) {
+  }
+#endif
 }
 
 // ---- device: warpgroup registers -------------------------------------------
@@ -245,7 +284,7 @@ __device__ __forceinline__ void setmaxnreg_dec() {
 
 // ---- device: wgmma -----------------------------------------------------------
 
-enum : uint32_t { kSwizzle128B = 1, kSwizzle64B = 2 };
+enum : uint32_t { kSwizzle128B = 1, kSwizzle64B = 2, kSwizzle32B = 3 };
 
 __device__ __forceinline__ uint64_t smem_desc(const void* p, uint32_t lbo_bytes, uint32_t sbo_bytes,
                                               uint64_t layout = kSwizzle64B) {
@@ -292,6 +331,63 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t des
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 32 fp32) (+)= A (64 x 16, K-major, smem) . B (32 x 16, K-major, smem);
+// scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n32k16_ss(float (&d)[16], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 48 fp32) (+)= A (64 x 16, MN-major, smem) . B (48 x 16, K-major, smem);
+// scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n48k16_ss_ta(float (&d)[24], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %26, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "%24, %25, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x 64 fp32) (+)= A (64 x 16, MN-major, smem) . B (64 x 16, K-major, smem);
+// scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_m64n64k16_ss_ta(float (&d)[32], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// d (64 x N fp32) (+)= A (MN-major) . B (K-major), N = 48 or 64.
+template <int N>
+__device__ __forceinline__ void wgmma_ss_ta(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b, int scale_d) {
+  static_assert(N == 48 || N == 64, "wgmma_ss_ta: N is 48 or 64");
+  if constexpr (N == 48)
+    wgmma_m64n48k16_ss_ta(d, desc_a, desc_b, scale_d);
+  else
+    wgmma_m64n64k16_ss_ta(d, desc_a, desc_b, scale_d);
 }
 
 // d (64 x 64 fp32) += A (64 x 16 bf16, registers) . B (16 x 64, MN-major, smem)

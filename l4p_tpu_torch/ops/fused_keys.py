@@ -28,6 +28,7 @@ NAME = "fused_keys"
 SOURCES = ("fused_keys.cu",)
 MAX_K = 64
 TILE_ROWS = 128  # keys rows per tile of the kernels (csrc/fused_keys.cu)
+BLOCK_BOXES = 11  # 16-column boxes a block of a cluster takes (csrc/fused_keys.cu kKS)
 # clusters (one per query and split of P) that fill the card about twice: 16
 # clusters of 8 blocks run at once on an H100's 132 SMs
 MIN_CLUSTERS = 32
@@ -111,6 +112,20 @@ def split_rows(n: int, p: int) -> int:
     return -(-tiles // splits) * TILE_ROWS
 
 
+def kernel_variant(c: int, k2: int, i2t: bool) -> str:
+    """The build a launch takes (csrc/fused_keys.cu's launchers): "wide" for
+    t2i_flash where even 16 blocks take more than BLOCK_BOXES column boxes
+    each (C > 2816), else by the weighted sum's token width, "nt48" (K2 <=
+    48) or "nt64"."""
+    boxes = c // 16
+    per_block = -(-boxes // 8)
+    if per_block > BLOCK_BOXES:
+        per_block = -(-boxes // 16)
+    if not i2t and per_block > BLOCK_BOXES:
+        return "wide"
+    return "nt64" if k2 > 48 else "nt48"
+
+
 def _workspace(keys: torch.Tensor, k: int, split: int):
     """The per-split partials of the weighted sum (acc, m, l), empty where
     P is not split."""
@@ -178,6 +193,7 @@ def t2i_flash(keys: torch.Tensor, st: torch.Tensor, spe: torch.Tensor) -> torch.
         err = _lib().l4p_t2i_flash_bf16(*args, torch.cuda.current_stream(keys.device).cuda_stream)
     _raise_on("t2i_flash", err)
     t2i_flash.launches += 1
+    t2i_flash.variant_launches[kernel_variant(c, k, False)] += 1
     return wsum
 
 
@@ -200,8 +216,11 @@ def i2t_ln_t2i(keys, r, per, v2, ob, lnw, lnb, st, spe, num_heads: int,
         err = _lib().l4p_i2t_ln_t2i_bf16(*args, torch.cuda.current_stream(keys.device).cuda_stream)
     _raise_on("i2t_ln_t2i", err)
     i2t_ln_t2i.launches += 1
+    i2t_ln_t2i.variant_launches[kernel_variant(c, k2, True)] += 1
     return outs
 
 
 t2i_flash.launches = 0  # kernel launches since the last reset
 i2t_ln_t2i.launches = 0
+t2i_flash.variant_launches = {"nt48": 0, "nt64": 0, "wide": 0}  # the same, by kernel_variant
+i2t_ln_t2i.variant_launches = {"nt48": 0, "nt64": 0}

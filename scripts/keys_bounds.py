@@ -6,14 +6,14 @@
 
 Each variant is ``l4p_tpu_torch/csrc/fused_keys.cu`` compiled by nvcc (the
 port's flags) with the build-time hooks that the source lists, all builds at
-once, into a temporary directory; ``--other`` adds a source of the earlier
-row kernels (the same entry points with a logits workspace argument; the
-headers it includes beside it), built without hooks and launched as those
-kernels were: PARENT_SPLIT rows per split of the weighted sum and a logits
-workspace. i2t_ln_t2i's variants stop the kernel after one more part each:
+once, into a temporary directory; ``--other`` adds another source of the
+cluster kernel with the same entry points (an earlier design: the headers
+it includes beside it, e.g. from ``git show``), built without hooks and
+launched with the same split of P. i2t_ln_t2i's variants stop the kernel
+after one more part each:
   loads_only      keys read, nothing computed;
-  no_v2           + the i2t logits;
-  no_ln           + each head's softmax and y = keys + attn . v2 + ob;
+  no_v2           + the i2t logits, each head's softmax and its rows sent;
+  no_ln           + y = keys + attn . v2 + ob;
   no_next_logits  + the LayerNorm and the new keys' store;
   no_acc          + the next t2i logits (no weighted sum);
   no_combine      + the weighted sum, without combining P-splits;
@@ -26,11 +26,13 @@ at N=128 queries, P=2048 tokens, C=1408, K=K2=48 in 8 heads (the track
 head's shape on the giant model), bf16. Prints ms and GB/s of keys traffic
 for each (one read of keys and one write of the new keys for i2t_ln_t2i,
 one read for t2i_flash, the bound's bytes) and the split of i2t_ln_t2i's
-time that the differences give. Every line names the card and its power
-limit. ``--clocks`` also builds the L4P_KEYS_CLOCKS variant, runs each
-kernel once at the timed shape and prints the cycles per 128-row tile of
-each part (CLOCK_PARTS), as thread 0 of each block of query 0's first
-cluster counted them: where a tile's time goes, barriers included.
+time that the differences give, then the exact builds' times at a
+data-parallel rank's queries (RANK_QUERIES). Every line names the card and
+its power limit. ``--clocks`` also builds the L4P_KEYS_CLOCKS variant, runs
+each kernel once at the timed shape and prints the cycles per 128-row tile
+of each part (CLOCK_PARTS), as thread 0 of each block of query 0's first
+cluster counted them: where a tile's time goes, waits included (thread 0
+also issues the tile's TMA loads and stores, so its parts hold those).
 """
 
 from __future__ import annotations
@@ -55,23 +57,22 @@ STOPS = ("L4P_KEYS_NO_ACC", "L4P_KEYS_NO_NEXT_LOGITS", "L4P_KEYS_NO_LN", "L4P_KE
 VARIANTS = {"kernel": (), "no_combine": ("L4P_KEYS_NO_COMBINE",), "no_acc": STOPS[:1],
             "no_next_logits": STOPS[:2], "no_ln": STOPS[:3], "no_v2": STOPS[:4], "loads_only": STOPS}
 SHAPE = dict(n=128, p=2048, c=1408, k=48, k2=48)
+RANK_QUERIES = (64, 32)  # a rank's queries of a 128-query chunk on 2 and 4 data-parallel cards
 CHECK_SHAPES = (dict(n=3, p=1000, c=128, k=48, k2=32), SHAPE)
 HEADS = 8
 EPS = 1e-5
 ITERS = 10
-CLOCK_PARTS = ("between tiles (and the prologue)", "wait for the tile", "i2t logits, reduce",
-               "owners' softmax, broadcast", "y", "LayerNorm moments, exchange", "LayerNorm, new keys, store",
-               "next logits, reduce (t2i_flash: and the window)", "owners' next logits, broadcast",
-               "next logits to registers (i2t_ln_t2i: and the accumulation)", "end of tile")
-PARENT_SPLIT = 512  # the weighted sum's rows per split in the earlier row kernels
-# where the earlier row kernels take an (N, P, K) fp32 logits workspace
-# among their entry points' arguments, which the cluster kernels do not have
-LOGITS_ARG = {"t2i_flash": 4, "i2t_ln_t2i": 11}
+CLOCK_PARTS = ("between tiles (and the prologue)", "wait for the tile", "i2t logits, partials sent",
+               "wait for the other owners' probabilities", "y", "LayerNorm moments, exchange",
+               "LayerNorm, new keys, store", "next logits, partials sent, wait for them (t2i_flash: and the window)",
+               "wait for the other owners' next logits", "next logits to registers (i2t_ln_t2i: and the accumulation)",
+               "end of tile", "wait for the i2t partials", "owners' softmax, its rows sent",
+               "owners' next logits, their rows sent", "t2i_flash's window: exponentials",
+               "t2i_flash's window: the barrier after them")
 
 
-def build(name: str, source: str, defines, work: str, row_kernels: bool = False):
-    """`source` with `defines` as a loaded library with typed entry points
-    (`row_kernels`: the earlier row kernels' entry points, with a logits workspace)."""
+def build(name: str, source: str, defines, work: str):
+    """`source` with `defines` as a loaded library with typed entry points."""
     from l4p_tpu_torch import _build
     from l4p_tpu_torch.ops import fused_keys as FK
 
@@ -82,18 +83,13 @@ def build(name: str, source: str, defines, work: str, row_kernels: bool = False)
         raise RuntimeError(f"keys_bounds: {name} does not build:\n{proc.stderr[-3000:]}")
     ptxas = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
              if "registers" in line or "spill" in line or "C75" in line]
-    lib = FK.typed(ctypes.CDLL(out))
-    if row_kernels:
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.l4p_t2i_flash_bf16.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
-        lib.l4p_i2t_ln_t2i_bf16.argtypes = [ptr] * 15 + [i32] * 7 + [ctypes.c_float, ptr]
-    return lib, ptxas
+    return FK.typed(ctypes.CDLL(out)), ptxas
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--other", action="append", default=[], metavar="NAME=PATH",
-                    help="a fused_keys.cu of the earlier row kernels, timed beside the variants")
+                    help="another fused_keys.cu with the same entry points, timed beside the variants")
     ap.add_argument("--clocks", action="store_true", help="also each part's cycles per tile")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -115,21 +111,8 @@ def main() -> int:
         builds["clocks"] = (source, ("L4P_KEYS_CLOCKS",))
     exact = ["kernel", *others]
 
-    def split(name, n, p):
-        return PARENT_SPLIT if name in others else FK.split_rows(n, p)
-
-    def with_logits(name, what, cargs, keep, ops):
-        """An --other source's arguments: with a logits workspace."""
-        if name not in others:
-            return cargs, keep
-        n, p, _ = ops[0].shape
-        logits = torch.empty((n, p, ops[-1].shape[-1]), device="cuda", dtype=torch.float32)
-        i = LOGITS_ARG[what]
-        return cargs[:i] + (logits.data_ptr(),) + cargs[i:], (*keep, logits)
-
     def i2t_call(name, lib, ops, n, p):
-        outs, cargs, keep = FK.i2t_launch_args(*ops, HEADS, EPS, split(name, n, p))
-        cargs, keep = with_logits(name, "i2t_ln_t2i", cargs, keep, ops)
+        outs, cargs, keep = FK.i2t_launch_args(*ops, HEADS, EPS, FK.split_rows(n, p))
 
         def run():
             err = lib.l4p_i2t_ln_t2i_bf16(*cargs, torch.cuda.current_stream().cuda_stream)
@@ -138,8 +121,7 @@ def main() -> int:
         return run, outs, keep
 
     def t2i_call(name, lib, ops, n, p):
-        out, cargs, keep = FK.t2i_launch_args(*ops, split(name, n, p))
-        cargs, keep = with_logits(name, "t2i_flash", cargs, keep, ops)
+        out, cargs, keep = FK.t2i_launch_args(*ops, FK.split_rows(n, p))
 
         def run():
             err = lib.l4p_t2i_flash_bf16(*cargs, torch.cuda.current_stream().cuda_stream)
@@ -149,8 +131,7 @@ def main() -> int:
 
     with tempfile.TemporaryDirectory() as work:
         with ThreadPoolExecutor(max_workers=len(builds)) as pool:
-            built = dict(zip(builds, pool.map(lambda kv: build(kv[0], *kv[1], work, kv[0] in others),
-                                              builds.items())))
+            built = dict(zip(builds, pool.map(lambda kv: build(kv[0], *kv[1], work), builds.items())))
         for name in exact:
             for line in built[name][1]:
                 log(f"ptxas {name}: {line}")
@@ -209,6 +190,24 @@ def main() -> int:
                     "t2i_acc": ms["no_combine"] - ms["no_acc"], "combine": ms["kernel"] - ms["no_combine"]}
         log("split of i2t_ln_t2i's time by differences: " + "; ".join(f"{key} {v:.3f} ms"
                                                                       for key, v in split_ms.items()))
+        del calls, t2i_ops, i2t_ops
+        # the exact builds at a data-parallel rank's queries (a chunk of 128 over 2 and 4 ranks)
+        for n_rank in RANK_QUERIES:
+            t2i_ops, i2t_ops = keys_operands(n_rank, p, c, k, gen, k2)
+            calls = {}
+            for name in exact:
+                calls[f"{name} i2t_ln_t2i"] = i2t_call(name, built[name][0], i2t_ops, n_rank, p)
+                calls[f"{name} t2i_flash"] = t2i_call(name, built[name][0], t2i_ops, n_rank, p)
+            names = list(calls)
+            times = {name: [] for name in names}
+            for name in names + names[::-1]:
+                times[name].append(time_ms(calls[name][0], ITERS))
+            for name in names:
+                moved = n_rank * p * c * 2 * (1 if name.endswith("t2i_flash") else 2)
+                t = sum(times[name]) / len(times[name])
+                log(f"{name} ({n_rank}, {p}, {c}, {k}, {k2}) bf16: {t:.4f} ms, {moved / t / 1e6:.0f} GB/s of keys "
+                    f"traffic (bound {moved / PEAK_BYTES * 1e3:.4f} ms)")
+            del calls, t2i_ops, i2t_ops
     if failed:
         print(f"keys_bounds: {failed} disagree with the plain versions", file=sys.stderr)
         return 1

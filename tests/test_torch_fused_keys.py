@@ -121,3 +121,36 @@ def test_i2t_ln_t2i_ragged_p_plain_matches_float64():
     assert out_keys.shape == (N, 200, C) and out_wsum.shape == (N, k2, C)
     check(out_keys, ref_keys, 2e-6, "keys")  # measured 6.4e-7
     check(out_wsum, ref_wsum, 2e-6, "wsum")  # measured 5.8e-7
+
+
+# keys rows a cluster takes at P = 2048: P split until MIN_CLUSTERS clusters run
+SPLIT_ROWS = {1: 128, 16: 1024, 32: 2048, 64: 2048, 128: 2048, 192: 2048}
+
+
+@pytest.mark.parametrize("n", sorted(SPLIT_ROWS))
+def test_kernel_plan_at_the_track_head_shapes(n):
+    """The wrappers' plan at the giant track head's shape (P = 2048, C = 1408,
+    K = K2 = 48) for the query counts the paths take (one query, the
+    data-parallel ranks' 16 / 32 / 64, a chunk of 128, 192): rows per
+    cluster, the P-split workspace, and the kernel build; a ragged P = 2000
+    plans as 2048 does."""
+    split = FK.split_rows(n, 2048)
+    assert split == SPLIT_ROWS[n] and FK.split_rows(n, 2000) == split
+    splits = 2048 // split
+    acc, m, l = FK._workspace(torch.empty((n, 2048, 1408), device="meta"), 48, split)
+    if splits == 1:
+        assert (acc.shape, m.shape, l.shape) == ((0, 1, 48, 0), (0, 1, 48), (0, 1, 48))
+    else:
+        assert (acc.shape, m.shape, l.shape) == ((n, splits, 48, 1408), (n, splits, 48), (n, splits, 48))
+    assert FK.kernel_variant(1408, 48, i2t=True) == FK.kernel_variant(1408, 48, i2t=False) == "nt48"
+
+
+def test_kernel_variants_by_width():
+    """Which build serves a launch: the token width of the weighted sum, and
+    t2i_flash's widest blocks past C = 2816 (16 blocks of 11 boxes)."""
+    assert FK.kernel_variant(1408, 64, i2t=True) == "nt64"
+    assert FK.kernel_variant(2816, 32, i2t=False) == "nt48"
+    assert FK.kernel_variant(2832, 32, i2t=False) == "wide"
+    assert FK.kernel_variant(4096, 48, i2t=False) == FK.kernel_variant(6144, 64, i2t=False) == "wide"
+    assert set(FK.t2i_flash.variant_launches) == {"nt48", "nt64", "wide"}
+    assert set(FK.i2t_ln_t2i.variant_launches) == {"nt48", "nt64"}

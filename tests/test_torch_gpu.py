@@ -144,10 +144,15 @@ def band_err(out, plain):
     return (out.float() - plain.float()).abs().max().item() / plain.float().abs().max().item()
 
 
-# (N, P, C, K, K2, heads): the giant width; a ragged P at C = 128; one query;
-# P off the 128-row tile (127, 129, 1000); K = 16 and 64; K2 != K; 4 heads;
-# C = 2816, where a cluster takes 16 blocks
-KEYS_SHAPES = [(4, 2048, 1408, 48, 48, 8), (3, 1000, 128, 48, 32, 8), (1, 2048, 1408, 48, 48, 8),
+# (N, P, C, K, K2, heads): the giant width at the query counts the paths take
+# (one query and 16, where P is split over clusters; 32 and 64, the
+# data-parallel ranks'; 128, a chunk; 192) and with a ragged P (2000) at 128;
+# a ragged P at C = 128; P off the 128-row tile (127, 129, 1000); K = 16 and
+# 64; K2 != K (K2 = 64 takes the 64-token build); 4 heads; C = 2816, where a
+# cluster takes 16 blocks
+KEYS_SHAPES = [(1, 2048, 1408, 48, 48, 8), (16, 2048, 1408, 48, 48, 8), (32, 2048, 1408, 48, 48, 8),
+               (64, 2048, 1408, 48, 48, 8), (128, 2048, 1408, 48, 48, 8), (192, 2048, 1408, 48, 48, 8),
+               (128, 2000, 1408, 48, 48, 8), (4, 2048, 1408, 48, 48, 8), (3, 1000, 128, 48, 32, 8),
                (2, 127, 1408, 48, 48, 8), (2, 129, 256, 64, 16, 4), (1, 1000, 1408, 16, 64, 4),
                (2, 300, 2816, 48, 32, 8)]
 # the kernels and their plain versions against the plain version on fp32
@@ -160,10 +165,13 @@ KEYS_WITNESS_SLACK = 1.1
 @pytest.mark.parametrize("n,p,c,k,k2,heads", KEYS_SHAPES)
 def test_t2i_flash_matches_plain_on_card(cuda, n, p, c, k, k2, heads):
     o = keys_operands(n, p, c, k, k2, cuda)
-    before = FK.t2i_flash.launches
+    before, variants = FK.t2i_flash.launches, dict(FK.t2i_flash.variant_launches)
     out = FK.t2i_flash(o["keys"], o["st"], o["spe"])
     torch.cuda.synchronize()
     assert FK.t2i_flash.launches == before + 1
+    variant = FK.kernel_variant(c, k2, i2t=False)
+    assert {v: FK.t2i_flash.variant_launches[v] - variants[v] for v in variants} == {
+        v: int(v == variant) for v in variants}
     assert out.shape == (n, k2, c) and bool(torch.isfinite(out).all())
     err = band_err(out, FK.t2i_flash_plain(o["keys"], o["st"], o["spe"]))
     print(f"t2i_flash {(n, p, c, k2)}: max|kernel - plain| / max|plain| = {err:.3g}")
@@ -174,7 +182,9 @@ def test_t2i_flash_matches_plain_on_card(cuda, n, p, c, k, k2, heads):
 def test_t2i_flash_at_its_widest_matches_plain_on_card(cuda):
     """C = 4096: 16 blocks of 256 columns, wider than i2t_ln_t2i's blocks."""
     o = keys_operands(2, 300, 4096, 48, 48, cuda)
+    wide = FK.t2i_flash.variant_launches["wide"]
     err = band_err(FK.t2i_flash(o["keys"], o["st"], o["spe"]), FK.t2i_flash_plain(o["keys"], o["st"], o["spe"]))
+    assert FK.t2i_flash.variant_launches["wide"] == wide + 1
     print(f"t2i_flash (2, 300, 4096, 48): max|kernel - plain| / max|plain| = {err:.3g}")
     assert err <= KEYS_BAND
 
@@ -184,10 +194,13 @@ def test_t2i_flash_at_its_widest_matches_plain_on_card(cuda):
 def test_i2t_ln_t2i_matches_plain_on_card(cuda, n, p, c, k, k2, heads):
     o = keys_operands(n, p, c, k, k2, cuda, seed=1)
     args = [o[x] for x in ("keys", "r", "per", "v2", "ob", "lnw", "lnb", "st", "spe")]
-    before = FK.i2t_ln_t2i.launches
+    before, variants = FK.i2t_ln_t2i.launches, dict(FK.i2t_ln_t2i.variant_launches)
     keys_new, wsum = FK.i2t_ln_t2i(*args, heads)
     torch.cuda.synchronize()
     assert FK.i2t_ln_t2i.launches == before + 1
+    variant = FK.kernel_variant(c, k2, i2t=True)
+    assert {v: FK.i2t_ln_t2i.variant_launches[v] - variants[v] for v in variants} == {
+        v: int(v == variant) for v in variants}
     assert bool(torch.isfinite(keys_new).all()) and bool(torch.isfinite(wsum).all())
     ref_keys, ref_wsum = FK.i2t_ln_t2i_plain(*args, heads)
     errs = band_err(keys_new, ref_keys), band_err(wsum, ref_wsum)
