@@ -879,8 +879,8 @@ def compare_block_products(FE, gen, log, checks) -> dict:
             ratio = (got.float() - ref.float()).abs().max().item() / ref.float().abs().max().item()
             del got, ref
             shape = (qkv.get("tokens", 1), qkv.get("heads", 1), qkv.get("head_dim", 2))
-            launch = FE._gemm_call(FE._kernels()[1], a, w, bias, out, None, epilogue, *shape,
-                                   torch.cuda.current_stream().cuda_stream)
+            args = (*FE.gemm_args(a, w, bias, out, None, epilogue, *shape), torch.cuda.current_stream().cuda_stream)
+            launch = lambda: FE.GEMM(*args)  # noqa: E731
             ms, mm_ms = alternate(launch, lambda: torch.matmul(a, w.t()), 20)
             wrapper = lambda: FE.gemm_nt(a, w, bias, epilogue, out, **qkv)  # noqa: E731
             wrapper_ms = time_ms(wrapper, 20)

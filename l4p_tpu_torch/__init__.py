@@ -9,7 +9,10 @@ the whole-encoder kernels (ops/fused_encoder.py, csrc/fused_encoder.cu);
 then the DPT heads, the camera solve and the window stitching, and the
 SAM-style track head whose two-way transformer and mask decoder stream the
 per-query image tokens through three more kernels (ops/fused_keys.py,
-ops/fused_upscale.py). Besides the session: the model factory
+ops/fused_upscale.py). The same session serves VGGT-1B (models/vggt.py):
+cameras, depth and world points from alternating frame and global attention
+on the attention and resize kernels. Every kernel is built, bound and
+launched through _build.py. Besides the session: the model factory
 (`prepare_model`, `load_video_encoder_ckpt`), backward and bidirectional
 tracking (`track_bidirectional`, or `estimation_directions` in the session),
 one unstitched window (`forward_single_window`), online serving

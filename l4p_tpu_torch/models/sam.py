@@ -34,7 +34,7 @@ from l4p_tpu_torch.ops.attention import mha
 from l4p_tpu_torch.ops.conv import layer_norm, linear
 from l4p_tpu_torch.ops.fused_keys import i2t_ln_t2i, i2t_ln_t2i_plain, t2i_flash, t2i_flash_plain
 from l4p_tpu_torch.ops.fused_upscale import fused_upscale_hypernet, fused_upscale_hypernet_plain
-from l4p_tpu_torch.ops.recompute import module_call, recompute_grads
+from l4p_tpu_torch.ops.recompute import module_call, recomputing_function
 
 LN_EPS = 1e-5  # the two-way transformer's norms are torch nn.LayerNorm defaults
 
@@ -362,25 +362,19 @@ def _twoway_streamed(tf: TwoWayTransformer, cfg: SamConfig, queries, keys, query
     return _norm(queries, tf.norm_final_attn), keys
 
 
-class TwoWayStreamedFunction(torch.autograd.Function):
-    """`_twoway_streamed` with `kernels` over (queries, keys, query_pe,
-    pe_pc) and the parameters `names` of `tf`; the backward recomputes it
-    with the plain versions (JAX's factored path) on those inputs."""
+def _twoway_kernels(tf, cfg, kernels, names, queries, keys, query_pe, pe_pc, *params):
+    return _twoway_streamed(tf, cfg, queries, keys, query_pe, pe_pc, kernels)
 
-    @staticmethod
-    def forward(ctx, tf, cfg, kernels, names, queries, keys, query_pe, pe_pc, *params):
-        ctx.save_for_backward(queries, keys, query_pe, pe_pc, *params)
-        ctx.tf, ctx.cfg, ctx.names = tf, cfg, names
-        return _twoway_streamed(tf, cfg, queries, keys, query_pe, pe_pc, kernels)
 
-    @staticmethod
-    def backward(ctx, grad_queries, grad_keys):
-        def plain(queries, keys, query_pe, pe_pc, *params):
-            return module_call(lambda tf, *a: _twoway_streamed(tf, ctx.cfg, *a, PLAIN), ctx.tf, ctx.names, params,
-                               queries, keys, query_pe, pe_pc)
+def _twoway_plain(tf, cfg, kernels, names, queries, keys, query_pe, pe_pc, *params):
+    return module_call(lambda tf_, *a: _twoway_streamed(tf_, cfg, *a, PLAIN), tf, names, params, queries, keys,
+                       query_pe, pe_pc)
 
-        return (None,) * 4 + recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[4:],
-                                             (grad_queries, grad_keys))
+
+# `_twoway_streamed` with `kernels` over (queries, keys, query_pe, pe_pc) and
+# the parameters `names` of `tf`; the backward recomputes it with the plain
+# versions (JAX's factored path) on those inputs
+TwoWayStreamedFunction = recomputing_function("TwoWayStreamedFunction", _twoway_kernels, _twoway_plain, consts=4)
 
 
 def twoway_streamed(tf: TwoWayTransformer, cfg: SamConfig, queries, keys, query_pe, pe_pc,

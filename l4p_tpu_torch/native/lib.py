@@ -1,5 +1,6 @@
 """The host preprocessing library (native/preprocess.cpp), built with g++ at
-first use and bound with ctypes (counterpart of l4p_tpu/native/lib.py).
+first use and bound through l4p_tpu_torch/_build.py (counterpart of
+l4p_tpu/native/lib.py).
 
 `normalize_video`, `resize_planes` and `mirror_pad_time` run the C++ code,
 multithreaded over frames; their `*_plain` versions are the numpy
@@ -12,23 +13,16 @@ an illegal instruction), so a change of any of them rebuilds.
 
 from __future__ import annotations
 
-import ctypes
-import hashlib
 import os
 import platform
-import subprocess
-import tempfile
-import threading
-from typing import Optional, Sequence
+from typing import Sequence
 
 import numpy as np
 
-SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "preprocess.cpp")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "build")
-GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-lpthread")
+from l4p_tpu_torch import _build
 
-_lock = threading.Lock()
-_lib: Optional[ctypes.CDLL] = None
+SOURCE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "preprocess.cpp")
+GXX_FLAGS = ("-O3", "-march=native", "-fPIC", "-shared", "-std=c++17", "-lpthread")
 
 
 def _host_tag() -> str:
@@ -39,55 +33,17 @@ def _host_tag() -> str:
     return f"{platform.machine()} {flags}"
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(GXX_FLAGS).encode() + _host_tag().encode())
-    with open(SOURCE, "rb") as f:
-        h.update(f.read())
-    return os.path.join(BUILD_DIR, f"libpreprocess-{h.hexdigest()[:16]}.so")
-
-
 def build() -> str:
     """Compiles preprocess.cpp unless an up-to-date library exists; returns
     its path. Raises RuntimeError with g++'s output when the build fails."""
-    out = library_path()
-    if os.path.exists(out):
-        return out
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        try:
-            proc = subprocess.run(["g++", *GXX_FLAGS[:-1], "-o", tmp, SOURCE, GXX_FLAGS[-1]], capture_output=True,
-                                  text=True, check=False)
-        except FileNotFoundError as e:
-            raise RuntimeError("g++ not found: the native preprocessing library needs it") from e
-        if proc.returncode != 0:
-            raise RuntimeError(f"g++ failed building {SOURCE}:\n{proc.stdout}{proc.stderr[-4000:]}")
-        os.replace(tmp, out)  # a concurrent build never loads a half-written library
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return out
+    out = _build.hashed_path("preprocess", " ".join(GXX_FLAGS) + _host_tag(), [SOURCE])
+    return _build.compile_library(out, lambda tmp: ["g++", *GXX_FLAGS[:-1], "-o", tmp, SOURCE, GXX_FLAGS[-1]], SOURCE)
 
 
-def get_lib() -> ctypes.CDLL:
-    """The library, built and loaded once per process."""
-    global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            f32p = np.ctypeslib.ndpointer(np.float32, flags="C_CONTIGUOUS")
-            u8p = np.ctypeslib.ndpointer(np.uint8, flags="C_CONTIGUOUS")
-            i32 = ctypes.c_int
-            lib.normalize_thwc_u8_to_cthw_f32.argtypes = [u8p, f32p, i32, i32, i32, f32p, f32p]
-            lib.resize_bilinear_f32.argtypes = [f32p, f32p] + [i32] * 5
-            lib.resize_nearest_f32.argtypes = [f32p, f32p] + [i32] * 5
-            lib.mirror_pad_time_f32.argtypes = [f32p, f32p] + [i32] * 4
-            for fn in (lib.normalize_thwc_u8_to_cthw_f32, lib.resize_bilinear_f32, lib.resize_nearest_f32,
-                       lib.mirror_pad_time_f32):
-                fn.restype = None
-            _lib = lib
-        return _lib
+NORMALIZE = _build.Entry("preprocess", build, "normalize_thwc_u8_to_cthw_f32", "UFiiiFF", result=None)
+RESIZE = {mode: _build.Entry("preprocess", build, f"resize_{mode}_f32", "FFiiiii", result=None)
+          for mode in ("bilinear", "nearest")}
+MIRROR_PAD = _build.Entry("preprocess", build, "mirror_pad_time_f32", "FFiiii", result=None)
 
 
 def _stats(v) -> np.ndarray:
@@ -104,7 +60,7 @@ def normalize_video(frames_thwc_u8: np.ndarray, mean3, std3) -> np.ndarray:
         raise ValueError(f"expected (T, H, W, 3) uint8 frames, got {frames.dtype} {frames.shape}")
     t, h, w, _ = frames.shape
     out = np.empty((3, t, h, w), np.float32)
-    get_lib().normalize_thwc_u8_to_cthw_f32(frames, out, t, h, w, _stats(mean3), _stats(std3))
+    NORMALIZE(frames, out, t, h, w, _stats(mean3), _stats(std3))
     return out
 
 
@@ -124,8 +80,7 @@ def resize_planes(x: np.ndarray, size: Sequence[int], mode: str = "bilinear") ->
     n = int(np.prod(lead)) if lead else 1
     src = np.ascontiguousarray(x.reshape(n, h, w), np.float32)
     dst = np.empty((n, h2, w2), np.float32)
-    lib = get_lib()
-    (lib.resize_bilinear_f32 if mode == "bilinear" else lib.resize_nearest_f32)(src, dst, n, h, w, h2, w2)
+    RESIZE[mode](src, dst, n, h, w, h2, w2)
     return dst.reshape(*lead, h2, w2)
 
 
@@ -168,7 +123,7 @@ def mirror_pad_time(x_cthw: np.ndarray) -> np.ndarray:
         raise ValueError(f"expected (C, T, H, W), got shape {x_cthw.shape}")
     c, t, h, w = x_cthw.shape
     out = np.empty((c, 2 * t - 1, h, w), np.float32)
-    get_lib().mirror_pad_time_f32(np.ascontiguousarray(x_cthw, np.float32), out, c, t, h, w)
+    MIRROR_PAD(np.ascontiguousarray(x_cthw, np.float32), out, c, t, h, w)
     return out
 
 

@@ -7,25 +7,25 @@ what bounds it and how it is built around that). It is built by ``nvcc`` at
 first use (``_build.py``). `flash_attention_plain` is the same function in
 plain PyTorch (== `mha`).
 
-For tensors on the CPU the wrapper runs the plain version; for CUDA tensors
-it launches the kernel or raises, never falls back. On either device it
-goes through `FlashAttentionFunction`, whose backward recomputes the plain
-version (ops/recompute.py), as `_flash_bwd` recomputes `mha`.
+The wrapper runs the plain version on the CPU and the kernel on one CUDA
+device (`_build.route`, `_build.launch`), never falling back, through
+`FlashAttentionFunction`, whose backward recomputes the plain version
+(ops/recompute.py), as `_flash_bwd` recomputes `mha`.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
 from l4p_tpu_torch import _build
 from l4p_tpu_torch.ops.attention import mha
-from l4p_tpu_torch.ops.recompute import recompute_grads
+from l4p_tpu_torch.ops.recompute import recomputing_function
 
 NAME = "flash_attention"
 SOURCES = ("flash_attention.cu",)
+KERNEL = _build.kernel(NAME, SOURCES, "l4p_flash_attention_fwd_bf16", "ppppiiiiifp")
 MAX_HEAD_DIM = 128
 
 
@@ -69,30 +69,13 @@ def kernel_unsupported(bh: int, nq: int, nk: int, d: int) -> Optional[str]:
     return None
 
 
-def launch_error(err: int) -> str:
-    """The text of a non-zero return of the port's attention entry points."""
-    if err < 0:
-        return f"a TMA tensor map could not be encoded (CUresult {-err})"
-    return f"CUDA error {err}"
-
-
-def _kernel():
-    fn = _build.load(NAME, SOURCES).l4p_flash_attention_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
+def _forward(scale: float, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     if q.dim() != 4 or k.shape != v.shape or k.dim() != 4 or q.shape[:2] != k.shape[:2] \
             or q.shape[3] != k.shape[3]:
         raise ValueError(f"flash_attention: incompatible shapes q{tuple(q.shape)} k{tuple(k.shape)} "
                          f"v{tuple(v.shape)}")
-    devices = {q.device, k.device, v.device}
-    if devices == {torch.device("cpu")}:
+    if _build.route("flash_attention", q, k, v) == "plain":
         return flash_attention_plain(q, k, v, scale)
-    if len(devices) != 1 or q.device.type != "cuda":
-        raise ValueError(f"flash_attention: q, k, v must lie on one CUDA device, got {devices}")
     if not (q.dtype == k.dtype == v.dtype == torch.bfloat16):
         raise TypeError(f"flash_attention: the kernel takes bf16, got {q.dtype}/{k.dtype}/{v.dtype}")
     b, h, nq, d = q.shape
@@ -102,31 +85,13 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) ->
         raise ValueError(f"flash_attention: q{tuple(q.shape)} k{tuple(k.shape)}: {reason}")
     q, k, v = (t if in_kernel_layout(t) else kernel_layout(t) for t in (q, k, v))
     o = torch.empty((b, h, nq, d), device=q.device, dtype=q.dtype)
-    with torch.cuda.device(q.device):
-        err = _kernel()(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h, nq, nk, d, kernel_row_pitch(d),
-            float(scale), torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"flash_attention: kernel launch failed: {launch_error(err)}")
-    flash_attention.launches += 1
+    _build.launch(flash_attention, KERNEL, q.device, q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * h,
+                  nq, nk, d, kernel_row_pitch(d), float(scale))
     return o
 
 
-class FlashAttentionFunction(torch.autograd.Function):
-    """The kernel forward (the plain version on the CPU); the backward
-    recomputes `flash_attention_plain` on the saved q, k, v."""
-
-    @staticmethod
-    def forward(ctx, q, k, v, scale):
-        ctx.save_for_backward(q, k, v)
-        ctx.scale = scale
-        return _forward(q, k, v, scale)
-
-    @staticmethod
-    def backward(ctx, grad):
-        plain = lambda q, k, v: flash_attention_plain(q, k, v, ctx.scale)
-        return (*recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[:3], (grad,)), None)
+FlashAttentionFunction = recomputing_function(
+    "FlashAttentionFunction", _forward, lambda scale, q, k, v: flash_attention_plain(q, k, v, scale), consts=1)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -135,7 +100,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: fl
     differentiable. On CUDA an operand that does not lie as `kernel_layout`
     puts it is copied so first (one copy each, where a caller would make a
     contiguous one)."""
-    return FlashAttentionFunction.apply(q, k, v, scale)
+    return FlashAttentionFunction.apply(scale, q, k, v)
 
 
 flash_attention.launches = 0  # kernel launches since the last reset

@@ -15,18 +15,17 @@ with the plain attention. Both return the stack (B, len(hook_ends), N, E)
 whose entry i is x after block hook_ends[i] - 1; the caller adds the final
 LayerNorm.
 
-`fused_encoder_unsupported` is the one gate of the kernel path. For tensors
-on the CPU the wrappers run the plain versions; for CUDA tensors they
-launch the kernels or raise, never fall back. `fused_encoder_blocks` goes
-through `FusedEncoderFunction` on either device, with x and the blocks'
-parameters as its inputs; its backward recomputes
+`fused_encoder_unsupported` is the one gate of the kernel path. The
+wrappers run the plain versions on the CPU and the kernels on one CUDA
+device (`_build.route`, `_build.launch`), never falling back.
+`fused_encoder_blocks` goes through `FusedEncoderFunction`, with x and the
+blocks' parameters as its inputs; its backward recomputes
 `fused_encoder_blocks_plain` (ops/recompute.py), as `_fe_bwd` recomputes
 `_run_blocks_xla`.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
@@ -34,11 +33,14 @@ import torch
 from l4p_tpu_torch import _build
 from l4p_tpu_torch.config import EncoderConfig
 from l4p_tpu_torch.ops.conv import gelu, linear
-from l4p_tpu_torch.ops.flash_attention import flash_attention_plain, kernel_row_pitch, launch_error
-from l4p_tpu_torch.ops.recompute import module_call, recompute_grads
+from l4p_tpu_torch.ops.flash_attention import flash_attention_plain, kernel_row_pitch
+from l4p_tpu_torch.ops.recompute import module_call, recomputing_function
 
 NAME = "fused_encoder"
 SOURCES = ("fused_encoder.cu",)
+LN_ROWS = _build.kernel(NAME, SOURCES, "l4p_ln_rows_bf16", "ppppiifp")
+GEMM = _build.kernel(NAME, SOURCES, "l4p_gemm_nt_bf16", "p" * 5 + "i" * 8 + "p")
+ATTENTION = _build.kernel(NAME, SOURCES, "l4p_encoder_attention_bf16", "ppiiiifp")
 MAX_HEAD_DIM = 96  # the fused path's attention pads D to 64 or 96 in shared memory
 QKV, GELU, RESIDUAL = 0, 1, 2  # the GEMM epilogues of csrc/fused_encoder.cu
 GEMM_TILE_WIDTHS = (256, 176)  # the output tile widths the GEMM is built for, widest first
@@ -93,17 +95,6 @@ def fused_encoder_blocks_plain(blocks: Sequence[torch.nn.Module], x: torch.Tenso
     return torch.stack(feats, dim=1)
 
 
-def _kernels():
-    lib = _build.load(NAME, SOURCES)
-    ln, gemm, attn = lib.l4p_ln_rows_bf16, lib.l4p_gemm_nt_bf16, lib.l4p_encoder_attention_bf16
-    ln.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 2 + [ctypes.c_float, ctypes.c_void_p]
-    gemm.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    attn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p]
-    for fn in (ln, gemm, attn):
-        fn.restype = ctypes.c_int
-    return ln, gemm, attn
-
-
 def block_params(blk) -> Tuple[torch.Tensor, ...]:
     """A `Block`'s parameters in the order `EncoderWorkspace.block_steps` takes them."""
     a = blk.attn
@@ -113,17 +104,12 @@ def block_params(blk) -> Tuple[torch.Tensor, ...]:
             blk.mlp.fc2.bias)
 
 
-def _ptr(t: Optional[torch.Tensor]):
-    return ctypes.c_void_p(None) if t is None else t.data_ptr()
-
-
-def _gemm_call(gemm, a, w, bias, out, copy_out, epilogue: int, tokens: int, heads: int, head_dim: int,
-               stream) -> Callable[[], int]:
-    """One launch of the GEMM entry point `gemm` as a thunk returning its error code."""
+def gemm_args(a, w, bias, out, copy_out, epilogue: int, tokens: int, heads: int, head_dim: int) -> tuple:
+    """The GEMM entry point's arguments but the stream."""
     (m, k), n = a.shape, w.shape[0]
-    args = (a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), _ptr(copy_out), m, n, k, epilogue, tokens,
-            heads, head_dim, gemm_tile_width(n), stream)
-    return lambda: gemm(*args)
+    copy_ptr = None if copy_out is None else copy_out.data_ptr()
+    return (a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), copy_ptr, m, n, k, epilogue, tokens, heads,
+            head_dim, gemm_tile_width(n))
 
 
 class EncoderWorkspace:
@@ -142,80 +128,62 @@ class EncoderWorkspace:
         self.attn_out = torch.empty((b * n, e), **like)
         self.hidden = torch.empty((b * n, cfg.mlp_hidden), **like)
 
-    def block_steps(self, params: Sequence[torch.Tensor], copy_to: Optional[torch.Tensor] = None,
-                    kernels=None) -> List[Tuple[str, Callable[[], int]]]:
+    def block_steps(self, params: Sequence[torch.Tensor],
+                    copy_to: Optional[torch.Tensor] = None) -> List[Tuple[str, Callable[[], None]]]:
         """One block's LAUNCHES_PER_BLOCK launches in order, each a (name,
-        thunk returning the entry point's error code) on the current stream;
-        the last also writes the new stream into `copy_to` if given."""
+        thunk) that launches on the current stream (`_build.launch`, counted
+        in `fused_encoder_blocks.kernel_launches`); the last also writes the
+        new stream into `copy_to` if given."""
         n1w, n1b, wqkv, bqkv, wp, bp, n2w, n2b, w1, b1, w2, b2 = params
-        ln, gemm, attn = kernels or _kernels()
         cfg, b, n = self.cfg, self.b, self.n
         m, e, heads, hd = b * n, cfg.embed_dim, cfg.num_heads, cfg.head_dim
-        stream = torch.cuda.current_stream(self.x.device).cuda_stream
         x2 = self.x.view(m, e)
-        scale = float(hd ** -0.5)
+
+        def step(entry, *args):
+            return lambda: _build.launch(fused_encoder_blocks, entry, self.x.device, *args, counter="kernel_launches")
 
         def gemm_step(a, w, bias, out, epilogue, copy_out=None):
-            return _gemm_call(gemm, a, w, bias, out, copy_out, epilogue, n, heads, hd, stream)
+            return step(GEMM, *gemm_args(a, w, bias, out, copy_out, epilogue, n, heads, hd))
 
         return [
-            ("ln1", lambda: ln(x2.data_ptr(), n1w.data_ptr(), n1b.data_ptr(), self.ln_out.data_ptr(), m, e,
-                               cfg.ln_eps, stream)),
+            ("ln1", step(LN_ROWS, x2.data_ptr(), n1w.data_ptr(), n1b.data_ptr(), self.ln_out.data_ptr(), m, e,
+                         cfg.ln_eps)),
             ("qkv", gemm_step(self.ln_out, wqkv, bqkv, self.qkv, QKV)),
-            ("attention", lambda: attn(self.qkv.data_ptr(), self.attn_out.data_ptr(), b, heads, n, hd, scale,
-                                       stream)),
+            ("attention", step(ATTENTION, self.qkv.data_ptr(), self.attn_out.data_ptr(), b, heads, n, hd,
+                               float(hd ** -0.5))),
             ("proj", gemm_step(self.attn_out, wp, bp, x2, RESIDUAL)),
-            ("ln2", lambda: ln(x2.data_ptr(), n2w.data_ptr(), n2b.data_ptr(), self.ln_out.data_ptr(), m, e,
-                               cfg.ln_eps, stream)),
+            ("ln2", step(LN_ROWS, x2.data_ptr(), n2w.data_ptr(), n2b.data_ptr(), self.ln_out.data_ptr(), m, e,
+                         cfg.ln_eps)),
             ("fc1", gemm_step(self.ln_out, w1, b1, self.hidden, GELU)),
             ("fc2", gemm_step(self.hidden, w2, b2, x2, RESIDUAL, copy_to)),
         ]
 
 
-def _forward(blocks: Sequence[torch.nn.Module], x: torch.Tensor, cfg: EncoderConfig,
-             ends: Tuple[int, ...]) -> torch.Tensor:
-    params = [block_params(blk) for blk in blocks[: ends[-1]]]
-    devices = {x.device} | {p.device for ps in params for p in ps}
-    if devices == {torch.device("cpu")}:
+def _forward(blocks: Sequence[torch.nn.Module], cfg: EncoderConfig, ends: Tuple[int, ...], names, x: torch.Tensor,
+             *params) -> torch.Tensor:
+    """The kernels over `blocks` (whose parameters are `params`, read here
+    through the blocks in the kernels' order)."""
+    steps = [block_params(blk) for blk in blocks[: ends[-1]]]
+    if _build.route("fused_encoder_blocks", x, *(p for ps in steps for p in ps)) == "plain":
         return fused_encoder_blocks_plain(blocks, x, cfg, ends)
-    if len(devices) != 1 or x.device.type != "cuda":
-        raise ValueError(f"fused_encoder_blocks: x and the weights must lie on one CUDA device, got {devices}")
-    if any(p.dtype != torch.bfloat16 or not p.is_contiguous() for ps in params for p in ps):
+    if any(p.dtype != torch.bfloat16 or not p.is_contiguous() for ps in steps for p in ps):
         raise ValueError("fused_encoder_blocks: the block weights must be contiguous bf16")
     b, n, e = x.shape
     stack = torch.empty((len(ends), b, n, e), device=x.device, dtype=x.dtype)
-    kernels = _kernels()
-    with torch.cuda.device(x.device):
-        ws = EncoderWorkspace(x, cfg)
-        for i, ps in enumerate(params):
-            copy_to = stack[ends.index(i + 1)] if i + 1 in ends else None
-            for what, step in ws.block_steps(ps, copy_to, kernels):
-                err = step()
-                if err != 0:
-                    raise RuntimeError(f"fused_encoder_blocks: {what} launch failed: {launch_error(err)}")
-                fused_encoder_blocks.kernel_launches += 1
+    ws = EncoderWorkspace(x, cfg)
+    for i, ps in enumerate(steps):
+        copy_to = stack[ends.index(i + 1)] if i + 1 in ends else None
+        for _, launch in ws.block_steps(ps, copy_to):
+            launch()
     fused_encoder_blocks.launches += 1
     return stack.transpose(0, 1)  # (B, K, N, E); each stack[:, i] stays contiguous
 
 
-class FusedEncoderFunction(torch.autograd.Function):
-    """The kernels' forward (the plain blocks on the CPU) over x and the
-    blocks' parameters `names` of `blocks` (a ModuleList); the backward
-    recomputes `fused_encoder_blocks_plain` with those parameters."""
+def _forward_plain(blocks, cfg, ends, names, x, *params) -> torch.Tensor:
+    return module_call(lambda blocks_, x_: fused_encoder_blocks_plain(blocks_, x_, cfg, ends), blocks, names, params, x)
 
-    @staticmethod
-    def forward(ctx, blocks, cfg, ends, names, x, *params):
-        ctx.save_for_backward(x, *params)
-        ctx.blocks, ctx.cfg, ctx.ends, ctx.names = blocks, cfg, ends, names
-        return _forward(blocks, x, cfg, ends)
 
-    @staticmethod
-    def backward(ctx, grad):
-        def plain(x, *params):
-            return module_call(lambda blocks, x_: fused_encoder_blocks_plain(blocks, x_, ctx.cfg, ctx.ends),
-                               ctx.blocks, ctx.names, params, x)
-
-        return (None,) * 4 + recompute_grads(plain, ctx.saved_tensors, ctx.needs_input_grad[4:], (grad,))
+FusedEncoderFunction = recomputing_function("FusedEncoderFunction", _forward, _forward_plain, consts=4)
 
 
 def fused_encoder_blocks(blocks: Sequence[torch.nn.Module], x: torch.Tensor, cfg: EncoderConfig,
@@ -285,22 +253,13 @@ def gemm_nt(a: torch.Tensor, w: torch.Tensor, bias: torch.Tensor, epilogue: int,
     want = _gemm_out_shape(m, n, epilogue, tokens, heads, head_dim)
     if out.shape != want or (copy_out is not None and (epilogue != RESIDUAL or copy_out.shape != want)):
         raise ValueError(f"gemm_nt: out{tuple(out.shape)} / copy_out do not fit epilogue {epilogue}: want {want}")
-    tensors = [t for t in (a, w, bias, out, copy_out) if t is not None]
-    devices = {t.device for t in tensors}
-    if devices == {torch.device("cpu")}:
+    if _build.route("gemm_nt", a, w, bias, out, copy_out) == "plain":
         return gemm_nt_plain(a, w, bias, epilogue, out, copy_out, tokens, heads, head_dim)
-    if len(devices) != 1 or a.device.type != "cuda":
-        raise ValueError(f"gemm_nt: operands must lie on one CUDA device, got {devices}")
-    if any(t.dtype != torch.bfloat16 or not t.is_contiguous() for t in tensors):
+    if any(t.dtype != torch.bfloat16 or not t.is_contiguous() for t in (a, w, bias, out, copy_out) if t is not None):
         raise ValueError("gemm_nt: the kernel takes contiguous bf16 operands")
     if k % 8 or n % 8:
         raise ValueError(f"gemm_nt: K {k} and N {n} must be multiples of 8 (16-byte TMA rows)")
-    with torch.cuda.device(a.device):
-        stream = torch.cuda.current_stream(a.device).cuda_stream
-        err = _gemm_call(_kernels()[1], a, w, bias, out, copy_out, epilogue, tokens, heads, head_dim, stream)()
-    if err != 0:
-        raise RuntimeError(f"gemm_nt: kernel launch failed: {launch_error(err)}")
-    gemm_nt.launches += 1
+    _build.launch(gemm_nt, GEMM, a.device, *gemm_args(a, w, bias, out, copy_out, epilogue, tokens, heads, head_dim))
     return out
 
 

@@ -10,13 +10,13 @@ them on the card and how the design answers that). The operands are the
 factored two-way transformer's (models/sam.py): `keys` (N, P, C) is the
 per-query image embedding, K = heads x tokens.
 
-For tensors on the CPU the wrappers run the plain versions; for CUDA bf16
-tensors they launch the kernel or raise, never fall back.
+The wrappers run the plain versions on the CPU and the kernels on bf16
+tensors on one CUDA device (`_build.route`, `_build.launch`), never falling
+back.
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Tuple
 
 import torch
@@ -26,6 +26,8 @@ from l4p_tpu_torch import _build
 
 NAME = "fused_keys"
 SOURCES = ("fused_keys.cu",)
+T2I = _build.kernel(NAME, SOURCES, "l4p_t2i_flash_bf16", "p" * 7 + "i" * 5 + "p")
+I2T = _build.kernel(NAME, SOURCES, "l4p_i2t_ln_t2i_bf16", "p" * 14 + "i" * 7 + "fp")
 MAX_K = 64
 TILE_ROWS = 128  # keys rows per tile of the kernels (csrc/fused_keys.cu)
 BLOCK_BOXES = 11  # 16-column boxes a block of a cluster takes (csrc/fused_keys.cu kKS)
@@ -58,32 +60,6 @@ def i2t_ln_t2i_plain(keys, r, per, v2, ob, lnw, lnb, st, spe, num_heads: int,
     y = kf + torch.matmul(attn.float(), v2.float()) + ob.float()
     keys_new = F.layer_norm(y, (c,), lnw.float(), lnb.float(), eps).to(keys.dtype)
     return keys_new, t2i_flash_plain(keys_new, st, spe)
-
-
-def typed(lib: ctypes.CDLL) -> ctypes.CDLL:
-    """Sets the two C entry points' argument and result types."""
-    ptr, i32 = ctypes.c_void_p, ctypes.c_int
-    lib.l4p_t2i_flash_bf16.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
-    lib.l4p_t2i_flash_bf16.restype = i32
-    lib.l4p_i2t_ln_t2i_bf16.argtypes = [ptr] * 14 + [i32] * 7 + [ctypes.c_float, ptr]
-    lib.l4p_i2t_ln_t2i_bf16.restype = i32
-    return lib
-
-
-def _lib():
-    lib = _build.load(NAME, SOURCES)
-    if not getattr(lib, "_typed", False):
-        typed(lib)._typed = True
-    return lib
-
-
-def _on_cpu(*ts: torch.Tensor) -> bool:
-    devices = {t.device for t in ts}
-    if devices == {torch.device("cpu")}:
-        return True
-    if len(devices) != 1 or next(iter(devices)).type != "cuda":
-        raise ValueError(f"fused_keys: operands must lie on one CUDA device, got {devices}")
-    return False
 
 
 def _check_cuda(name: str, keys, bf16, f32, k: int) -> None:
@@ -138,11 +114,6 @@ def _workspace(keys: torch.Tensor, k: int, split: int):
             torch.empty((n, splits, k), **f32))
 
 
-def _raise_on(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-
-
 def t2i_launch_args(keys, st, spe, split: int):
     """(wsum, the C entry point's arguments but the stream, the tensors they
     point into) for checked CUDA operands; `split` keys rows per cluster
@@ -186,13 +157,10 @@ def t2i_flash(keys: torch.Tensor, st: torch.Tensor, spe: torch.Tensor) -> torch.
     if st.shape != (n, c, k) or spe.shape != (n, p, k):
         raise ValueError(f"t2i_flash: incompatible shapes keys{tuple(keys.shape)} st{tuple(st.shape)} "
                          f"spe{tuple(spe.shape)}")
-    if _on_cpu(keys, st, spe):
+    if _build.route("t2i_flash", keys, st, spe) == "plain":
         return t2i_flash_plain(keys, st, spe)
     wsum, args, _keep = t2i_launch_args(keys, st, spe, split_rows(n, p))
-    with torch.cuda.device(keys.device):
-        err = _lib().l4p_t2i_flash_bf16(*args, torch.cuda.current_stream(keys.device).cuda_stream)
-    _raise_on("t2i_flash", err)
-    t2i_flash.launches += 1
+    _build.launch(t2i_flash, T2I, keys.device, *args)
     t2i_flash.variant_launches[kernel_variant(c, k, False)] += 1
     return wsum
 
@@ -209,13 +177,10 @@ def i2t_ln_t2i(keys, r, per, v2, ob, lnw, lnb, st, spe, num_heads: int,
         raise ValueError(f"i2t_ln_t2i: incompatible shapes keys{tuple(keys.shape)} r{tuple(r.shape)} "
                          f"per{tuple(per.shape)} v2{tuple(v2.shape)} st{tuple(st.shape)} spe{tuple(spe.shape)} "
                          f"heads {num_heads}")
-    if _on_cpu(keys, r, per, v2, ob, lnw, lnb, st, spe):
+    if _build.route("i2t_ln_t2i", keys, r, per, v2, ob, lnw, lnb, st, spe) == "plain":
         return i2t_ln_t2i_plain(keys, r, per, v2, ob, lnw, lnb, st, spe, num_heads, eps)
     outs, args, _keep = i2t_launch_args(keys, r, per, v2, ob, lnw, lnb, st, spe, num_heads, eps, split_rows(n, p))
-    with torch.cuda.device(keys.device):
-        err = _lib().l4p_i2t_ln_t2i_bf16(*args, torch.cuda.current_stream(keys.device).cuda_stream)
-    _raise_on("i2t_ln_t2i", err)
-    i2t_ln_t2i.launches += 1
+    _build.launch(i2t_ln_t2i, I2T, keys.device, *args)
     i2t_ln_t2i.variant_launches[kernel_variant(c, k2, True)] += 1
     return outs
 

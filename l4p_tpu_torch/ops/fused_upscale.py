@@ -13,25 +13,23 @@ the offsets packed, (N, M, P, k1, k2) fp32, as the JAX package's
 erf form in every dtype (the XLA path's; the TPU kernel's polynomial erf was
 a Pallas workaround).
 
-For tensors on the CPU the wrapper runs the plain version; for CUDA bf16
-tensors it launches the kernel or raises, never falls back. On either
-device it goes through `FusedUpscaleFunction`, whose backward recomputes
-the plain version (ops/recompute.py), as `_fused_bwd` recomputes
-`_upscale_xla`.
+The wrapper runs the plain version on the CPU and the kernel on bf16
+tensors on one CUDA device (`_build.route`, `_build.launch`), never falling
+back, through `FusedUpscaleFunction`, whose backward recomputes the plain
+version (ops/recompute.py), as `_fused_bwd` recomputes `_upscale_xla`.
 """
 
 from __future__ import annotations
-
-import ctypes
 
 import torch
 import torch.nn.functional as F
 
 from l4p_tpu_torch import _build
-from l4p_tpu_torch.ops.recompute import recompute_grads
+from l4p_tpu_torch.ops.recompute import recomputing_function
 
 NAME = "fused_upscale"
 SOURCES = ("fused_upscale.cu",)
+KERNEL = _build.kernel(NAME, SOURCES, "l4p_fused_upscale_bf16", "p" * 9 + "i" * 9 + "fp")
 LN_EPS = 1e-6
 PLAIN_CHUNK = 16  # queries per step of the plain version (bounds its fp32 temporaries)
 # the kernel's padded widths of d1 and d2 (csrc/fused_upscale.cu kD1P, kD2P):
@@ -67,13 +65,6 @@ def fused_upscale_hypernet_plain(src, w1, b1, lnw, lnb, w2, b2, hyper) -> torch.
         h = hyper[i: i + PLAIN_CHUNK].to(dt).float()
         outs.append(torch.einsum("npkld,nmd->nmpkl", x.unflatten(-1, (k2, d2)), h))
     return torch.cat(outs)
-
-
-def _kernel():
-    fn = _build.load(NAME, SOURCES).l4p_fused_upscale_bf16
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
 
 
 def pack_weights(w1, b1, lnw, lnb, w2, b2):
@@ -127,11 +118,8 @@ def _forward(src, w1, b1, lnw, lnb, w2, b2, hyper) -> torch.Tensor:
             v.shape != (d1,) for v in (b1, lnw, lnb)) or b2.shape != (d2,):
         raise ValueError(f"fused_upscale_hypernet: incompatible shapes src{tuple(src.shape)} w1{tuple(w1.shape)} "
                          f"w2{tuple(w2.shape)} hyper{tuple(hyper.shape)}")
-    devices = {t.device for t in (src, w1, b1, lnw, lnb, w2, b2, hyper)}
-    if devices == {torch.device("cpu")}:
+    if _build.route("fused_upscale_hypernet", src, w1, b1, lnw, lnb, w2, b2, hyper) == "plain":
         return fused_upscale_hypernet_plain(src, w1, b1, lnw, lnb, w2, b2, hyper)
-    if len(devices) != 1 or src.device.type != "cuda":
-        raise ValueError(f"fused_upscale_hypernet: operands must lie on one CUDA device, got {devices}")
     if src.dtype != torch.bfloat16:
         raise TypeError(f"fused_upscale_hypernet: the kernel takes bf16 tokens, got {src.dtype}")
     if not src.is_contiguous():
@@ -144,26 +132,11 @@ def _forward(src, w1, b1, lnw, lnb, w2, b2, hyper) -> torch.Tensor:
                          f"k1={k1} k2={k2} (needs C % 32 == 0, d1 <= {D1P}, d2 <= {D2P}, 1 <= M <= {MAX_M}, "
                          f"k1 * k2 <= {MAX_OFFSETS})")
     out, args, _keep = launch_args(src, w1, b1, lnw, lnb, w2, b2, hyper)
-    with torch.cuda.device(src.device):
-        err = _kernel()(*args, torch.cuda.current_stream(src.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"fused_upscale_hypernet: kernel launch failed with CUDA error {err}")
-    fused_upscale_hypernet.launches += 1
+    _build.launch(fused_upscale_hypernet, KERNEL, src.device, *args)
     return out
 
 
-class FusedUpscaleFunction(torch.autograd.Function):
-    """The kernel forward (the plain version on the CPU) over all eight
-    operands; the backward recomputes `fused_upscale_hypernet_plain`."""
-
-    @staticmethod
-    def forward(ctx, *operands):
-        ctx.save_for_backward(*operands)
-        return _forward(*operands)
-
-    @staticmethod
-    def backward(ctx, grad):
-        return recompute_grads(fused_upscale_hypernet_plain, ctx.saved_tensors, ctx.needs_input_grad, (grad,))
+FusedUpscaleFunction = recomputing_function("FusedUpscaleFunction", _forward, fused_upscale_hypernet_plain)
 
 
 def fused_upscale_hypernet(src, w1, b1, lnw, lnb, w2, b2, hyper) -> torch.Tensor:

@@ -10,18 +10,15 @@ positions. `interp_matrix` is kept for the track head's exact column means.
 hand-written kernel that replaces no TPU kernel (the source's header says
 why it exists, what bounds it and how the design answers that) and equals
 F.interpolate bit for bit, in the memory format F.interpolate keeps (the DPT
-trunk's tensors are channels_last_3d). For tensors on the CPU it runs
-F.interpolate, the plain version; for CUDA tensors it launches the kernel or
-raises, never falls back. On either device it goes through
-`TrilinearFunction`, whose backward recomputes the plain version
+trunk's tensors are channels_last_3d). On the CPU it runs F.interpolate, the
+plain version (`_build.route`), and never falls back from the kernel,
+through `TrilinearFunction`, whose backward recomputes the plain version
 (ops/recompute.py). `interpolate_bilinear` is the same kernel on 2D
 images as a depth-1 volume (VGGT's DPT heads).
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
 import math
 from typing import List, Sequence, Tuple
 
@@ -30,11 +27,12 @@ import torch
 import torch.nn.functional as F
 
 from l4p_tpu_torch import _build
-from l4p_tpu_torch.ops.recompute import recompute_grads
+from l4p_tpu_torch.ops.recompute import recomputing_function
 
 NAME = "resize"
 SOURCES = ("resize.cu",)
-ENTRY = {torch.bfloat16: "l4p_resize_trilinear_bf16", torch.float32: "l4p_resize_trilinear_f32"}
+KERNELS = {dtype: _build.kernel(NAME, SOURCES, f"l4p_resize_trilinear_{suffix}", "pp" + "i" * 9 + "p")
+           for dtype, suffix in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))}
 
 
 def interp_matrix(n_in: int, n_out: int, align_corners: bool) -> np.ndarray:
@@ -60,21 +58,10 @@ def interpolate_trilinear_plain(x: torch.Tensor, size: Tuple[int, int, int], ali
     return F.interpolate(x, size=size, mode="trilinear", align_corners=align_corners)
 
 
-@functools.lru_cache(maxsize=None)
-def _kernel(dtype: torch.dtype):
-    """The entry point for `dtype`, built and bound once (a head call makes five resizes)."""
-    fn = getattr(_build.load(NAME, SOURCES), ENTRY[dtype])
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 9 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _forward(x: torch.Tensor, size: Tuple[int, int, int], align_corners: bool) -> torch.Tensor:
-    if x.device.type == "cpu":
+def _forward(size: Tuple[int, int, int], align_corners: bool, x: torch.Tensor) -> torch.Tensor:
+    if _build.route("interpolate_trilinear", x) == "plain":
         return interpolate_trilinear_plain(x, size, align_corners)
-    if x.device.type != "cuda":
-        raise ValueError(f"interpolate_trilinear: a CPU or CUDA tensor, got {x.device}")
-    if x.dtype not in ENTRY:
+    if x.dtype not in KERNELS:
         raise TypeError(f"interpolate_trilinear: the kernel takes bf16 or fp32, got {x.dtype}")
     if x.dim() != 5:
         raise ValueError(f"interpolate_trilinear: x must be (B, C, T, H, W), got {tuple(x.shape)}")
@@ -88,31 +75,14 @@ def _forward(x: torch.Tensor, size: Tuple[int, int, int], align_corners: bool) -
     else:
         raise ValueError("interpolate_trilinear: x must be contiguous, NCDHW or channels_last_3d")
     out = torch.empty((b, c, *size), device=x.device, dtype=x.dtype, memory_format=fmt)
-    with torch.cuda.device(x.device):
-        err = _kernel(x.dtype)(x.data_ptr(), out.data_ptr(), n, ch, *x.shape[2:], *size, int(align_corners),
-                               torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"interpolate_trilinear: kernel launch failed with CUDA error {err}")
-    interpolate_trilinear.launches += 1
+    _build.launch(interpolate_trilinear, KERNELS[x.dtype], x.device, x.data_ptr(), out.data_ptr(), n, ch,
+                  *x.shape[2:], *size, int(align_corners))
     return out
 
 
-class TrilinearFunction(torch.autograd.Function):
-    """The kernel forward (F.interpolate on the CPU); the backward
-    recomputes `interpolate_trilinear_plain`."""
-
-    @staticmethod
-    def forward(ctx, x, size, align_corners):
-        ctx.save_for_backward(x)
-        ctx.size, ctx.align_corners = size, align_corners
-        return _forward(x, size, align_corners)
-
-    @staticmethod
-    def backward(ctx, grad):
-        (x,) = ctx.saved_tensors
-        (gx,) = recompute_grads(lambda t: interpolate_trilinear_plain(t, ctx.size, ctx.align_corners), (x,),
-                                ctx.needs_input_grad[:1], (grad,))
-        return gx, None, None
+TrilinearFunction = recomputing_function(
+    "TrilinearFunction", _forward, lambda size, align_corners, x: interpolate_trilinear_plain(x, size, align_corners),
+    consts=2)
 
 
 def interpolate_trilinear(x: torch.Tensor, size: Sequence[int], align_corners: bool = False) -> torch.Tensor:
@@ -120,7 +90,7 @@ def interpolate_trilinear(x: torch.Tensor, size: Sequence[int], align_corners: b
     size = tuple(int(s) for s in size)
     if tuple(x.shape[-3:]) == size and x.dim() == 5:
         return x
-    return TrilinearFunction.apply(x, size, bool(align_corners))
+    return TrilinearFunction.apply(size, bool(align_corners), x)
 
 
 interpolate_trilinear.launches = 0  # kernel launches since the last reset

@@ -24,7 +24,6 @@ their times mean something. Every line names the card and its power limit.
 
 from __future__ import annotations
 
-import ctypes
 import math
 import os
 import subprocess
@@ -53,16 +52,14 @@ SHAPES = ((2, 16, 2048, 88), (5, 16, 2048, 88))
 def build(name: str, defines, work: str):
     """flash_attention.cu with `defines` as a loaded entry point."""
     from l4p_tpu_torch import _build
+    from l4p_tpu_torch.ops import flash_attention as FA
 
     out = os.path.join(work, f"{name}.so")
     cmd = _build.nvcc_command(_build.find_nvcc(), [os.path.join(_build.CSRC_DIR, "flash_attention.cu")], out, defines)
     proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"attention_bounds: {name} does not build:\n{proc.stderr[-3000:]}")
-    fn = ctypes.CDLL(out).l4p_flash_attention_fwd_bf16
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return FA.KERNEL.bind(out)
 
 
 def main() -> int:

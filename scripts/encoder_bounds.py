@@ -37,7 +37,6 @@ Every line names the card and its power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import dataclasses
 import math
 import os
@@ -70,15 +69,15 @@ def build(name: str, source: str, defines, parent_interface: bool, work: str):
     """`source` with `defines` as a loaded GEMM entry point taking the
     current interface's arguments (the parent's drop the tile width)."""
     from l4p_tpu_torch import _build
+    from l4p_tpu_torch.ops import fused_encoder as FE
 
     out = os.path.join(work, f"{name}.so")
     proc = subprocess.run(_build.nvcc_command(_build.find_nvcc(), [source], out, defines), capture_output=True,
                           text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"encoder_bounds: {name} does not build:\n{proc.stderr[-3000:]}")
-    fn = ctypes.CDLL(out).l4p_gemm_nt_bf16
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * (7 if parent_interface else 8) + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    entry = _build.kernel(FE.NAME, FE.SOURCES, FE.GEMM.symbol, "p" * 5 + "i" * 7 + "p") if parent_interface else FE.GEMM
+    fn = entry.bind(out)
     ptxas = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
              if "gemm_nt" in line or "registers" in line or "spill" in line or "C75" in line]
     if parent_interface:
@@ -125,10 +124,9 @@ def block_split(FE, m_windows: int, log) -> None:
     reps = [[(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in steps]
             for _ in range(3 + ITERS)]
     for events in reps:  # queued back to back, synchronised once: no launch waits on the host
-        for (what, step), (start, end) in zip(steps, events):
+        for (_, step), (start, end) in zip(steps, events):
             start.record()
-            if step() != 0:
-                raise RuntimeError(f"encoder_bounds: {what} launch failed")
+            step()  # raises where the launch fails
             end.record()
     torch.cuda.synchronize()
     total = [sum(events[i][0].elapsed_time(events[i][1]) for events in reps[3:]) / ITERS for i in range(len(steps))]

@@ -38,7 +38,6 @@ also issues the tile's TMA loads and stores, so its parts hold those).
 from __future__ import annotations
 
 import argparse
-import ctypes
 import math
 import os
 import subprocess
@@ -72,7 +71,7 @@ CLOCK_PARTS = ("between tiles (and the prologue)", "wait for the tile", "i2t log
 
 
 def build(name: str, source: str, defines, work: str):
-    """`source` with `defines` as a loaded library with typed entry points."""
+    """`source` with `defines` as {"i2t": .., "t2i": ..}, its two entry points bound."""
     from l4p_tpu_torch import _build
     from l4p_tpu_torch.ops import fused_keys as FK
 
@@ -83,7 +82,7 @@ def build(name: str, source: str, defines, work: str):
         raise RuntimeError(f"keys_bounds: {name} does not build:\n{proc.stderr[-3000:]}")
     ptxas = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
              if "registers" in line or "spill" in line or "C75" in line]
-    return FK.typed(ctypes.CDLL(out)), ptxas
+    return {"i2t": FK.I2T.bind(out), "t2i": FK.T2I.bind(out)}, ptxas
 
 
 def main() -> int:
@@ -115,7 +114,7 @@ def main() -> int:
         outs, cargs, keep = FK.i2t_launch_args(*ops, HEADS, EPS, FK.split_rows(n, p))
 
         def run():
-            err = lib.l4p_i2t_ln_t2i_bf16(*cargs, torch.cuda.current_stream().cuda_stream)
+            err = lib["i2t"](*cargs, torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise RuntimeError(f"keys_bounds: {name} i2t_ln_t2i launch failed with {err}")
         return run, outs, keep
@@ -124,7 +123,7 @@ def main() -> int:
         out, cargs, keep = FK.t2i_launch_args(*ops, FK.split_rows(n, p))
 
         def run():
-            err = lib.l4p_t2i_flash_bf16(*cargs, torch.cuda.current_stream().cuda_stream)
+            err = lib["t2i"](*cargs, torch.cuda.current_stream().cuda_stream)
             if err != 0:
                 raise RuntimeError(f"keys_bounds: {name} t2i_flash launch failed with {err}")
         return run, (out,), keep

@@ -31,7 +31,6 @@ power limit.
 from __future__ import annotations
 
 import argparse
-import ctypes
 import math
 import os
 import subprocess
@@ -60,15 +59,14 @@ CHECK_SHAPE = dict(n=3, p=1000, c=64, d1=24, d2=12, m=3)
 def build(name: str, source: str, defines, work: str):
     """`source` with `defines` as a loaded entry point."""
     from l4p_tpu_torch import _build
+    from l4p_tpu_torch.ops import fused_upscale as FU
 
     out = os.path.join(work, f"{name}.so")
     proc = subprocess.run(_build.nvcc_command(_build.find_nvcc(), [source], out, defines), capture_output=True,
                           text=True, check=False)
     if proc.returncode != 0:
         raise RuntimeError(f"upscale_bounds: {name} does not build:\n{proc.stderr[-3000:]}")
-    fn = ctypes.CDLL(out).l4p_fused_upscale_bf16
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 9 + [ctypes.c_float, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = FU.KERNEL.bind(out)
     ptxas = [line.strip() for line in (proc.stdout + proc.stderr).splitlines()
              if "registers" in line or "spill" in line or "C75" in line]
     return fn, ptxas

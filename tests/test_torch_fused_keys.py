@@ -79,17 +79,6 @@ def test_ragged_p_plain_matches_float64():
     check(FK.t2i_flash(*(torch.from_numpy(a) for a in (keys, st, spe))), ref, 3e-7)  # measured 1.4e-7
 
 
-def test_cpu_tensors_take_the_plain_version_without_counting():
-    keys, st, spe = (torch.from_numpy(a) for a in operands(0)[:3])
-    before = FK.t2i_flash.launches, FK.i2t_ln_t2i.launches
-    assert torch.equal(FK.t2i_flash(keys, st, spe), FK.t2i_flash_plain(keys, st, spe))
-    args = [torch.from_numpy(a) for a in operands(0)]
-    got = FK.i2t_ln_t2i(args[0], *args[3:], HEADS)
-    want = FK.i2t_ln_t2i_plain(args[0], *args[3:], HEADS)
-    assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert (FK.t2i_flash.launches, FK.i2t_ln_t2i.launches) == before
-
-
 def test_wrappers_check_shapes():
     keys, st, spe = (torch.from_numpy(a) for a in operands(0)[:3])
     with pytest.raises(ValueError, match="incompatible"):

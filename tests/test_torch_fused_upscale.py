@@ -72,13 +72,6 @@ def test_packed_layout_computes_the_plain_function(shape):
     check(packed_emulation(*args), FU.fused_upscale_hypernet_plain(*args), 6e-7)  # measured <= 2.7e-7
 
 
-def test_cpu_tensors_take_the_plain_version_without_counting():
-    args = [torch.from_numpy(a) for a in inputs(2)]
-    before = FU.fused_upscale_hypernet.launches
-    assert torch.equal(FU.fused_upscale_hypernet(*args), FU.fused_upscale_hypernet_plain(*args))
-    assert FU.fused_upscale_hypernet.launches == before
-
-
 def test_wrapper_checks_shapes():
     args = [torch.from_numpy(a) for a in inputs(3)]
     with pytest.raises(ValueError, match="incompatible"):

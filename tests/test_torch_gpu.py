@@ -63,8 +63,7 @@ def test_encoder_attention_head_major_matches_plain_on_card(cuda):
     qkv[..., :d] = torch.randn((3, b, h, n, d), generator=g, device=cuda).bfloat16()
     qkv = qkv[..., :d]
     out = torch.empty((b, n, h * d), device=cuda, dtype=torch.bfloat16)
-    err = FE._kernels()[2](qkv.data_ptr(), out.data_ptr(), b, h, n, d, d ** -0.5,
-                           torch.cuda.current_stream().cuda_stream)
+    err = FE.ATTENTION(qkv.data_ptr(), out.data_ptr(), b, h, n, d, d ** -0.5, torch.cuda.current_stream().cuda_stream)
     torch.cuda.synchronize()
     assert err == 0
     plain = flash_attention_plain(qkv[0], qkv[1], qkv[2], d ** -0.5).transpose(1, 2).reshape(b, n, h * d)
@@ -634,7 +633,7 @@ def test_gemm_nt_raises_instead_of_falling_back(cuda):
         FE.gemm_nt(a, w, odd_bias, FE.GELU, out)
     torch.cuda.synchronize()  # the refusals left no launch behind to fault
     # the entry point itself: a K off 8 and a tile width it was not built for
-    gemm = FE._kernels()[1]
+    gemm = FE.GEMM
     stream = torch.cuda.current_stream().cuda_stream
     null = None
     assert gemm(a.data_ptr(), w.data_ptr(), bias.data_ptr(), out.data_ptr(), null, 64, 176, 60, FE.GELU, 1, 1, 2,

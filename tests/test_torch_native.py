@@ -9,6 +9,7 @@ import torch
 import torch.nn.functional as F
 
 from l4p_tpu.native import lib as jax_native
+from l4p_tpu_torch import _build
 from l4p_tpu_torch.data.dataset import IMAGENET_MEAN, IMAGENET_STD
 from l4p_tpu_torch.native import lib as NL
 
@@ -85,11 +86,17 @@ def test_entry_points_refuse_bad_inputs():
         NL.mirror_pad_time(np.zeros((4, 4, 4), np.float32))
 
 
-def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch):
+@pytest.mark.parametrize("through", ["build", "first call"])
+def test_failed_build_raises_with_the_compiler_output(tmp_path, monkeypatch, through):
+    """A broken source raises g++'s output from the build (l4p_tpu_torch/_build.py
+    compiles it), and again from an entry point's first call, which builds
+    the library it binds."""
     src = tmp_path / "broken.cpp"
     src.write_text('extern "C" void f() { this is not C++; }\n')
     monkeypatch.setattr(NL, "SOURCE", str(src))
-    monkeypatch.setattr(NL, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "BUILD_DIR", str(tmp_path / "build"))
+    monkeypatch.setattr(_build, "_loaded", {})  # nothing of this process's build is loaded
+    monkeypatch.setattr(NL.MIRROR_PAD, "_fn", None)
     with pytest.raises(RuntimeError, match=r"(?s)g\+\+ failed building .*broken.cpp:\n.*error: "):
-        NL.build()
+        NL.build() if through == "build" else NL.mirror_pad_time(np.zeros((1, 2, 2, 2), np.float32))
     assert not list((tmp_path / "build").iterdir())  # no half-written library left behind

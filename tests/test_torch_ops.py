@@ -288,18 +288,6 @@ def test_interpolate_trilinear_matches_jax(align_corners, shape, size, tol):
     check(port, interpolate_trilinear(J(x), size, align_corners=align_corners), tol)
 
 
-@pytest.mark.parametrize("shape,size", DPT_RESIZES[:3])
-@pytest.mark.parametrize("align_corners", [True, False])
-def test_interpolate_trilinear_on_cpu_is_the_plain_version(align_corners, shape, size):
-    """CPU tensors take F.interpolate and launch nothing."""
-    x = T(rand(shape, 1))
-    before = PRES.interpolate_trilinear.launches
-    out = PRES.interpolate_trilinear(x, size, align_corners)
-    assert PRES.interpolate_trilinear.launches == before
-    assert torch.equal(out, torch.nn.functional.interpolate(x, size=size, mode="trilinear",
-                                                            align_corners=align_corners))
-
-
 @pytest.mark.parametrize("shape,size", [((2, 3, 4, 5, 6), (7, 9, 11)), ((1, 2, 6, 8, 8), (3, 5, 8))])
 @pytest.mark.parametrize("align_corners", [True, False])
 def test_interpolate_trilinear_gradient_matches_plain(align_corners, shape, size):
