@@ -4,7 +4,8 @@
 
 Phases; a failed check fails the run (non-zero exit, no result lines):
   1. build the kernels (csrc/flash_attention.cu, fused_keys.cu,
-     fused_upscale.cu, fused_encoder.cu, resize.cu) with nvcc for sm_90a, one
+     fused_upscale.cu, fused_encoder.cu, resize.cu, qk_norm_rope.cu) with
+     nvcc for sm_90a, one
      nvcc per library, all started together, and print the build seconds and
      ptxas lines;
   2. hold each kernel against its plain PyTorch version and time both,
@@ -37,15 +38,21 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      session phases 4, 7 and 10 check its launches: 5 a head call of flow,
      depth and dyn_mask (four fusion upsamples and the final resize), 2 of
      camray's, whose last two fusions and final resize keep the size;
-     VGGT's cell (64 frames of 294 x 518): the attention at its frame (64,
+     VGGT's cell (64 frames of 294 x 518): the attention prologue
+     (qk_norm_rope: q/k LayerNorm, 2D RoPE, the q/k/v layout) at its frame
+     (64, 782) and global (1, 50048) calls, with and without each of the
+     norm and the rotation, against its plain version (v bit for bit, q and
+     k within QK_NORM_ROPE_TOL) and timed in turns with it beside its bytes
+     bound; the attention at its frame (64,
      16, 782, 64) and global (1, 16, 50048, 64) shapes against the plain
      version computed 1024 queries at a time (max |error| over max |plain|,
      VGGT_ATTENTION_TOL) and beside scaled_dot_product_attention; the
      resize kernel at its DPT heads' five bilinear resizes (an 8-frame
      chunk, bf16, channels_last, align_corners) equal to F.interpolate bit
      for bit; one launch a call; then one request of VGGT-1B at the cell's
-     shapes through InferenceSession, its launches counted (a launch a
-     transformer block; 5 resizes a DPT head call of 8 frames) and its
+     shapes through InferenceSession, its launches counted (an attention
+     launch a transformer block; 5 resizes a DPT head call of 8 frames; a
+     prologue launch an aggregator block, 48) and its
      outputs finite;
   3. build the released giant model (ViT-giant encoder, flow/depth/dyn_mask
      and camray DPT heads, the track head, configs/model.yaml values) with
@@ -712,6 +719,8 @@ VGGT_RESIZES = (((8, 256, 11, 19), (21, 37)), ((8, 256, 21, 37), (42, 74)), ((8,
 # the attention kernel against its plain version at VGGT's shapes, max
 # |error| over max |plain|
 VGGT_ATTENTION_TOL = 0.02
+# the attention prologue (ops/qk_norm_rope.py) at a frame and a global block's call: max |kernel - plain| of q and k
+QK_NORM_ROPE_TOL = 0.0625
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -770,18 +779,66 @@ def resize_launches(cfg, tasks, frames: int) -> int:
     return calls * sum(RESIZES_PER_HEAD_CALL.get(t, 5) for t in heads)
 
 
+def compare_qk_norm_rope(QNR, gen, log, checks) -> list:
+    """The attention prologue at VGGT's frame and global calls ((64, 782)
+    and (1, 50048) tokens, 16 heads of 64) with the norm and the rotation,
+    the norm alone and the rotation alone: v bit for bit, q and k within
+    QK_NORM_ROPE_TOL of the plain version on the card, one launch a call,
+    and device ms in turns with the plain version (the chain the block ran
+    before the kernel: upcasts, F.layer_norm, the rotation, casts, v's copy)
+    beside the bound (q, k, v read and written once, the norms and table)."""
+    from l4p_tpu_torch.models.vggt import frame_positions
+
+    rope = QNR.Rope2D(frame_positions(21, 37, 5, gen.device), 64, 100.0)
+    rows = []
+    for b, n in ((64, 782), (1, 50048)):
+        qkv = (2 * torch.randn((b, n, 3 * 16 * 64), generator=gen, device=gen.device) + 0.5).bfloat16()
+        norms = tuple(((1 + 0.3 * torch.randn(64, generator=gen, device=gen.device)) if i % 2 == 0 else
+                       0.2 * torch.randn(64, generator=gen, device=gen.device)).bfloat16() for i in range(4))
+        for norm, rot in ((True, True), (True, False), (False, True)):
+            ns, table = (norms if norm else None), (rope if rot else None)
+            before = QNR.qk_norm_rope.launches
+            got = QNR.qk_norm_rope(qkv, 16, 1e-6, ns, table)
+            torch.cuda.synchronize()
+            launches = QNR.qk_norm_rope.launches - before
+            plain_args = (16, 1e-6, qkv, *(ns or (None,) * 4), *((rope.cos, rope.sin) if rot else (None, None)))
+            want = QNR.qk_norm_rope_plain(*plain_args)
+            err = max((g.float() - w.float()).abs().max().item() for g, w in zip(got[:2], want[:2]))
+            differ = sum((g != w).sum().item() for g, w in zip(got[:2], want[:2])) / (2 * got[0].numel())
+            exact_v = torch.equal(got[2], want[2])
+            moved = nbytes(qkv, *got, *(ns or ()), *((rope.cos, rope.sin) if rot else ()))
+            del got, want
+            kernel = functools.partial(QNR.qk_norm_rope, qkv, 16, 1e-6, ns, table)
+            plain = functools.partial(QNR.qk_norm_rope_plain, *plain_args)
+            p1, k1, k2, p2 = device_ms(plain, 10), device_ms(kernel, 10), device_ms(kernel, 10), device_ms(plain, 10)
+            r = {"shape": [b, n, 16, 64], "norm": norm, "rope": rot, "max_abs_err": err, "share_differing": differ,
+                 "ms": (k1 + k2) / 2, "plain_ms": (p1 + p2) / 2, **bound(0.0, moved)}
+            log(f"qk_norm_rope {(b, n, 16, 64)} norm={norm} rope={rot}: max|kernel-plain| {err:.4g} of q/k "
+                f"(tol {QK_NORM_ROPE_TOL}), {100 * differ:.4f}% of q/k values differ, v equal {exact_v}, "
+                f"{launches} launch; kernel {r['ms']:.4f} ms ({moved / r['ms'] / 1e6:.0f} GB/s), plain chain "
+                f"{r['plain_ms']:.4f} ms; {bound_text(r)}")
+            checks.expect(launches == 1 and exact_v and math.isfinite(err) and err <= QK_NORM_ROPE_TOL,
+                          f"qk_norm_rope {(b, n)} norm={norm} rope={rot}: {launches} launches, v equal {exact_v}, "
+                          f"q/k error {err}")
+            rows.append(r)
+        del qkv
+    return rows
+
+
 def compare_vggt_kernels(FA, RS, dev, log, checks) -> dict:
-    """The attention and resize kernels at VGGT's cell's shapes, and one
-    VGGT-1B request at them (phase 2's docstring). Inputs and weights from
-    a generator of its own, so the later phases draw what they drew before
-    it was added."""
+    """The prologue, attention and resize kernels at VGGT's cell's shapes,
+    and one VGGT-1B request at them (phase 2's docstring). Inputs and
+    weights from generators of their own, so the later phases draw what
+    they drew before it was added."""
     from l4p_tpu_torch.config import VGGT_TASKS, VGGTConfig
     from l4p_tpu_torch.inference import InferenceSession
     from l4p_tpu_torch.models.vggt import VGGT
+    from l4p_tpu_torch.ops import qk_norm_rope as QNR
     from portbench.weights import seeded_state_dict
 
     gen = torch.Generator(device=dev).manual_seed(19)
-    rec = {"attention": [], "resize": []}
+    rec = {"attention": [], "resize": [], "qk_norm_rope": compare_qk_norm_rope(QNR, torch.Generator(
+        device=dev).manual_seed(22), log, checks)}
     for shape in VGGT_ATTENTION:
         b, h, n, d = shape
         q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16() for _ in range(3))
@@ -830,16 +887,17 @@ def compare_vggt_kernels(FA, RS, dev, log, checks) -> dict:
     model = VGGT(cfg, device=dev, dtype=torch.bfloat16).eval()
     model.load_state_dict(seeded_state_dict(model, 19, dev, torch.bfloat16), strict=True)  # the benchmark's scales
     video = torch.randint(0, 256, (1, frames, *hw, 3), generator=gen, device=dev, dtype=torch.uint8)
-    before = FA.flash_attention.launches, RS.interpolate_trilinear.launches
+    before = FA.flash_attention.launches, RS.interpolate_trilinear.launches, QNR.qk_norm_rope.launches
     out = InferenceSession(cfg, VGGT_TASKS, dev)(model, {"rgb_u8_bthw3": video})
     torch.cuda.synchronize()
-    got = FA.flash_attention.launches - before[0], RS.interpolate_trilinear.launches - before[1]
+    got = (FA.flash_attention.launches - before[0], RS.interpolate_trilinear.launches - before[1],
+           QNR.qk_norm_rope.launches - before[2])
     want = (cfg.embed_depth + 2 * cfg.depth + cfg.camera_iterations * cfg.camera_trunk_depth,
-            2 * math.ceil(frames / cfg.frames_chunk_size) * 5)
+            2 * math.ceil(frames / cfg.frames_chunk_size) * 5, 2 * cfg.depth)
     bad = [key for key in ("pose_enc", "depth", "depth_conf", "world_points", "world_points_conf")
            if not bool(out[key].isfinite().all())]
-    log(f"VGGT-1B request, {frames} frames of {hw}: {got[0]} attention and {got[1]} resize launches "
-        f"(expected {want[0]} and {want[1]}); outputs not finite: {bad or 'none'}")
+    log(f"VGGT-1B request, {frames} frames of {hw}: {got[0]} attention, {got[1]} resize and {got[2]} qk_norm_rope "
+        f"launches (expected {want}); outputs not finite: {bad or 'none'}")
     checks.expect(got == want, f"VGGT request launches {got}, expected {want}")
     checks.expect(not bad, f"VGGT request: outputs not finite {bad}")
     rec["request_launches"] = list(got)
@@ -2421,6 +2479,7 @@ def main() -> int:
     from l4p_tpu_torch.ops import fused_encoder as FE
     from l4p_tpu_torch.ops import fused_keys as FK
     from l4p_tpu_torch.ops import fused_upscale as FU
+    from l4p_tpu_torch.ops import qk_norm_rope as QNR
     from l4p_tpu_torch.ops import resize as RS
 
     card = card_line()
@@ -2439,7 +2498,7 @@ def main() -> int:
 
     # 1. build, one nvcc per library, all at once
     libraries = {FA.NAME: FA.SOURCES, FK.NAME: FK.SOURCES, FU.NAME: FU.SOURCES, FE.NAME: FE.SOURCES,
-                 RS.NAME: RS.SOURCES}
+                 RS.NAME: RS.SOURCES, QNR.NAME: QNR.SOURCES}
     t0 = time.perf_counter()
     seconds = _build.build_all(libraries)
     log(f"built {len(libraries)} kernel libraries in {time.perf_counter() - t0:.2f} s wall: "

@@ -11,7 +11,8 @@ SAM-style track head whose two-way transformer and mask decoder stream the
 per-query image tokens through three more kernels (ops/fused_keys.py,
 ops/fused_upscale.py). The same session serves VGGT-1B (models/vggt.py):
 cameras, depth and world points from alternating frame and global attention
-on the attention and resize kernels. Every kernel is built, bound and
+on the attention and resize kernels, each block's q/k LayerNorm and 2D RoPE
+on one more (ops/qk_norm_rope.py). Every kernel is built, bound and
 launched through _build.py. Besides the session: the model factory
 (`prepare_model`, `load_video_encoder_ckpt`), backward and bidirectional
 tracking (`track_bidirectional`, or `estimation_directions` in the session),

@@ -42,14 +42,13 @@ import torch.nn.functional as F
 from l4p_tpu_torch.config import GIANT, BlockConfig, EncoderConfig
 from l4p_tpu_torch.geometry.core import get_rays_plucker
 from l4p_tpu_torch.ops.conv import gelu, layer_norm, linear, linear_fp32
+from l4p_tpu_torch.ops import qk_norm_rope as qnr
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 from l4p_tpu_torch.ops.resize import interp_matrix
 from l4p_tpu_torch.parallel.comm import Group, copy_to_model, reduce_from_model
 from l4p_tpu_torch.parallel.mesh import MODEL, axis_group, axis_rank, axis_size
 
 AttentionFn = Callable[[torch.Tensor, torch.Tensor, torch.Tensor, float], torch.Tensor]
-# (B, H, N, D) fp32 -> the same, rotated by each token's position (models/vggt.py's 2D RoPE)
-RopeFn = Callable[[torch.Tensor], torch.Tensor]
 # (blocks, x, cfg, hook_ends) -> (B, len(hook_ends), N, E): fused_encoder_blocks or its plain version
 EncoderBlocksFn = Callable[[Sequence[nn.Module], torch.Tensor, EncoderConfig, Sequence[int]], torch.Tensor]
 
@@ -179,10 +178,11 @@ class Block(nn.Module):
     when init_values > 0 (:239-243). VGGT's blocks (`BlockConfig`) add a k
     bias and exact GELU; with `qk_norm` q and k pass a LayerNorm over the
     head dim, and `rope` rotates them after it, both in fp32 before the
-    attention function. `drop` ((B,) keep mask of the
-    attention branch, of the MLP branch, the keep probability), given in
-    training only, applies stochastic depth to both branches after their
-    gains (l4p_tpu/models/encoder.py:268-282)."""
+    attention function, in one op (ops/qk_norm_rope.py, a kernel on CUDA)
+    that also lays q, k and v out for the attention kernel. `drop` ((B,)
+    keep mask of the attention branch, of the MLP branch, the keep
+    probability), given in training only, applies stochastic depth to both
+    branches after their gains (l4p_tpu/models/encoder.py:268-282)."""
 
     def __init__(self, cfg: BlockConfig, device=None, dtype=None):
         super().__init__()
@@ -224,7 +224,7 @@ class Block(nn.Module):
             self.gamma_2.fill_(cfg.init_values)
 
     def forward(self, x: torch.Tensor, attention: AttentionFn, drop=None, mesh=None,
-                rope: Optional[RopeFn] = None) -> torch.Tensor:
+                rope: Optional[qnr.Rope2D] = None) -> torch.Tensor:
         """`mesh` (a DeviceMesh) splits the block over its `model` axis; the
         block's parameters must then be this rank's shard (`shard_params`)."""
         b, n, e = x.shape
@@ -236,15 +236,11 @@ class Block(nn.Module):
             raise ValueError(f"block qkv weight {tuple(a.qkv.weight.shape)} is not the shard of a model axis of {nm} "
                              "ranks: split the model with parallel.shard_params for this mesh")
         h = copy_to_model(layer_norm(x, self.norm1.weight, self.norm1.bias, eps), group)
-        qkv = linear(h, a.qkv.weight, a.qkv_bias()).view(b, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
+        flat = linear(h, a.qkv.weight, a.qkv_bias())
+        qkv = flat.view(b, n, 3, nh, hd).permute(2, 0, 3, 1, 4)
         if self.cfg.qk_norm or rope is not None:
-            q, k = qkv[0].float(), qkv[1].float()
-            if self.cfg.qk_norm:
-                q = F.layer_norm(q, (hd,), a.q_norm.weight.float(), a.q_norm.bias.float(), eps)
-                k = F.layer_norm(k, (hd,), a.k_norm.weight.float(), a.k_norm.bias.float(), eps)
-            if rope is not None:
-                q, k = rope(q), rope(k)
-            o = attention(q.to(x.dtype), k.to(x.dtype), qkv[2], hd ** -0.5)
+            norms = (a.q_norm.weight, a.q_norm.bias, a.k_norm.weight, a.k_norm.bias) if self.cfg.qk_norm else None
+            o = attention(*qnr.qk_norm_rope(flat, nh, eps, norms, rope), hd ** -0.5)
         elif self.cfg.cos_attn:
             # JAX's order of dtypes (l4p_tpu/models/encoder.py:256-261): q and k over their fp32 norms
             # cast to the compute dtype, the logit scale in fp32, q times it in the compute dtype

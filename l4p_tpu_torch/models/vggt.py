@@ -28,10 +28,11 @@ drops a checkpoint's `track_head.*` and loads the rest with strict=True.
 Departures from upstream, which runs the aggregator under bf16 autocast and
 the heads in fp32: every stage computes in the model's dtype with fp32
 LayerNorm statistics (so the residual stream is bf16 where autocast keeps
-it fp32), q/k LayerNorm and RoPE in fp32 before the attention, the camera
-head's pose sum and every head activation in fp32; the RoPE and DPT
-position tables are computed in fp32 (the DPT's in float64 as upstream) and
-cast. Only the aggregator outputs the heads read are kept.
+it fp32), q/k LayerNorm and RoPE in fp32 before the attention (one kernel
+on CUDA, ops/qk_norm_rope.py), the camera head's pose sum and every head
+activation in fp32; the RoPE and DPT position tables are computed in fp32
+(the DPT's in float64 as upstream) and cast. Only the aggregator outputs the
+heads read are kept.
 """
 
 from __future__ import annotations
@@ -50,6 +51,7 @@ from l4p_tpu_torch.models.encoder import AttentionFn, Block
 from l4p_tpu_torch.models.ingest import folded_patch_weights
 from l4p_tpu_torch.ops.conv import layer_norm, linear
 from l4p_tpu_torch.ops.flash_attention import flash_attention
+from l4p_tpu_torch.ops.qk_norm_rope import Rope2D
 from l4p_tpu_torch.utils.profiling import span
 
 POSE_DIM = 9  # absT_quaR_FoV: translation 3, quaternion 4 (scalar last), fov_h, fov_w
@@ -63,24 +65,6 @@ def check_tasks(tasks: Sequence[str]) -> None:
     """ValueError for an unknown task."""
     if not tasks or any(t not in VGGT_TASKS for t in tasks):
         raise ValueError(f"tasks {list(tasks)}: VGGT serves {VGGT_TASKS}")
-
-
-class Rope2D:
-    """2D rotary positions (vggt/layers/rope.py) on (..., N, D) fp32 q or
-    k: dims [0, D/2) rotate by each token's y, [D/2, D) by its x, each half
-    as 1D RoPE with inv_freq_j = freq^(-2j / (D/2)) and rotate_half."""
-
-    def __init__(self, positions: torch.Tensor, head_dim: int, freq: float):
-        d = head_dim // 2
-        inv = freq ** (-torch.arange(0, d, 2, device=positions.device, dtype=torch.float32) / d)
-        ang = positions.float()[..., None] * inv  # (N, 2, d / 2)
-        ang = torch.cat([ang, ang], -1).flatten(-2)  # (N, D): y's angles twice, then x's twice
-        self.cos, self.sin, self.quarter = ang.cos(), ang.sin(), d // 2
-
-    def __call__(self, t: torch.Tensor) -> torch.Tensor:
-        parts = t.unflatten(-1, (2, 2, self.quarter))  # (..., axis, half, D / 4)
-        rot = torch.stack((-parts[..., 1, :], parts[..., 0, :]), -2).flatten(-3)
-        return t * self.cos + rot * self.sin
 
 
 def frame_positions(gh: int, gw: int, special: int, device) -> torch.Tensor:
@@ -166,14 +150,14 @@ class Aggregator(nn.Module):
         p = x.shape[1]
         pos = frame_positions(gh, gw, cfg.patch_start, x.device)
         hd = cfg.aggregator_block.head_dim
-        rope_frame, rope_global = Rope2D(pos, hd, cfg.rope_freq), Rope2D(pos.repeat(s, 1), hd, cfg.rope_freq)
+        rope = Rope2D(pos, hd, cfg.rope_freq)  # one frame's table: a global block's S frames take it S times
         out = {}
         for i in range(cfg.depth):
             with span("vggt/frame_block", block=i):
-                x = self.frame_blocks[i](x, attention, rope=rope_frame)
+                x = self.frame_blocks[i](x, attention, rope=rope)
             frame_out = x
             with span("vggt/global_block", block=i):
-                x = self.global_blocks[i](x.view(b, s * p, e), attention, rope=rope_global).view(b * s, p, e)
+                x = self.global_blocks[i](x.view(b, s * p, e), attention, rope=rope).view(b * s, p, e)
             if i in keep:
                 out[i] = torch.cat([frame_out, x], -1).view(b, s, p, 2 * e)
         return out

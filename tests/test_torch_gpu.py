@@ -1628,6 +1628,7 @@ def test_vggt_kernel_path_matches_plain_on_card(cuda):
     from l4p_tpu_torch.config import VGGTConfig
     from l4p_tpu_torch.inference import InferenceSession
     from l4p_tpu_torch.models.vggt import VGGT
+    from l4p_tpu_torch.ops import qk_norm_rope as qnr
     from l4p_tpu_torch.ops.resize import interpolate_trilinear
     from portbench.drivers.vggt import seeded_weights
 
@@ -1637,12 +1638,13 @@ def test_vggt_kernel_path_matches_plain_on_card(cuda):
     model.load_state_dict(seeded_weights(model, 19, cuda, torch.bfloat16))
     g = torch.Generator(device=cuda).manual_seed(21)
     data = {"rgb_u8_bthw3": torch.randint(0, 256, (1, 8, 294, 518, 3), generator=g, device=cuda, dtype=torch.uint8)}
-    before = flash_attention.launches, interpolate_trilinear.launches
+    before = flash_attention.launches, interpolate_trilinear.launches, qnr.qk_norm_rope.launches
     out = InferenceSession(cfg, tasks, cuda)(model, data)
     torch.cuda.synchronize()
     # 24 embedder blocks, 4 frame and 4 global blocks, 4 passes of the 4-block camera trunk; 5 resizes a
-    # DPT head call, one chunk of 8 frames a head
-    assert (flash_attention.launches - before[0], interpolate_trilinear.launches - before[1]) == (48, 10)
+    # DPT head call, one chunk of 8 frames a head; the q/k prologue in the 4 + 4 aggregator blocks alone
+    assert (flash_attention.launches - before[0], interpolate_trilinear.launches - before[1],
+            qnr.qk_norm_rope.launches - before[2]) == (48, 10, 8)
     plain = InferenceSession(cfg, tasks, cuda, attention=flash_attention_plain)(model, data)
     for key, band in VGGT_PATH_BANDS.items():
         a, b = out[key].double(), plain[key].double()
@@ -1657,3 +1659,96 @@ VGGT_PATH_BANDS = {"pose_enc": 2.5e-2,  # [5.6e-3]
                    "depth_conf": 1e-4,  # [2.4e-5]
                    "world_points": 2.5e-2,  # [5.3e-3]
                    "world_points_conf": 1.5e-4}  # [3.5e-5]
+
+
+# VGGT's attention prologue (ops/qk_norm_rope.py): a frame call's (B, N) and a global call's, 16 heads of 64
+QK_SHAPES = [(64, 782), (1, 50048)]
+QK_CASES = [(True, True), (True, False), (False, True)]  # (q/k norm, rope)
+
+
+def qk_operands(b, n, cuda, seed):
+    from l4p_tpu_torch.models.vggt import frame_positions
+    from l4p_tpu_torch.ops.qk_norm_rope import Rope2D
+
+    g = torch.Generator(device=cuda).manual_seed(seed)
+    qkv = (2 * torch.randn((b, n, 3 * 16 * 64), generator=g, device=cuda) + 0.5).bfloat16()
+    norms = tuple(((1 + 0.3 * torch.randn(64, generator=g, device=cuda)) if i % 2 == 0 else
+                   0.2 * torch.randn(64, generator=g, device=cuda)).bfloat16() for i in range(4))
+    return qkv, norms, Rope2D(frame_positions(21, 37, 5, cuda), 64, 100.0)  # 294 x 518: P = 5 + 21 * 37 = 782
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("norm,rope", QK_CASES)
+@pytest.mark.parametrize("b,n", QK_SHAPES)
+def test_qk_norm_rope_kernel_matches_plain_on_card(cuda, b, n, norm, rope):
+    """The kernel against its plain version run on the card, one launch a
+    call: v moved bit for bit, q and k within QK_NORM_ROPE_TOL (the fp32
+    LayerNorm sums in another order, so a few values round to the other
+    bf16 neighbour), every output in the attention kernel's layout."""
+    from l4p_tpu_torch.ops import qk_norm_rope as qnr
+    from l4p_tpu_torch.ops.flash_attention import in_kernel_layout
+
+    qkv, norms, table = qk_operands(b, n, cuda, 22)
+    norms = norms if norm else None
+    table = table if rope else None
+    before = qnr.qk_norm_rope.launches
+    got = qnr.qk_norm_rope(qkv, 16, 1e-6, norms, table)
+    torch.cuda.synchronize()
+    assert qnr.qk_norm_rope.launches == before + 1
+    want = qnr.qk_norm_rope_plain(16, 1e-6, qkv, *(norms or (None,) * 4),
+                                   *((table.cos, table.sin) if rope else (None, None)))
+    assert all(in_kernel_layout(t) and t.shape == (b, 16, n, 64) for t in got)
+    assert torch.equal(got[2], want[2])
+    for g_, w in zip(got[:2], want[:2]):
+        assert (g_.float() - w.float()).abs().max().item() <= QK_NORM_ROPE_TOL
+
+
+# max |kernel - plain| of q and k, about 2x what an H100 read (in brackets): one bf16 step of values up to ~8
+QK_NORM_ROPE_TOL = 0.0625  # [0.03125]
+
+
+@pytest.mark.gpu
+def test_qk_norm_rope_refuses_what_the_kernel_does_not_take(cuda):
+    from l4p_tpu_torch.ops import qk_norm_rope as qnr
+
+    qkv, norms, table = qk_operands(2, 782, cuda, 23)
+    with pytest.raises(TypeError, match="bf16"):
+        qnr.qk_norm_rope(qkv.float(), 16, 1e-6, norms, table)
+    with pytest.raises(ValueError, match="multiple of 4"):
+        qnr.qk_norm_rope(qkv[..., :3 * 6 * 64].contiguous(), 6, 1e-6, None, table)
+    with pytest.raises(ValueError, match="rope table"):
+        qnr.qk_norm_rope(qkv[:, :700].contiguous(), 16, 1e-6, norms, table)
+    with pytest.raises(ValueError, match="contiguous"):
+        qnr.qk_norm_rope(torch.cat([qkv, qkv], -1)[..., ::2], 16, 1e-6, norms, table)
+
+
+@pytest.mark.gpu
+def test_qk_norm_rope_off_the_vggt_blocks_and_no_attention_copy(cuda, monkeypatch):
+    """The VGGT aggregator block hands the attention kernel q, k and v that
+    its wrapper takes as they are (no `kernel_layout` copy); a VideoMAE
+    block (no q/k norm, no rope) and VGGT's embedder block never launch the
+    prologue."""
+    from l4p_tpu_torch.config import GIANT, VGGTConfig
+    from l4p_tpu_torch.models.encoder import Block
+    from l4p_tpu_torch.models.vggt import frame_positions
+    from l4p_tpu_torch.ops import flash_attention as fa
+    from l4p_tpu_torch.ops import qk_norm_rope as qnr
+    from l4p_tpu_torch.ops.qk_norm_rope import Rope2D
+
+    copies = []
+    layout = fa.kernel_layout
+    monkeypatch.setattr(fa, "kernel_layout", lambda t: copies.append(t.shape) or layout(t))
+    cfg = VGGTConfig()
+    g = torch.Generator(device=cuda).manual_seed(24)
+    cases = [(cfg.aggregator_block, Rope2D(frame_positions(21, 37, 5, cuda), 64, 100.0), 1, 0),
+             (cfg.embed_block, None, 0, None), (GIANT.block, None, 0, None)]
+    for block_cfg, rope, launches, n_copies in cases:
+        blk = Block(block_cfg, device=cuda, dtype=torch.bfloat16).eval()
+        x = torch.randn((2, 782, block_cfg.embed_dim), generator=g, device=cuda).bfloat16()
+        before, copies[:] = qnr.qk_norm_rope.launches, []
+        with torch.no_grad():
+            out = blk(x, fa.flash_attention, rope=rope)
+        torch.cuda.synchronize()
+        assert bool(out.isfinite().all()) and qnr.qk_norm_rope.launches - before == launches, block_cfg
+        if n_copies is not None:
+            assert len(copies) == n_copies, copies
