@@ -53,7 +53,16 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      shapes through InferenceSession, its launches counted (an attention
      launch a transformer block; 5 resizes a DPT head call of 8 frames; a
      prologue launch an aggregator block, 48) and its
-     outputs finite;
+     outputs finite; Video Depth Anything's cell (110 frames of 518 x 924):
+     the attention at its four motion modules' temporal calls ((9768, 8,
+     32, 32), 78,144 sequences over the grid's y and z, also equal bit for
+     bit to two launches over its halves; (2442, 8, 32, 128), (627, 8, 32,
+     128), (2442, 8, 32, 32)) and its encoder's (32, 16, 2443, 64), against
+     the plain version (max |error| within VDA_ATTENTION_TOL of max
+     |plain|, below the mean |plain|), one launch a call; then one request of VDA-L at the cell's
+     shapes through InferenceSession, the counts set to 0 just before (5
+     windows: 40 temporal and 120 encoder attention launches, 130 resizes,
+     no prologue) and its depth finite;
   3. build the released giant model (ViT-giant encoder, flow/depth/dyn_mask
      and camray DPT heads, the track head, configs/model.yaml values) with
      random bf16 weights from a seeded generator, tracking 128 queries per
@@ -721,6 +730,19 @@ VGGT_RESIZES = (((8, 256, 11, 19), (21, 37)), ((8, 256, 21, 37), (42, 74)), ((8,
 VGGT_ATTENTION_TOL = 0.02
 # the attention prologue (ops/qk_norm_rope.py) at a frame and a global block's call: max |kernel - plain| of q and k
 QK_NORM_ROPE_TOL = 0.0625
+# Video Depth Anything's cell (portbench/traffic/vda-110f-518x924.json): the
+# temporal attention of its four motion modules at 518 x 924 (37 x 66
+# patches), B*H = positions x 8 heads over 32 frames: MM3 (9768 positions
+# of refinenet3's output, 78,144 sequences: the grid's z), MM0 (2442), MM1
+# (627) and MM2 (2442); then the encoder's spatial attention, 32 frames of
+# 2443 tokens
+VDA_ATTENTION = ((9768, 8, 32, 32), (2442, 8, 32, 128), (627, 8, 32, 128), (2442, 8, 32, 32), (32, 16, 2443, 64))
+VDA_FRAMES, VDA_HW = 110, (518, 924)
+# max |kernel - plain| over max |plain| at VDA's shapes: an H100 read
+# 0.0035-0.0057 (one bf16 step of the largest outputs); at about 2x that,
+# the tolerance is a fifth of the temporal calls' mean |plain| (0.21) and a
+# quarter of the encoder's (0.027), below a typical output value
+VDA_ATTENTION_TOL = 0.0125
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -825,6 +847,44 @@ def compare_qk_norm_rope(QNR, gen, log, checks) -> list:
     return rows
 
 
+def hold_attention(FA, shape, gen, label: str, log, halves: bool = False) -> dict:
+    """The attention kernel at `shape` (bf16 N(0, 1) q, k, v from `gen`)
+    against its plain version computed 1024 queries at a time: max |error|,
+    max and mean |plain|, launches, ms beside scaled_dot_product_attention
+    and the bound. With `halves`, also whether the launch equals two
+    launches over the halves of B (each within the grid's y) bit for bit."""
+    b, h, n, d = shape
+    q, k, v = (torch.randn(shape, generator=gen, device=gen.device).bfloat16() for _ in range(3))
+    scale = d ** -0.5
+    before = FA.flash_attention.launches
+    out = FA.flash_attention(q, k, v, scale)
+    launches = FA.flash_attention.launches - before
+    err = top = total = 0.0
+    for i in range(0, n, 1024):  # a row's softmax is its own: the plain version a block of queries at a time
+        plain = FA.flash_attention_plain(q[:, :, i:i + 1024], k, v, scale).float()
+        err = max(err, (out[:, :, i:i + 1024].float() - plain).abs().max().item())
+        top = max(top, plain.abs().max().item())
+        total += plain.abs().sum().item()
+        del plain
+    mean = total / out.numel()
+    ms = time_ms(lambda: FA.flash_attention(q, k, v, scale), 10)
+    r = {"shape": list(shape), "max_abs_err": err, "max_abs_plain": top, "mean_abs_plain": mean, "ms": ms,
+         "launches": launches, "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 10),
+         **bound(4 * b * h * n * n * d, nbytes(q, k, v, out))}
+    split = ""
+    if halves:
+        m = b // 2
+        r["equals_halves"] = torch.equal(out, torch.cat([FA.flash_attention(q[:m], k[:m], v[:m], scale),
+                                                         FA.flash_attention(q[m:], k[m:], v[m:], scale)]))
+        split = f", equal to two launches over halves of B {r['equals_halves']}"
+    log(f"attention {shape} bf16 ({label}): max|kernel-plain| {err:.3g} = {err / top:.3g} of max|plain| {top:.3g} "
+        f"= {err / mean:.3g} of mean|plain| {mean:.3g}, {launches} launch{split}; kernel {ms:.4f} ms "
+        f"({4 * b * h * n * n * d / ms / 1e9:.1f} TFLOP/s), scaled_dot_product_attention {r['library_ms']:.4f} ms; "
+        f"{bound_text(r)}")
+    del q, k, v, out
+    return r
+
+
 def compare_vggt_kernels(FA, RS, dev, log, checks) -> dict:
     """The prologue, attention and resize kernels at VGGT's cell's shapes,
     and one VGGT-1B request at them (phase 2's docstring). Inputs and
@@ -840,31 +900,12 @@ def compare_vggt_kernels(FA, RS, dev, log, checks) -> dict:
     rec = {"attention": [], "resize": [], "qk_norm_rope": compare_qk_norm_rope(QNR, torch.Generator(
         device=dev).manual_seed(22), log, checks)}
     for shape in VGGT_ATTENTION:
-        b, h, n, d = shape
-        q, k, v = (torch.randn(shape, generator=gen, device=dev).bfloat16() for _ in range(3))
-        scale = d ** -0.5
-        before = FA.flash_attention.launches
-        out = FA.flash_attention(q, k, v, scale)
-        launches = FA.flash_attention.launches - before
-        err = top = 0.0
-        for i in range(0, n, 1024):  # a row's softmax is its own: the plain version a block of queries at a time
-            plain = FA.flash_attention_plain(q[:, :, i:i + 1024], k, v, scale).float()
-            err = max(err, (out[:, :, i:i + 1024].float() - plain).abs().max().item())
-            top = max(top, plain.abs().max().item())
-            del plain
-        ms = time_ms(lambda: FA.flash_attention(q, k, v, scale), 10)
-        r = {"shape": list(shape), "max_abs_err": err, "max_abs_plain": top, "ms": ms,
-             "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 10),
-             **bound(4 * b * h * n * n * d, nbytes(q, k, v, out))}
-        log(f"attention {shape} bf16 (VGGT): max|kernel-plain| {err:.3g} = {err / top:.3g} of max|plain| {top:.3g} "
-            f"(tol {VGGT_ATTENTION_TOL}), {launches} launch; kernel {ms:.4f} ms "
-            f"({4 * b * h * n * n * d / ms / 1e9:.1f} TFLOP/s), scaled_dot_product_attention {r['library_ms']:.4f} ms; "
-            f"{bound_text(r)}")
-        checks.expect(launches == 1, f"attention {shape}: {launches} launches, expected 1")
-        checks.expect(math.isfinite(err) and err <= VGGT_ATTENTION_TOL * top,
-                      f"attention kernel vs plain at {shape}: {err} against max|plain| {top}")
+        r = hold_attention(FA, shape, gen, "VGGT", log)
+        checks.expect(math.isfinite(r["max_abs_err"]) and r["max_abs_err"] <= VGGT_ATTENTION_TOL * r["max_abs_plain"],
+                      f"attention kernel vs plain at {shape}: {r['max_abs_err']} against max|plain| "
+                      f"{r['max_abs_plain']}")
+        checks.expect(r["launches"] == 1, f"attention {shape}: {r['launches']} launches, expected 1")
         rec["attention"].append(r)
-        del q, k, v, out
     for shape, size in VGGT_RESIZES:
         x = torch.randn(shape, generator=gen, device=dev).bfloat16().contiguous(memory_format=torch.channels_last)
         before = RS.interpolate_trilinear.launches
@@ -902,6 +943,65 @@ def compare_vggt_kernels(FA, RS, dev, log, checks) -> dict:
     checks.expect(not bad, f"VGGT request: outputs not finite {bad}")
     rec["request_launches"] = list(got)
     del model, out, video
+    torch.cuda.empty_cache()
+    return rec
+
+
+def compare_vda_kernels(FA, RS, dev, log, checks) -> dict:
+    """The attention kernel at Video Depth Anything's cell's shapes, and one
+    request of VDA-L at them (phase 2's docstring). Inputs and weights from
+    generators of their own, so the later phases draw what they drew before
+    it was added."""
+    from l4p_tpu_torch.config import VDA_TASKS, VDAConfig
+    from l4p_tpu_torch.inference import InferenceSession
+    from l4p_tpu_torch.models.vda import (INFER_LEN, MICRO_BATCH, VideoDepthAnything, load_upstream_state_dict,
+                                          upstream_name, window_frames)
+    from l4p_tpu_torch.ops import qk_norm_rope as QNR
+    from portbench.drivers.vda import POSITIVE
+    from portbench.drivers.vggt import seeded_weights
+
+    gen = torch.Generator(device=dev).manual_seed(23)
+    rec = {"attention": []}
+    for shape in VDA_ATTENTION:
+        r = hold_attention(FA, shape, gen, "VDA", log, halves=shape[0] * shape[1] > 65535)
+        checks.expect(math.isfinite(r["max_abs_err"]) and r["max_abs_err"] <= VDA_ATTENTION_TOL * r["max_abs_plain"],
+                      f"attention kernel vs plain at {shape}: {r['max_abs_err']} against max|plain| "
+                      f"{r['max_abs_plain']}")
+        checks.expect(r["launches"] == 1 and r.get("equals_halves", True),
+                      f"attention {shape}: {r['launches']} launches, expected 1; equal to the halves' launches "
+                      f"{r.get('equals_halves')}")
+        rec["attention"].append(r)
+    cfg = VDAConfig()
+    model = VideoDepthAnything(cfg, device=dev, dtype=torch.bfloat16).eval()
+    w = seeded_weights(model, 23, dev, torch.bfloat16, upstream_name)  # the benchmark driver's weights
+    w.update({k: w[k].abs() for k in POSITIVE})
+    w.update({k: v for k, v in model.state_dict().items() if k.endswith(".pe")})
+    load_upstream_state_dict(model, w)
+    del w
+    video = torch.randint(0, 256, (1, VDA_FRAMES, *VDA_HW, 3), generator=gen, device=dev, dtype=torch.uint8)
+    sess = InferenceSession(cfg, VDA_TASKS, dev)
+    torch.cuda.synchronize()
+    for fn in (FA.flash_attention, RS.interpolate_trilinear, QNR.qk_norm_rope):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    out = sess(model, {"rgb_u8_bthw3": video})["depth"]
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    got = (FA.flash_attention.launches, RS.interpolate_trilinear.launches, QNR.qk_norm_rope.launches)
+    # a window: the encoder's blocks and 2 temporal attentions a motion module; refinenet4 and refinenet3
+    # resize once, then each chunk of MICRO_BATCH frames refinenet2, refinenet1 and the output resize
+    nw = len(window_frames(VDA_FRAMES))
+    temporal = nw * len(model.head.motion_modules) * cfg.motion_attention_blocks
+    want = (nw * cfg.encoder.depth + temporal, nw * (2 + 3 * INFER_LEN // MICRO_BATCH), 0)
+    finite = bool(out.isfinite().all())
+    log(f"VDA-L request, {VDA_FRAMES} frames of {VDA_HW} ({nw} windows): {got[0]} attention ({temporal} temporal, "
+        f"{got[0] - temporal} encoder), {got[1]} resize and {got[2]} qk_norm_rope launches (expected {want}); depth "
+        f"{tuple(out.shape)}, finite {finite}; {seconds:.3f} s cold")
+    checks.expect(got == want, f"VDA request launches {got}, expected {want}")
+    checks.expect(finite and tuple(out.shape) == (1, VDA_FRAMES, *VDA_HW), f"VDA request: depth {tuple(out.shape)}, "
+                  f"finite {finite}")
+    rec["request_launches"] = list(got)
+    del model, out, video, sess
     torch.cuda.empty_cache()
     return rec
 
@@ -2555,6 +2655,7 @@ def main() -> int:
     record["fused_encoder_blocks"]["products"] = compare_block_products(FE, gen, log, checks)
     resizes = compare_resizes(RS, dev, log, checks)
     vggt = compare_vggt_kernels(FA, RS, dev, log, checks)
+    vda = compare_vda_kernels(FA, RS, dev, log, checks)
     torch.cuda.empty_cache()
 
     # 3. the released giant model, random bf16 weights
@@ -3109,6 +3210,7 @@ def main() -> int:
     print(json.dumps({"card": card, "interpolate_trilinear": {
         "route": "cuda", "source": "l4p_tpu_torch/csrc/resize.cu", "replaces": None, "resizes": resizes}}))
     print(json.dumps({"card": card, "vggt": vggt}))
+    print(json.dumps({"card": card, "vda": vda}))
     print(json.dumps({"card": card, "kernels": [{
         "name": name,
         "route": "cuda",

@@ -305,6 +305,35 @@ VGGT_TASKS = ("camera", "depth", "world_points")
 
 
 @dataclasses.dataclass(frozen=True)
+class DINOv2Config:
+    """A DINOv2 ViT run whole once per frame (models/dinov2.py), as VGGT's
+    patch embedder and Video Depth Anything's encoder build it. Its position
+    table covers an img_size / patch_size square grid; a frame's grid gets
+    it resized bicubically: to the grid's size where `interpolate_offset` is
+    0 (DINOv2 with registers), else by the scale factor (grid +
+    interpolate_offset) / side (Depth Anything V2's dinov2.py), with
+    `interpolate_antialias` in either case."""
+
+    img_size: int = 518
+    patch_size: int = 14
+    embed_dim: int = 1024
+    depth: int = 24
+    num_heads: int = 16
+    mlp_ratio: float = 4.0
+    num_register_tokens: int = 0
+    ln_eps: float = 1e-6
+    init_values: float = 1.0  # LayerScale's init
+    interpolate_offset: float = 0.0
+    interpolate_antialias: bool = False
+
+    @property
+    def block(self) -> BlockConfig:
+        """DINOv2's block: q, k and v biases, exact GELU, LayerScale."""
+        return BlockConfig(self.embed_dim, self.num_heads, self.mlp_ratio, self.ln_eps, self.init_values,
+                           qkv_bias=True, exact_gelu=True)
+
+
+@dataclasses.dataclass(frozen=True)
 class VGGTConfig:
     """VGGT (facebookresearch/vggt, vggt/models/vggt.py): the defaults are
     VGGT-1B's published settings, which upstream's constructors hard-code;
@@ -346,7 +375,14 @@ class VGGTConfig:
 
     @property
     def embed_block(self) -> BlockConfig:
-        return self.block(self.embed_dim, self.embed_num_heads, self.embed_ln_eps, self.embed_init_values)
+        return self.dinov2.block
+
+    @property
+    def dinov2(self) -> DINOv2Config:
+        """The patch embedder: dinov2_vitl14_reg, its positions resized to the grid's size, antialiased."""
+        return DINOv2Config(self.img_size, self.patch_size, self.embed_dim, self.embed_depth, self.embed_num_heads,
+                            self.mlp_ratio, self.num_register_tokens, self.embed_ln_eps, self.embed_init_values,
+                            interpolate_offset=0.0, interpolate_antialias=True)
 
     @property
     def aggregator_block(self) -> BlockConfig:
@@ -406,6 +442,84 @@ def vggt_config_from_tree(tree: Mapping[str, Any]) -> VGGTConfig:
         dpt_out_channels=tuple(dpt.get("out_channels", (256, 512, 1024, 1024))),
         dpt_layers=tuple(dpt.get("intermediate_layer_idx", (4, 11, 17, 23))),
         frames_chunk_size=dpt.get("frames_chunk_size", 8))
+
+
+VDA_CLASS = "video_depth_anything.video_depth.VideoDepthAnything"
+VDA_TASKS = ("depth",)
+
+
+@dataclasses.dataclass(frozen=True)
+class VDAConfig:
+    """Video Depth Anything (DepthAnything/Video-Depth-Anything,
+    video_depth_anything/video_depth.py): the defaults are the Large
+    model's published settings, which upstream's constructors hard-code.
+    The encoder is Depth Anything V2's vit_large, without registers, its
+    positions resized by scale factor with the 0.1 offset and no antialias;
+    the head is DPTHeadTemporal with four motion modules (TemporalModule:
+    one transformer block of two temporal attentions and a GEGLU
+    feed-forward). infer_video_depth's windowing and stitch constants and
+    the head's tail chunk are upstream's hard-coded values, module constants
+    of models/vda.py."""
+
+    encoder: DINOv2Config = DINOv2Config(interpolate_offset=0.1)
+    intermediate_layers: Tuple[int, ...] = (4, 11, 17, 23)
+    features: int = 256
+    out_channels: Tuple[int, ...] = (256, 512, 1024, 1024)
+    num_frames: int = 32  # the motion modules' temporal_max_len, and infer_video_depth's INFER_LEN
+    motion_heads: int = 8
+    motion_groups: int = 32  # GroupNorm's groups
+    motion_gn_eps: float = 1e-6
+    motion_ln_eps: float = 1e-5  # nn.LayerNorm's default, where upstream passes none
+    motion_attention_blocks: int = 2
+    ff_mult: int = 4  # GEGLU: Linear(C, 2 * ff_mult * C), Linear(ff_mult * C, C)
+
+
+# what the port builds of Video Depth Anything: each key of a file's group that must hold this value
+_VDA_FIXED = {
+    "init_args": {"encoder": "vitl", "use_bn": False, "use_clstoken": False, "pe": "ape"},
+    "pretrained": {"ffn_layer": "mlp", "block_chunks": 0, "qkv_bias": True, "proj_bias": True, "ffn_bias": True},
+    "motion_module": {"num_transformer_block": 1, "activation_fn": "geglu", "pos_embedding_type": "ape",
+                      "cross_attention": False},
+}
+
+
+def vda_config_from_tree(tree: Mapping[str, Any]) -> VDAConfig:
+    """A Video Depth Anything configuration file (the constructor's
+    arguments under `init_args`, the encoder's under `pretrained`, the
+    motion modules' under `motion_module`, infer_video_depth's constants
+    under `infer_video_depth`, the head's tail chunk under `head`) ->
+    VDAConfig. A setting the port does not build raises ValueError, and so
+    does any infer_video_depth constant or tail chunk but upstream's, which
+    models/vda.py hard-codes as upstream does."""
+    from l4p_tpu_torch.models import vda
+
+    upstream = {"infer_video_depth": {"INFER_LEN": vda.INFER_LEN, "OVERLAP": vda.OVERLAP,
+                                      "KEYFRAMES": list(vda.KEYFRAMES), "INTERP_LEN": vda.INTERP_LEN},
+                "head": {"micro_batch_size": vda.MICRO_BATCH}}
+    for group, fixed in {**_VDA_FIXED, **upstream}.items():
+        for k, v in fixed.items():
+            if k in tree.get(group, {}) and tree[group][k] != v:
+                raise ValueError(f"{group}.{k} = {tree[group][k]!r}: the port builds {v!r} only")
+    init, enc, mm = tree.get("init_args", {}), tree.get("pretrained", {}), tree.get("motion_module", {})
+    t = init.get("num_frames", vda.INFER_LEN)
+    if t != vda.INFER_LEN or mm.get("temporal_max_len", t) != t:
+        raise ValueError(f"init_args.num_frames and motion_module.temporal_max_len must be INFER_LEN = {vda.INFER_LEN}")
+    e = enc.get("embed_dim", 1024)
+    heads = mm.get("num_attention_heads", 8)
+    if e % heads or init.get("features", 256) % heads:
+        raise ValueError(f"the motion modules' {heads} heads must divide their widths")
+    encoder = DINOv2Config(
+        img_size=enc.get("img_size", 518), patch_size=enc.get("patch_size", 14), embed_dim=e,
+        depth=enc.get("depth", 24), num_heads=enc.get("num_heads", 16), mlp_ratio=float(enc.get("mlp_ratio", 4.0)),
+        num_register_tokens=enc.get("num_register_tokens", 0), ln_eps=float(enc.get("layer_norm_eps", 1e-6)),
+        init_values=float(enc.get("init_values", 1.0)), interpolate_offset=float(enc.get("interpolate_offset", 0.1)),
+        interpolate_antialias=bool(enc.get("interpolate_antialias", False)))
+    return VDAConfig(
+        encoder=encoder, intermediate_layers=tuple(tree.get("intermediate_layer_idx", (4, 11, 17, 23))),
+        features=init.get("features", 256), out_channels=tuple(init.get("out_channels", (256, 512, 1024, 1024))),
+        num_frames=t, motion_heads=heads, motion_groups=mm.get("norm_num_groups", 32),
+        motion_gn_eps=float(mm.get("group_norm_eps", 1e-6)), motion_ln_eps=float(mm.get("layer_norm_eps", 1e-5)),
+        motion_attention_blocks=mm.get("num_attention_blocks", 2), ff_mult=mm.get("ff_mult", 4))
 
 
 def _dense_head_from_yaml(name: str, cls: str, args: Mapping[str, Any]) -> DenseHeadConfig:
@@ -490,9 +604,10 @@ def _encoder_from_yaml(args: Mapping[str, Any]) -> EncoderConfig:
 
 
 def load_model_config(path: str) -> Tuple[Any, Tuple[str, ...]]:
-    """Parse a reference-schema model YAML into (L4PConfig, tasks), or a
-    VGGT configuration (`class_path` vggt.models.vggt.VGGT) into
-    (VGGTConfig, tasks).
+    """Parse a reference-schema model YAML into (L4PConfig, tasks), a VGGT
+    configuration (`class_path` vggt.models.vggt.VGGT) into (VGGTConfig,
+    tasks), or a Video Depth Anything one (`VDA_CLASS`) into (VDAConfig,
+    tasks).
 
     The flow, depth, dyn_mask, camray, camera_rays and track_2d heads are
     read, and `tasks` is returned as written (InferenceSession refuses the
@@ -504,6 +619,8 @@ def load_model_config(path: str) -> Tuple[Any, Tuple[str, ...]]:
         tree = yaml.safe_load(f)
     if tree.get("class_path") == VGGT_CLASS:
         return vggt_config_from_tree(tree), tuple(tree.get("tasks", VGGT_TASKS))
+    if tree.get("class_path") == VDA_CLASS:
+        return vda_config_from_tree(tree), tuple(tree.get("tasks", VDA_TASKS))
     init = tree["init_args"]
     m = init["l4p_model"]["init_args"]
     heads = []

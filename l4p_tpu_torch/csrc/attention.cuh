@@ -49,6 +49,11 @@
 //   rows to a multiple of 16 elements (pitch); with that it reaches ~45% of
 //   the bf16 peak at D = 88. What is left: the softmax and the pipeline
 //   around the products (the products alone run at ~60% of the peak).
+// - The grid is (query tiles, B*H): B*H on y up to the grid's 65,535, and
+//   past that split over z slices of equal height (Video Depth Anything's
+//   temporal attention runs 78,144 sequences of 32 frames a call); a block
+//   past the last pair returns before it touches a barrier. Such short
+//   sequences fill a quarter of a 128-row tile.
 // - D is a multiple of 8, at most 128, padded in shared memory to D_pad in
 //   {64, 96, 128} (88 -> 96); the pad columns are zeros, contribute 0 to
 //   q.k and give output columns that are not stored. Keys >= Nk are set to
@@ -102,6 +107,10 @@ constexpr int kThreads = kConsumerThreads + 128;  // and the producer warpgroup
 constexpr int kProducerRegs = 24;
 constexpr int kConsumerRegs = 240;
 constexpr int kStages = L4P_ATTN_KV_STAGES;  // K/V ring depth
+constexpr int kMaxGridY = 65535;             // the grid's y (and z) limit
+// the most (batch, head) pairs a launch takes: the grid arithmetic below
+// (bh + kMaxGridY - 1, and z * y in the kernel) stays inside an int
+constexpr int kMaxBH = 0x7fffffff - kMaxGridY + 1;
 #ifdef L4P_ABLATE_NO_TURNS
 constexpr bool kTurns = false;
 #else
@@ -232,8 +241,8 @@ __device__ __forceinline__ void turn_pass(int id) {
 template <int DP>
 __global__ void __launch_bounds__(kThreads, 1)
     attention_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int nq, int nk,
-                     int d, float scale_log2, int heads, long long o_stride_b, long long o_stride_h,
+                     const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int bh_count, int nq,
+                     int nk, int d, float scale_log2, int heads, long long o_stride_b, long long o_stride_h,
                      int o_stride_row) {
   using namespace sm90;
   constexpr int kTile = DP / kBox * kBoxBytes;  // bytes of one Q, K or V tile
@@ -248,7 +257,8 @@ __global__ void __launch_bounds__(kThreads, 1)
   uint64_t* empty = q_full + 1 + kStages;  // both consumer warpgroups are done with a stage
 
   const int m0 = blockIdx.x * kBlockM;
-  const int bh = blockIdx.y;
+  const int bh = blockIdx.z * gridDim.y + blockIdx.y;  // (batch, head) pairs past the grid's y run on along z
+  if (bh >= bh_count) return;                          // the last z slice's spare blocks, before any barrier
   const int n_tiles = (nk + kBlockN - 1) / kBlockN;
 
   if (threadIdx.x == kLoader) {
@@ -381,8 +391,10 @@ int launch_attention(const void* q, const void* k, const void* v, void* o, int b
   auto* kernel = attention_kernel<DP>;
   const cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const dim3 grid((nq + kBlockM - 1) / kBlockM, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), nq, nk, d, scale_log2,
+  // B*H on y while it fits (one z slice, as every shape up to 65,535 pairs had), else split evenly over z
+  const int z = (bh + kMaxGridY - 1) / kMaxGridY;
+  const dim3 grid((nq + kBlockM - 1) / kBlockM, (bh + z - 1) / z, z);
+  kernel<<<grid, kThreads, smem, stream>>>(tq, tk, tv, static_cast<__nv_bfloat16*>(o), bh, nq, nk, d, scale_log2,
                                            heads, o_stride_b, o_stride_h, o_stride_row);
   return static_cast<int>(cudaGetLastError());
 }

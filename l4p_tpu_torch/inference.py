@@ -27,22 +27,26 @@ point of the demo and the CLI's `predict`: one collated sequence through a
 cached session, or frame by frame through StreamingL4P, then the panel mp4
 and the 4D PLY exports.
 
-A session on a `VGGTConfig` (config.py) serves VGGT (models/vggt.py):
-tasks of `camera`, `depth` and `world_points`, `rgb_u8_bthw3` (B, S, H, W,
-3) in, upstream's outputs and layouts out (`VGGT.forward`).
+A session on the config of a single-call model (`SINGLE_CALL`) serves
+that model in one call of its forward on `rgb_u8_bthw3`: VGGT
+(`VGGTConfig`, models/vggt.py) with tasks of `camera`, `depth` and
+`world_points` on (B, S, H, W, 3), upstream's outputs and layouts out;
+Video Depth Anything (`VDAConfig`, models/vda.py) with task `depth` on a
+clip (B, L, H, W, 3) of any length, `depth` (B, L, H, W) fp32 out.
 """
 
 from __future__ import annotations
 
 import os
 import time
-from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Mapping, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 import torch.nn as nn
 
-from l4p_tpu_torch.config import L4PConfig, VGGTConfig
+from l4p_tpu_torch.config import L4PConfig, VDAConfig, VGGTConfig
+from l4p_tpu_torch.models import vda, vggt
 from l4p_tpu_torch.models.encoder import AttentionFn, EncoderBlocksFn
 from l4p_tpu_torch.models.l4p import (
     L4P,
@@ -58,7 +62,6 @@ from l4p_tpu_torch.models.l4p import (
     stitch_overwrite,
 )
 from l4p_tpu_torch.models.sam import KERNELS, TrackKernels
-from l4p_tpu_torch.models.vggt import VGGT, check_tasks, load_upstream_state_dict
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 from l4p_tpu_torch.ops.fused_encoder import fused_encoder_blocks
 from l4p_tpu_torch.parallel.mesh import shard_params
@@ -67,6 +70,22 @@ from l4p_tpu_torch.utils import profiling
 ALL_TASKS = ("flow_2d_backward", "track_2d", "depth", "dyn_mask", "camray")  # bench.py's request
 SLICE_TASKS = ("flow_2d_backward", "track_2d", "depth", "dyn_mask")  # the dense tasks and tracks
 DENSE_TASKS = ("flow_2d_backward", "depth", "dyn_mask")
+
+
+class SingleCall(NamedTuple):
+    """A model served by one call of its forward: its class (built as
+    model(cfg, device=, dtype=), called as model(rgb_u8, tasks, attention)),
+    its task check and its loader of upstream's state dict."""
+
+    model: Callable[..., nn.Module]
+    check_tasks: Callable[[Sequence[str]], None]
+    load: Callable[[nn.Module, Mapping[str, torch.Tensor]], None]
+
+
+SINGLE_CALL = {
+    VGGTConfig: SingleCall(vggt.VGGT, vggt.check_tasks, vggt.load_upstream_state_dict),
+    VDAConfig: SingleCall(vda.VideoDepthAnything, vda.check_tasks, vda.load_upstream_state_dict),
+}
 
 
 class InferenceSession:
@@ -89,11 +108,13 @@ class InferenceSession:
     RANSAC then run on the gathered outputs on every rank, with the same
     draws, so every rank returns the same outputs. The fused encoder takes
     no mesh: a request with `encoder.fused_encoder` and one raises
-    ValueError (`VideoEncoder.forward`). A `VGGTConfig` gets a VGGT session
-    (the module's docstring), which takes `attention` and no mesh."""
+    ValueError (`VideoEncoder.forward`). The config of a single-call model
+    (`SINGLE_CALL`: VGGT, Video Depth Anything) gets a session of that
+    model (the module's docstring), which takes `attention` and no mesh."""
 
-    def __init__(self, cfg: Union[L4PConfig, VGGTConfig], tasks: Sequence[str], device: Union[str, torch.device],
-                 attention: AttentionFn = flash_attention, track_kernels: TrackKernels = KERNELS,
+    def __init__(self, cfg: Union[L4PConfig, VGGTConfig, VDAConfig], tasks: Sequence[str],
+                 device: Union[str, torch.device], attention: AttentionFn = flash_attention,
+                 track_kernels: TrackKernels = KERNELS,
                  encoder_blocks: EncoderBlocksFn = fused_encoder_blocks, draws: Optional[Draws] = None, mesh=None):
         self.tasks = tuple(tasks)
         self.cfg = cfg
@@ -104,10 +125,11 @@ class InferenceSession:
         self.encoder_blocks = encoder_blocks
         self.draws = RandomDraws() if draws is None else draws
         self._loaded = None  # (state dict, model built from it)
-        if isinstance(cfg, VGGTConfig):
-            check_tasks(self.tasks)
+        self.single = SINGLE_CALL.get(type(cfg))
+        if self.single is not None:
+            self.single.check_tasks(self.tasks)
             if mesh is not None:
-                raise ValueError("a VGGT session takes no mesh")
+                raise ValueError(f"a {self.single.model.__name__} session takes no mesh")
         else:
             self._check_tasks(cfg)
 
@@ -136,9 +158,9 @@ class InferenceSession:
             return model_or_state
         if self._loaded is None or self._loaded[0] is not model_or_state:
             dtype = next(iter(model_or_state.values())).dtype
-            if isinstance(self.cfg, VGGTConfig):
-                model = VGGT(self.cfg, device=self.device, dtype=dtype)
-                load_upstream_state_dict(model, model_or_state)
+            if self.single is not None:
+                model = self.single.model(self.cfg, device=self.device, dtype=dtype)
+                self.single.load(model, model_or_state)
             else:
                 model = L4P(self.cfg, device=self.device, dtype=dtype)
                 model.load_state_dict(model_or_state, strict=True)
@@ -153,7 +175,7 @@ class InferenceSession:
     @torch.inference_mode()
     def __call__(self, model_or_state, data: Mapping) -> Dict[str, torch.Tensor]:
         with profiling.span("request", device=self.device):
-            if isinstance(self.cfg, VGGTConfig):
+            if self.single is not None:
                 rgb_u8 = torch.as_tensor(data["rgb_u8_bthw3"], device=self.device)
                 return self.model(model_or_state)(rgb_u8, self.tasks, self.attention)
             return self._serve(model_or_state, data)

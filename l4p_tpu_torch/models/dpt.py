@@ -10,13 +10,15 @@ convs twice, so its state dict carries both names), `dpt.scratch.refinenet{1-4}`
 The fusion trunk (`ResidualConvUnit`, `FeatureFusionBlock`, `Scratch`,
 `fuse`) is generic over 2D and 3D (`nd`): VGGT's DPT heads (models/vggt.py)
 run the same topology on 2D frames, with refinenet4's residual unit left
-out and the residual units adding their ReLU'd input (`relu_skip`).
+out and the residual units adding their ReLU'd input (`relu_skip`); Video
+Depth Anything's temporal head (models/vda.py) runs it on 2D frames with a
+motion module after refinenet4 and refinenet3 and its tail in frame chunks.
 """
 
 from __future__ import annotations
 
 import math
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn as nn
@@ -115,18 +117,33 @@ class Scratch(nn.Module):
 
 
 def fuse(scratch: Scratch, layers: Sequence[torch.Tensor], sizes: Sequence[Sequence[int]],
-         crop: bool = False) -> torch.Tensor:
+         crop: bool = False, between: Optional[Callable[[int, torch.Tensor], torch.Tensor]] = None,
+         chunk: Optional[int] = None, tail: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
     """The four rescaled features through layer{1-4}_rn and refinenet4 ..
     refinenet1, refinenet i resizing to sizes[i - 1]. `crop` cuts
     refinenet4's output to layer 3's T and H, not W, as L4P's reference
-    does (dpt_head.py:70-72)."""
+    does (dpt_head.py:70-72). `between(i, path)` replaces refinenet i's
+    output for i = 4 and 3 (Video Depth Anything's motion modules); from
+    refinenet2 on the trunk runs `chunk` batch entries at a time (all at
+    once without it), each chunk's refinenet1 output through `tail`, and
+    the chunks' results are concatenated."""
     rn = [conv(x, getattr(scratch, f"layer{i + 1}_rn").weight, None, padding=1) for i, x in enumerate(layers)]
     out = scratch.refinenet4(rn[3], None, sizes[3])
     if crop:
         out = out[:, :, : rn[2].shape[2], : rn[2].shape[3]]
-    for i in (2, 1, 0):
-        out = getattr(scratch, f"refinenet{i + 1}")(out, rn[i], sizes[i])
-    return out
+    if between is not None:
+        out = between(4, out)
+    out = scratch.refinenet3(out, rn[2], sizes[2])
+    if between is not None:
+        out = between(3, out)
+    n = out.shape[0]
+    step = n if chunk is None else chunk
+    parts = []
+    for lo in range(0, n, step):
+        part = scratch.refinenet2(out[lo: lo + step], rn[1][lo: lo + step], sizes[1])
+        part = scratch.refinenet1(part, rn[0][lo: lo + step], sizes[0])
+        parts.append(part if tail is None else tail(part))
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 class DPTAdapter(nn.Module):

@@ -3,7 +3,7 @@
 point maps and cameras for a set of frames, from one feed-forward pass.
 
 The aggregator embeds each frame with DINOv2 ViT-L/14 with registers
-(`DINOv2`), puts a camera token and 4 register tokens before each frame's
+(models/dinov2.py), puts a camera token and 4 register tokens before each frame's
 patches (frame 0 takes slot 0 of each, the others slot 1), and alternates
 frame attention over one frame's tokens with global attention over every
 frame's at once, each block with LayerNorm on q and k and 2D rotary
@@ -38,7 +38,6 @@ heads read are kept.
 from __future__ import annotations
 
 import functools
-import math
 from typing import Dict, Mapping, Sequence, Tuple
 
 import torch
@@ -46,9 +45,9 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from l4p_tpu_torch.config import VGGT_TASKS, VGGTConfig
+from l4p_tpu_torch.models.dinov2 import DINOv2
 from l4p_tpu_torch.models.dpt import Scratch, conv, fuse, resize
 from l4p_tpu_torch.models.encoder import AttentionFn, Block
-from l4p_tpu_torch.models.ingest import folded_patch_weights
 from l4p_tpu_torch.ops.conv import layer_norm, linear
 from l4p_tpu_torch.ops.flash_attention import flash_attention
 from l4p_tpu_torch.ops.qk_norm_rope import Rope2D
@@ -74,63 +73,11 @@ def frame_positions(gh: int, gw: int, special: int, device) -> torch.Tensor:
     return torch.cat([torch.zeros(special, 2, dtype=yx.dtype, device=device), yx])
 
 
-class PatchEmbed2d(nn.Module):
-    def __init__(self, e: int, p: int, device=None, dtype=None):
-        super().__init__()
-        self.proj = nn.Conv2d(3, e, p, stride=p, device=device, dtype=dtype)
-
-
-class DINOv2(nn.Module):
-    """DINOv2 ViT-L/14 with registers (upstream's vit_large, run whole once
-    per frame): the patch conv, the cls token and its position, the patch
-    positions resized (bicubic, antialiased) from the table's square grid to
-    the frame's, the registers after cls, the blocks, the final LayerNorm;
-    the output is the normed patch tokens. `mask_token` is upstream's and
-    unused at inference. The ImageNet normalisation of uint8 pixels is folded
-    into the patch weights (models/ingest.py)."""
-
-    def __init__(self, cfg: VGGTConfig, device=None, dtype=None):
-        super().__init__()
-        self.cfg, bc, e = cfg, cfg.embed_block, cfg.embed_dim
-        m = cfg.img_size // cfg.patch_size
-        self.patch_embed = PatchEmbed2d(e, cfg.patch_size, device, dtype)
-        self.cls_token = nn.Parameter(torch.zeros(1, 1, e, device=device, dtype=dtype))
-        self.pos_embed = nn.Parameter(torch.zeros(1, 1 + m * m, e, device=device, dtype=dtype))
-        self.register_tokens = nn.Parameter(torch.zeros(1, cfg.num_register_tokens, e, device=device, dtype=dtype))
-        self.blocks = nn.ModuleList(Block(bc, device, dtype) for _ in range(cfg.embed_depth))
-        self.norm = nn.LayerNorm(e, eps=cfg.embed_ln_eps, device=device, dtype=dtype)
-        self.mask_token = nn.Parameter(torch.zeros(1, e, device=device, dtype=dtype))
-
-    def positions(self, gh: int, gw: int) -> torch.Tensor:
-        """(1, 1 + gh * gw, E) fp32: cls's position, then the resized grid."""
-        pos = self.pos_embed.float()
-        e, m = pos.shape[-1], math.isqrt(pos.shape[1] - 1)
-        grid = pos[:, 1:].reshape(1, m, m, e).permute(0, 3, 1, 2)
-        grid = F.interpolate(grid, size=(gh, gw), mode="bicubic", antialias=True)
-        return torch.cat([pos[:, :1], grid.permute(0, 2, 3, 1).reshape(1, gh * gw, e)], 1)
-
-    def forward(self, rgb_u8: torch.Tensor, attention: AttentionFn) -> torch.Tensor:
-        """(N, H, W, 3) uint8 -> (N, H/p * W/p, E) normed patch tokens."""
-        p = self.cfg.patch_size
-        n, h, w, _ = rgb_u8.shape
-        gh, gw = h // p, w // p
-        dtype = self.cls_token.dtype
-        w_fold, b_fold = folded_patch_weights(self.patch_embed.proj)
-        x = rgb_u8.to(dtype).reshape(n, gh, p, gw, p, 3).permute(0, 1, 3, 5, 2, 4).reshape(n, gh * gw, 3 * p * p)
-        x = linear(x, w_fold.to(dtype), b_fold.to(dtype))  # the features in the conv weight's order (c, dh, dw)
-        x = torch.cat([self.cls_token.expand(n, -1, -1), x], 1) + self.positions(gh, gw).to(dtype)
-        x = torch.cat([x[:, :1], self.register_tokens.expand(n, -1, -1), x[:, 1:]], 1)
-        for blk in self.blocks:
-            x = blk(x, attention)
-        return layer_norm(x[:, 1 + self.cfg.num_register_tokens:], self.norm.weight, self.norm.bias,
-                          self.cfg.embed_ln_eps)
-
-
 class Aggregator(nn.Module):
     def __init__(self, cfg: VGGTConfig, device=None, dtype=None):
         super().__init__()
         self.cfg, bc, e = cfg, cfg.aggregator_block, cfg.embed_dim
-        self.patch_embed = DINOv2(cfg, device, dtype)
+        self.patch_embed = DINOv2(cfg.dinov2, device, dtype)
         self.frame_blocks = nn.ModuleList(Block(bc, device, dtype) for _ in range(cfg.depth))
         self.global_blocks = nn.ModuleList(Block(bc, device, dtype) for _ in range(cfg.depth))
         self.camera_token = nn.Parameter(torch.zeros(1, 2, 1, e, device=device, dtype=dtype))

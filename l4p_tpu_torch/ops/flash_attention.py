@@ -27,6 +27,7 @@ NAME = "flash_attention"
 SOURCES = ("flash_attention.cu",)
 KERNEL = _build.kernel(NAME, SOURCES, "l4p_flash_attention_fwd_bf16", "ppppiiiiifp")
 MAX_HEAD_DIM = 128
+MAX_BH = 2 ** 31 - 65535  # csrc/attention.cuh:kMaxBH: the launcher's grid arithmetic stays inside an int
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, scale: float) -> torch.Tensor:
@@ -61,11 +62,12 @@ def in_kernel_layout(t: torch.Tensor) -> bool:
 
 def kernel_unsupported(bh: int, nq: int, nk: int, d: int) -> Optional[str]:
     """What the kernel cannot take, or None: its TMA boxes need D a multiple
-    of 8 (16-byte rows) and at most MAX_HEAD_DIM, and B*H is the grid's y."""
+    of 8 (16-byte rows) and at most MAX_HEAD_DIM, and B*H, which the grid
+    spreads over its y and z, at most MAX_BH."""
     if d % 8 or d > MAX_HEAD_DIM:
         return f"head_dim {d} must be a multiple of 8 and at most {MAX_HEAD_DIM}"
-    if min(bh, nq, nk) == 0 or bh > 65535:
-        return f"B*H {bh} must be 1..65535 and Nq {nq}, Nk {nk} positive"
+    if min(bh, nq, nk) <= 0 or bh > MAX_BH:
+        return f"B*H {bh} must be 1..{MAX_BH} and Nq {nq}, Nk {nk} positive"
     return None
 
 

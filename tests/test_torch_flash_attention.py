@@ -35,10 +35,17 @@ def test_wrapper_rejects_mismatched_shapes(k_shape):
 
 @pytest.mark.parametrize("bh,nq,nk,d,why", [(32, 2048, 2048, 88, None), (1, 1, 1, 128, None),
                                              (32, 2048, 2048, 12, "multiple of 8"), (4, 64, 64, 136, "at most 128"),
-                                             (70000, 64, 64, 64, "B*H"), (4, 0, 64, 64, "positive")])
+                                             (70000, 64, 64, 64, None), (78144, 32, 32, 32, None),
+                                             (2 ** 31 - 65535, 32, 32, 32, None),
+                                             (2 ** 31 - 65534, 32, 32, 32, "B*H"), (2 ** 31, 32, 32, 32, "B*H"),
+                                             (0, 64, 64, 64, "B*H"),
+                                             (4, 0, 64, 64, "positive")])
 def test_kernel_checks_what_tma_cannot_take(bh, nq, nk, d, why):
     """The checks the wrapper makes on CUDA tensors before the launch: TMA rows
-    of whole 16-byte units, D at most 128, B*H within the grid."""
+    of whole 16-byte units, D at most 128, B*H from 1 to MAX_BH (the grid
+    spreads it over y and z, so Video Depth Anything's 78,144 temporal
+    sequences a call fit; past MAX_BH the launcher's grid arithmetic would
+    leave an int)."""
     reason = kernel_unsupported(bh, nq, nk, d)
     assert (reason is None) if why is None else (why in reason)
 
