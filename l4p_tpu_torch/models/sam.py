@@ -31,7 +31,7 @@ import torch.nn as nn
 
 from l4p_tpu_torch.config import SamConfig
 from l4p_tpu_torch.ops.attention import mha
-from l4p_tpu_torch.ops.conv import layer_norm, linear
+from l4p_tpu_torch.ops.conv import einsum_fp32, layer_norm, linear
 from l4p_tpu_torch.ops.fused_keys import i2t_ln_t2i, i2t_ln_t2i_plain, t2i_flash, t2i_flash_plain
 from l4p_tpu_torch.ops.fused_upscale import fused_upscale_hypernet, fused_upscale_hypernet_plain
 from l4p_tpu_torch.ops.recompute import module_call, recomputing_function
@@ -51,12 +51,6 @@ class TrackKernels:
 
 KERNELS = TrackKernels()
 PLAIN = TrackKernels(t2i_flash_plain, i2t_ln_t2i_plain, fused_upscale_hypernet_plain)
-
-
-def _mm(spec: str, x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """einsum with `w` rounded to x's dtype and fp32 accumulation and output
-    (the JAX package's preferred_element_type=float32 products)."""
-    return torch.einsum(spec, x.float(), w.to(x.dtype).float())
 
 
 # ---------------------------------------------------------------------------
@@ -286,10 +280,10 @@ def t2i_prep(p: Attention, queries, query_pe, pe_pc, num_heads: int):
     hd = d // num_heads
     c = pe_pc.shape[-1]
     qh = q.view(n, nq, num_heads, hd).transpose(1, 2) * hd ** -0.5
-    s = _mm("nhqd,hdc->nhqc", qh, p.k_proj.weight.view(num_heads, hd, c)).to(qh.dtype)
+    s = einsum_fp32("nhqd,hdc->nhqc", qh, p.k_proj.weight.view(num_heads, hd, c)).to(qh.dtype)
     s_flat = s.reshape(n, num_heads * nq, c)
-    # the kernel reads the (N, P, K) logit terms row by row: einsum may return a permuted view
-    return s_flat.transpose(1, 2), _mm("nkc,pc->npk", s_flat, pe_pc).contiguous()
+    # the kernel reads the (N, P, K) logit terms row by row: the fp32 einsum returns a permuted view
+    return s_flat.transpose(1, 2), einsum_fp32("nkc,pc->npk", s_flat, pe_pc).contiguous()
 
 
 def t2i_finish(p: Attention, wsum_f32: torch.Tensor, num_heads: int, out_dtype) -> torch.Tensor:
@@ -300,7 +294,7 @@ def t2i_finish(p: Attention, wsum_f32: torch.Tensor, num_heads: int, out_dtype) 
     d = p.v_proj.weight.shape[0]
     hd = d // num_heads
     wsum = wsum_f32.to(out_dtype).view(n, num_heads, nq, c)
-    outh = _mm("nhqc,hdc->nhqd", wsum, p.v_proj.weight.view(num_heads, hd, c))
+    outh = einsum_fp32("nhqc,hdc->nhqd", wsum, p.v_proj.weight.view(num_heads, hd, c))
     outh = outh + p.v_proj.bias.view(num_heads, 1, hd).float()
     out = outh.to(out_dtype).transpose(1, 2).reshape(n, nq, d)
     return linear(out, p.out_proj.weight, p.out_proj.bias)
@@ -318,13 +312,14 @@ def i2t_prep(p: Attention, queries, query_pe, pe_pc, num_heads: int):
     kh = k_tok.view(n, nq, num_heads, hd).transpose(1, 2) * hd ** -0.5
     vh = v_tok.view(n, nq, num_heads, hd).transpose(1, 2)
     dt = kh.dtype
-    r4 = torch.einsum("hdc,nhqd->nhcq", p.q_proj.weight.view(num_heads, hd, c).to(dt).float(), kh.float()).to(dt)
+    r4 = einsum_fp32("hdc,nhqd->nhcq", p.q_proj.weight.view(num_heads, hd, c).to(dt), kh).to(dt)
     r = r4.permute(0, 2, 1, 3).reshape(n, c, num_heads * nq)
     bterm = torch.einsum("hd,nhqd->nhq", p.q_proj.bias.view(num_heads, hd).float(), kh.float())
-    per = torch.einsum("pc,nck->npk", pe_pc.to(dt).float(), r.float()) + bterm.reshape(n, 1, num_heads * nq)
+    per = einsum_fp32("pc,nck->npk", pe_pc.to(dt), r)
+    per += bterm.reshape(n, 1, num_heads * nq)
     per = per.contiguous()  # read row by row, as t2i_prep's spe
     wo_h = p.out_proj.weight.view(c, num_heads, hd).permute(1, 2, 0)  # (h, hd, C)
-    v2 = _mm("nhqd,hdc->nhqc", vh, wo_h).to(dt).reshape(n, num_heads * nq, c)
+    v2 = einsum_fp32("nhqd,hdc->nhqc", vh, wo_h).to(dt).reshape(n, num_heads * nq, c)
     return r, per, v2, p.out_proj.bias
 
 

@@ -223,6 +223,145 @@ def test_keys_kernels_no_farther_from_fp32_than_plain(cuda, n, p, c):
         assert off_k <= KEYS_WITNESS_SLACK * off_p
 
 
+def track_head_products(n, cuda, heads=8, q=6, d=88, c=1408, p=2048):
+    """The track head's products through ops/conv.py:einsum_fp32 at the giant
+    width (models/sam.py): {name: (spec, x, w)}, bf16, in the layouts the call
+    sites hand over (pos_src is a transposed view)."""
+    g = torch.Generator(device=cuda).manual_seed(n)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=cuda) * scale).bfloat16()
+
+    qh, wk = r(n, q, heads, d).transpose(1, 2), r(heads, d, c, scale=c ** -0.5)
+    pe = r(c, p).t()
+    return {"spe": ("nkc,pc->npk", r(n, heads * q, c), pe), "per": ("pc,nck->npk", pe, r(n, c, heads * q)),
+            "s": ("nhqd,hdc->nhqc", qh, wk), "outh": ("nhqc,hdc->nhqd", r(n, heads, q, c), wk),
+            "r4": ("hdc,nhqd->nhcq", wk, qh),
+            "v2": ("nhqd,hdc->nhqc", qh, r(c, heads * d, scale=d ** -0.5).view(c, heads, d).permute(1, 2, 0))}
+
+
+# max |route - fp64 einsum| / max |fp64 einsum| of the same bf16 operands:
+# fp32 sums in another order read about 1e-6, a reduction in bf16 about 4e-3
+TRACK_PRODUCT_BAND = 1e-4
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["spe", "per", "s", "outh", "r4", "v2"])
+@pytest.mark.parametrize("n", [128, 192])
+def test_track_head_products_on_tensor_cores(cuda, n, name):
+    """Each product of the track head on the tensor cores: within
+    TRACK_PRODUCT_BAND of the fp64 einsum, fp32, one count a product; the PE
+    products (spe, per) a contiguous (N, P, K) result, and the shared (P, C)
+    encoding never expanded (peak memory rises by the result, not by N
+    copies of the encoding)."""
+    from l4p_tpu_torch.ops.conv import einsum_fp32
+
+    spec, x, w = track_head_products(n, cuda)[name]
+    einsum_fp32(spec, x, w)  # cuBLAS's handle and workspace
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base, before = torch.cuda.memory_allocated(), einsum_fp32.launches
+    out = einsum_fp32(spec, x, w)
+    torch.cuda.synchronize()
+    rise = torch.cuda.max_memory_allocated() - base
+    assert einsum_fp32.launches == before + 1 and out.dtype == torch.float32
+    ref = torch.einsum(spec, x.double(), w.double())
+    err = (out.double() - ref).abs().max().item() / ref.abs().max().item()
+    print(f"{name} {spec} N={n}: max|route - fp64| / max|fp64| = {err:.3g}, peak rise {rise / 2**20:.1f} MiB")
+    assert out.shape == ref.shape and err <= TRACK_PRODUCT_BAND
+    if name in ("spe", "per"):
+        pe = w if name == "spe" else x
+        assert out.is_contiguous()
+        # the expanded encoding alone would be n * 5.8 MB
+        assert rise <= out.numel() * 4 + 2 * pe.numel() * pe.element_size()
+
+
+def bf16_misses(got: torch.Tensor, ref: torch.Tensor) -> float:
+    """The share of the bf16 entries of `got` that are not the float64
+    `ref` rounded to bf16."""
+    return (got != ref.to(got.dtype)).float().mean().item()
+
+
+def bf16_split_reduction(spec: str, x: torch.Tensor, y: torch.Tensor, splits: int = 8) -> torch.Tensor:
+    """einsum(spec, x, y) as a reduction in bf16 computes it: the leading
+    summed letter cut into `splits` parts, each part's sum exact and then
+    rounded to bf16, the parts summed and the sum rounded again."""
+    (xs, ys), out = spec.split("->")[0].split(","), spec.split("->")[1]
+    c = next(c for c in xs if c in ys and c not in out)
+    parts = zip(x.double().chunk(splits, xs.index(c)), y.double().chunk(splits, ys.index(c)))
+    return sum(torch.einsum(spec, a, b).bfloat16().double() for a, b in parts).bfloat16()
+
+
+# einsum_fp32's gradients (bf16, from fp32 sums) against the float64 ones of
+# the same bf16 operands and bf16-rounded cotangent: the share of entries that
+# are not the float64 value rounded to bf16. Sums in fp32 miss only where
+# the value lies within their error of a rounding boundary (an H100 read
+# 3.4e-5 to 5.2e-3, the most on the encoding's 9,216-term sums at N = 192);
+# the same sums reduced in eight bf16 parts miss on 0.41 of entries
+GRAD_MISS_BAND = 0.02
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", ["spe", "per", "s", "r4"])
+@pytest.mark.parametrize("n", [16, 192])
+def test_track_head_product_gradients_on_tensor_cores(cuda, n, name):
+    """einsum_fp32's backward (the cotangent rounded to bf16, fp32 sums of
+    its bf16 products, then rounded to bf16) against the fp64 einsum's
+    gradients of the same bf16 operands and rounded cotangent: each
+    gradient within GRAD_MISS_BAND of its rounded fp64 value entry for
+    entry, and the shared (P, C) encoding's gradient, which sums
+    N * K products, outside the band when the same sums are reduced in
+    bf16."""
+    from l4p_tpu_torch.ops.conv import einsum_fp32
+
+    spec, x, w = track_head_products(n, cuda)[name]
+    x, w = (t.detach().requires_grad_() for t in (x, w))
+    cot = torch.randn(torch.einsum(spec, x.float(), w.float()).shape, device=cuda).bfloat16()
+    einsum_fp32(spec, x, w).backward(cot.float())
+    x64, w64 = (t.detach().double().requires_grad_() for t in (x, w))
+    torch.einsum(spec, x64, w64).backward(cot.double())
+    ins, out = spec.split("->")
+    for got, want, letters, other in ((x.grad, x64.grad, ins.split(",")[0], w), (w.grad, w64.grad, ins.split(",")[1], x)):
+        assert got.dtype == torch.bfloat16 and got.shape == want.shape
+        miss = bf16_misses(got, want)
+        err = (got.double() - want).abs().max().item() / want.abs().max().item()
+        line = f"{name} N={n} gradient {letters}: {miss:.3g} of entries not the fp64 value rounded, max err {err:.3g}"
+        if name in ("spe", "per") and len(letters) == 2:
+            # the encoding's gradient: cotangent (npk) against the other operand, summed over n and k
+            other_letters = next(s for s in ins.split(",") if s != letters)
+            split = bf16_split_reduction(f"{out},{other_letters}->{letters}", cot, other.detach())
+            split_miss = bf16_misses(split, want)
+            line += f"; reduced in bf16: {split_miss:.3g}"
+            assert split_miss > GRAD_MISS_BAND
+        print(line)
+        assert miss <= GRAD_MISS_BAND and err <= 2 ** -7  # a rounding to bf16 moves an entry by at most 2^-8 of it
+
+
+@pytest.mark.gpu
+def test_linear_fp32_on_the_card(cuda):
+    """linear_fp32 (models/encoder.py's row-parallel product) at the giant
+    encoder's fc2 half width, (2048, 2816) x (1408, 2816): the forward bit
+    for bit cuBLAS's mm with an fp32 result of the same bf16 operands, the
+    gradients those of the bf16-rounded cotangent summed in fp32 and
+    rounded once."""
+    from l4p_tpu_torch.ops.conv import linear_fp32
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    x = (torch.randn((1, 2048, 2816), generator=g, device=cuda) * 0.1).bfloat16().requires_grad_()
+    w = (torch.randn((1408, 2816), generator=g, device=cuda) * 2816 ** -0.5).bfloat16().requires_grad_()
+    y = linear_fp32(x, w)
+    x2 = x.detach().reshape(-1, 2816)
+    assert torch.equal(y, torch.mm(x2, w.detach().t(), out_dtype=torch.float32).view(1, 2048, 1408))
+    cot = torch.randn(y.shape, generator=g, device=cuda)
+    y.backward(cot)
+    c = cot.bfloat16().reshape(-1, 1408)
+    assert torch.equal(x.grad, torch.mm(c, w.detach(), out_dtype=torch.float32).bfloat16().view_as(x))
+    assert torch.equal(w.grad, torch.mm(x2.t(), c, out_dtype=torch.float32).t().bfloat16())
+    # the products in bf16 out (linear_fp32's backward before its products kept fp32 sums)
+    print("gradients equal to bf16-output products:", torch.equal(x.grad, (c @ w.detach()).view_as(x)),
+          torch.equal(w.grad, c.t() @ x2))
+
+
 def upscale_operands(n, p, c, d1, d2, m, cuda, seed=0):
     g = torch.Generator(device=cuda).manual_seed(seed)
 

@@ -239,6 +239,108 @@ def test_linear_matches_jax():
     check(PCONV.linear(T(x), T(w), T(b)), linear(J(x), J(w), J(b)), 3e-6)  # measured 1.3e-6
 
 
+def track_products(dtype, n=3, heads=4, q=6, d=8, c=32, p=20):
+    """The track head's einsum_fp32 products (models/sam.py) as {name: (spec,
+    x, w, the call site's expression before einsum_fp32)}, operands in the
+    layouts the call sites hand over (views included), the weights fp32."""
+    g = torch.Generator().manual_seed(0)
+
+    def r(*shape, dt=dtype):
+        return torch.randn(*shape, generator=g).to(dt)
+
+    qh = r(n, q, heads, d).transpose(1, 2)
+    w_f32 = r(heads * d, c, dt=torch.float32).view(heads, d, c)
+    s_flat, wsum, rr = r(n, heads * q, c), r(n, heads, q, c), r(n, c, heads * q)
+    pe = r(c, p).t()  # pos_src is a transposed view
+    wo_h = r(c, heads * d, dt=torch.float32).view(c, heads, d).permute(1, 2, 0)
+
+    def mm(spec, x, w):  # models/sam.py's _mm
+        return lambda: torch.einsum(spec, x.float(), w.to(x.dtype).float())
+
+    return {
+        "s": ("nhqd,hdc->nhqc", qh, w_f32, mm("nhqd,hdc->nhqc", qh, w_f32)),
+        "spe": ("nkc,pc->npk", s_flat, pe, mm("nkc,pc->npk", s_flat, pe)),
+        "outh": ("nhqc,hdc->nhqd", wsum, w_f32, mm("nhqc,hdc->nhqd", wsum, w_f32)),
+        "r4": ("hdc,nhqd->nhcq", w_f32.to(dtype), qh,
+               lambda: torch.einsum("hdc,nhqd->nhcq", w_f32.to(dtype).float(), qh.float())),
+        "per": ("pc,nck->npk", pe.to(dtype), rr, lambda: torch.einsum("pc,nck->npk", pe.to(dtype).float(), rr.float())),
+        "v2": ("nhqd,hdc->nhqc", qh, wo_h, mm("nhqd,hdc->nhqc", qh, wo_h)),
+    }
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("name", ["s", "spe", "outh", "r4", "per", "v2"])
+def test_einsum_fp32_off_the_card_is_the_call_sites_expression(name, dtype):
+    spec, x, w, before = track_products(dtype)[name]
+    launches = PCONV.einsum_fp32.launches
+    got = PCONV.einsum_fp32(spec, x, w)
+    assert got.dtype == torch.float32 and torch.equal(got, before())
+    assert PCONV.einsum_fp32.launches == launches
+
+
+@pytest.mark.parametrize("name", ["s", "spe", "outh", "r4", "per", "v2"])
+def test_bmm_plan_is_the_einsum(name):
+    """The tensor-core route's arrangement, with a float64 matmul as its
+    product: the einsum's values; the PE products (spe, per) written in
+    their (N, P, K) layout, the shared (P, C) encoding read in place."""
+    spec, x, w, _ = track_products(torch.float32)[name]
+    a, b, finish = PCONV._bmm_plan(spec, x, w)
+    got = finish(torch.matmul(a.double(), b.double()))
+    torch.testing.assert_close(got, torch.einsum(spec, x.double(), w.double()), rtol=1e-12, atol=1e-12)
+    if name in ("spe", "per"):
+        pe = w if name == "spe" else x
+        shared = a if a.dim() == 2 else b
+        assert got.is_contiguous() and shared.data_ptr() == pe.data_ptr() and shared.shape == pe.shape
+
+
+def test_pe_products_on_meta_at_the_track_heads_shapes():
+    """The route's product at N = 192, P = 2048, C = 1408, K = 48 on the meta
+    device: the fp32 (N, P, K) result contiguous, (P, C) shared."""
+    n, p, c, k = 192, 2048, 1408, 48
+    pe = torch.empty((c, p), device="meta", dtype=torch.bfloat16).t()
+    for spec, x, w in (("nkc,pc->npk", torch.empty((n, k, c), device="meta", dtype=torch.bfloat16), pe),
+                       ("pc,nck->npk", pe, torch.empty((n, c, k), device="meta", dtype=torch.bfloat16))):
+        a, b, finish = PCONV._bmm_plan(spec, x, w)
+        out = finish(PCONV._BmmFp32.apply(a, b))
+        assert out.shape == (n, p, k) and out.dtype == torch.float32 and out.is_contiguous()
+        assert (a if a.dim() == 2 else b).shape == (p, c)
+
+
+@pytest.mark.parametrize("shared", [None, 0, 1])
+def test_bmm_fp32_backward_is_the_products_gradient(shared):
+    """_BmmFp32's gradients (on the CPU in fp32, where its products are
+    plain fp32 matmuls) against autograd through torch.matmul; `shared`
+    names the 2-D operand read across the batch."""
+    g = torch.Generator().manual_seed(1)
+    a = torch.randn((2, 5, 7) if shared != 0 else (5, 7), generator=g, requires_grad=True)
+    b = torch.randn((2, 7, 3) if shared != 1 else (7, 3), generator=g, requires_grad=True)
+    grad = torch.randn(2, 5, 3, generator=g)
+    torch.matmul(a, b).backward(grad)
+    a2, b2 = (t.detach().clone().requires_grad_() for t in (a, b))
+    PCONV._BmmFp32.apply(a2, b2).backward(grad)
+    torch.testing.assert_close(a2.grad, a.grad)
+    torch.testing.assert_close(b2.grad, b.grad)
+
+
+def test_linear_fp32_off_the_card_is_its_old_product():
+    """linear_fp32 (models/encoder.py's row-parallel product) off the card:
+    bf16 operands give torch.mm of their fp32 copies bit for bit, with the
+    gradients of that product's cotangent rounded to bf16; fp32 operands
+    F.linear."""
+    g = torch.Generator().manual_seed(2)
+    x = torch.randn(3, 5, 64, generator=g).bfloat16().requires_grad_()
+    w = torch.randn(32, 64, generator=g).bfloat16().requires_grad_()
+    y = PCONV.linear_fp32(x, w)
+    assert y.dtype == torch.float32 and torch.equal(y, torch.mm(x.reshape(-1, 64).float(), w.float().t()).view(3, 5, 32))
+    cot = torch.randn(y.shape, generator=g)
+    y.backward(cot)
+    c = cot.bfloat16().reshape(-1, 32).float()
+    assert torch.equal(x.grad, (c @ w.float()).bfloat16().view_as(x))
+    assert torch.equal(w.grad, (x.reshape(-1, 64).float().t() @ c).t().bfloat16())
+    xf, wf = x.detach().float(), w.detach().float()
+    assert torch.equal(PCONV.linear_fp32(xf, wf), torch.nn.functional.linear(xf, wf))
+
+
 @pytest.mark.parametrize("stride,padding,k", [(1, 1, 3), (2, 1, 3), (1, 0, 1)])
 def test_conv3d_matches_jax(stride, padding, k):
     from l4p_tpu.ops.conv import conv3d
