@@ -259,7 +259,22 @@ Phases; a failed check fails the run (non-zero exit, no result lines):
      --device cuda` and `chip_smoke.py --multi-card` on min(4, cards) cards
      under torchrun (NCCL): the request held against (c)'s outputs, the
      launches a rank, and frames/s at 192 x 128; with one card a line says
-     that it did not run. A JSON line holds the phase's readings.
+     that it did not run. A JSON line holds the phase's readings;
+ 28. SAM 2 (`compare_sam2`): the attention kernel at memory attention's
+     shapes, one head of 256 over 28,736 and over 4,096 keys for 8
+     objects, and at Hiera's eight shapes of head dim 72 on a chunk of 8
+     frames (windows of 64 and 16 tokens, q-pooled windows with fewer
+     queries than keys, the global 4,096), against its plain version
+     (SAM2_ATTENTION_TOL), its device ms beside the plain version's,
+     scaled_dot_product_attention's and the bound; the resize kernel at the
+     mask logits' fp32 upsample (8, 1, 256, 256) -> 1024^2 against
+     F.interpolate (SAM2_RESIZE_TOL); one request of the benchmark's SAM 2
+     cell (64 frames at 1024^2, 8 objects) through the cell's driver with
+     its launches counted (888 attention: 8 chunks x 48 Hiera blocks + 63
+     frames x 8 memory-attention calls; 64 resizes; 0 prologue), its
+     readings against the reference within the cell's limits, the memory
+     tokens it attended against the bank's count, its seconds and peak
+     memory. A JSON line holds the phase's readings.
 With an argument (`--tp-encoder`, `--multi-card FILE`) the script is one
 rank of phase 27's runs, which torchrun starts.
 Every line with a number names the card and its power limit. The last two
@@ -769,6 +784,21 @@ VDA_FRAMES, VDA_HW = 110, (518, 924)
 # the tolerance is a fifth of the temporal calls' mean |plain| (0.21) and a
 # quarter of the encoder's (0.027), below a typical output value
 VDA_ATTENTION_TOL = 0.0125
+# SAM 2's memory attention: one head of 256 over the full bank (7 memories of 4,096 tokens and 16 pointers of
+# 4 tokens) and over 4,096 keys (the self-attention), 8 objects; then Hiera's calls at head dim 72 on a chunk of
+# ENCODE_CHUNK = 8 frames of 1024^2, (B, H, Nq, D) and Nk: stage 1's windows of 64 tokens, block 2's q-pooled
+# windows (16 queries over 64 keys), stage 2's windows of 16, block 8's (4 over 16), stage 3's windows of 256,
+# the global blocks' 4,096 tokens, block 44's (64 over 256) and stage 4's windows of 64; the band relative to
+# max |plain|, as VGGT's
+SAM2_ATTENTION = (((8, 1, 4096, 256), 28736), ((8, 1, 4096, 256), 4096),
+                  ((8192, 2, 64, 72), 64), ((8192, 4, 16, 72), 64), ((8192, 4, 16, 72), 16), ((8192, 8, 4, 72), 16),
+                  ((128, 8, 256, 72), 256), ((8, 8, 4096, 72), 4096), ((128, 16, 64, 72), 256),
+                  ((128, 16, 64, 72), 64))
+SAM2_ATTENTION_TOL = 0.03
+# the chosen mask logits of 8 objects to the image's size, fp32, against F.interpolate: max |error| over max
+# |plain| (fp32 rounding of a 4-tap weighted sum)
+SAM2_RESIZE, SAM2_RESIZE_TOL = ((8, 1, 256, 256), (1024, 1024)), 1e-5
+SAM2_CELL, SAM2_SEED = "sam2_1_l-64f-1024-8obj", 2 ** 31 + 25
 
 
 def device_ms(fn, iters: int = 20) -> float:
@@ -1085,6 +1115,122 @@ def compare_vda_kernels(FA, RS, dev, log, checks) -> dict:
                   f"finite {finite}")
     rec["request_launches"] = list(got)
     del model, out, video, sess
+    torch.cuda.empty_cache()
+    return rec
+
+
+def compare_sam2(FA, RS, dev, log, checks) -> dict:
+    """Phase 28: the attention kernel at SAM 2's memory-attention shapes
+    (one head of 256) and Hiera's (head dim 72: windows, q-pooled windows,
+    the global blocks) against its plain version, with the device ms of the
+    kernel, the plain version and scaled_dot_product_attention beside the
+    bound; the resize kernel at the mask logits' fp32 upsample against
+    F.interpolate; one request of the benchmark's SAM 2 cell (the driver's
+    model, weights and request) with its attention, resize and prologue
+    launches counted against the model's calls, held against the reference
+    within the cell's limits, the memory tokens it attended against the
+    bank's count, its seconds and the peak memory. Callable alone after
+    `_build.build_all` of the attention and resize libraries."""
+    from l4p_tpu_torch.models.sam2 import ENCODE_CHUNK, Sam2, bank_order
+    from l4p_tpu_torch.ops import qk_norm_rope as QNR
+    from portbench import manifest as mf
+    from portbench.drivers import sam2 as drv
+    from portbench.drivers._common import checks as limit_checks
+    from portbench.run import Context
+
+    gen = torch.Generator(device=dev).manual_seed(25)
+    rec = {"attention": []}
+    for shape, nk in SAM2_ATTENTION:
+        b, h, nq, d = shape
+        q = torch.randn(shape, generator=gen, device=dev).bfloat16()
+        k, v = (torch.randn((b, h, nk, d), generator=gen, device=dev).bfloat16() for _ in range(2))
+        scale = d ** -0.5
+        before = FA.flash_attention.launches
+        out = FA.flash_attention(q, k, v, scale)
+        launches = FA.flash_attention.launches - before
+        err = top = 0.0
+        for i in range(0, nq, 1024):
+            plain = FA.flash_attention_plain(q[:, :, i:i + 1024], k, v, scale).float()
+            err = max(err, (out[:, :, i:i + 1024].float() - plain).abs().max().item())
+            top = max(top, plain.abs().max().item())
+            del plain
+        flop = 4 * b * h * nq * nk * d
+        r = {"shape": [*shape[:3], nk, d], "max_abs_err": err, "max_abs_plain": top, "launches": launches,
+             "ms": device_ms(lambda: FA.flash_attention(q, k, v, scale), 10),
+             "plain_ms": device_ms(lambda: FA.flash_attention_plain(q, k, v, scale), 2),
+             "library_ms": device_ms(lambda: F.scaled_dot_product_attention(q, k, v, scale=scale), 10),
+             **bound(flop, nbytes(q, k, v, out))}
+        log(f"SAM 2 {'memory attention' if d == 256 else 'Hiera'} (B, H, Nq, Nk, D) = {tuple(r['shape'])} bf16: "
+            f"max|kernel-plain| {err:.3g} = "
+            f"{err / top:.3g} of max|plain| {top:.3g}, {launches} launch; kernel {r['ms']:.4f} ms "
+            f"({flop / r['ms'] / 1e9:.1f} TFLOP/s), plain {r['plain_ms']:.3f} ms, scaled_dot_product_attention "
+            f"{r['library_ms']:.4f} ms (device ms); {bound_text(r)}")
+        checks.expect(launches == 1 and math.isfinite(err) and err <= SAM2_ATTENTION_TOL * top,
+                      f"SAM 2 attention {tuple(r['shape'])}: {launches} launches, max|kernel-plain| {err} against "
+                      f"max|plain| {top}")
+        rec["attention"].append(r)
+        del q, k, v, out
+    torch.cuda.empty_cache()
+    (shape, size) = SAM2_RESIZE
+    x = 8 * torch.randn(shape, generator=gen, device=dev)
+    before = RS.interpolate_trilinear.launches
+    got = RS.interpolate_bilinear(x, size)
+    launches = RS.interpolate_trilinear.launches - before
+    plain = F.interpolate(x, size=size, mode="bilinear", align_corners=False)
+    err, top = (got - plain).abs().max().item(), plain.abs().max().item()
+    r = {"shape": list(shape), "size": list(size), "max_abs_err": err, "max_abs_plain": top, "launches": launches,
+         "ms": device_ms(lambda: RS.interpolate_bilinear(x, size), 10),
+         "library_ms": device_ms(lambda: F.interpolate(x, size=size, mode="bilinear", align_corners=False), 10),
+         **bound(0, nbytes(x, got))}
+    log(f"SAM 2 mask upsample {shape} -> {size} fp32: max|kernel-F.interpolate| {err:.3g} = {err / top:.3g} of "
+        f"max|plain| {top:.3g}, {launches} launch; kernel {r['ms']:.4f} ms, F.interpolate {r['library_ms']:.4f} ms "
+        f"(device ms); {bound_text(r)}")
+    checks.expect(launches == 1 and math.isfinite(err) and err <= SAM2_RESIZE_TOL * top,
+                  f"SAM 2 resize {shape} -> {size}: {launches} launches, max|kernel-plain| {err} against max|plain| "
+                  f"{top}")
+    rec["resize"] = r
+    del x, got, plain
+    bench = mf.Manifest.load()
+    cell = bench.cell(SAM2_CELL)
+    tr = bench.traffic(cell["traffic"])
+    ctx = Context(cell, tr, bench.config_path(cell["config"]), bench.limits(SAM2_CELL), SAM2_SEED, 0.0, False, dev)
+    served = drv.Cell(ctx)  # the model, its weights and two warm requests
+    served.sample = served.sample[:1]
+    Sam2.memory_tokens = 0
+    torch.cuda.reset_peak_memory_stats(dev)
+    torch.cuda.synchronize()
+    for fn in (FA.flash_attention, RS.interpolate_trilinear, QNR.qk_norm_rope):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    served.serve_sample()
+    seconds = time.perf_counter() - t0
+    got = (FA.flash_attention.launches, RS.interpolate_trilinear.launches, QNR.qk_norm_rope.launches)
+    peak = torch.cuda.max_memory_allocated(dev)
+    cfg, frames = served.cfg, tr["frames"]
+    # Hiera's blocks once a chunk of frames, memory attention's self- and cross-attention a layer on every frame
+    # after the clicked one; one mask upsample a frame
+    hiera = -(-frames // ENCODE_CHUNK) * sum(cfg.stages)
+    want = (hiera + (frames - 1) * 2 * cfg.memory_layers, frames, 0)
+    log(f"SAM 2 request: {got[0]} attention ({hiera} Hiera, {got[0] - hiera} memory attention), {got[1]} resize and "
+        f"{got[2]} qk_norm_rope launches (expected {want})")
+    checks.expect(got == want, f"SAM 2 request launches {got}, expected {want}")
+    split, p = cfg.d_model // cfg.mem_dim, cfg.feat_size ** 2
+    want_tokens = tr["objects"] * sum(len(m) * p + len(q) * split for m, q in
+                                      (bank_order(f, cfg.num_maskmem - 1, min(frames, cfg.max_obj_ptrs) - 1)
+                                       for f in range(1, frames)))
+    log(f"SAM 2 request, {frames} frames of {tr['size']}^2, {tr['objects']} objects: {seconds:.3f} s "
+        f"({frames / seconds:.1f} frames/s), memory tokens attended {Sam2.memory_tokens} (the bank's count "
+        f"{want_tokens}), peak memory {peak / 2 ** 30:.2f} GiB")
+    checks.expect(Sam2.memory_tokens == want_tokens, f"SAM 2 memory tokens {Sam2.memory_tokens}, expected "
+                  f"{want_tokens}")
+    got = limit_checks(served.readings()[0], ctx.limits)
+    for name, c in got.items():
+        log(f"SAM 2 against the reference: {name} {c['value']:.4g} (limit {c['limit']})")
+        checks.expect(math.isfinite(c["value"]) and c["value"] <= c["limit"],
+                      f"SAM 2 {name} {c['value']} above its limit {c['limit']}")
+    rec.update(seconds=seconds, memory_tokens=Sam2.memory_tokens, peak_bytes=peak, request_launches=list(got),
+               readings={k: c["value"] for k, c in got.items()})
+    del served
     torch.cuda.empty_cache()
     return rec
 
@@ -3342,6 +3488,12 @@ def main() -> int:
     multi = multi_gpu_phase(P, model, cfg, request, dev, log, checks, reset_counts, counts)
     print(json.dumps({"card": card, "multi_gpu": multi}), flush=True)
     log(f"phase 27 took {time.perf_counter() - t0:.1f} s")
+
+    # 28. SAM 2: the attention kernel at head dim 256, one request of its cell against the reference
+    t0 = time.perf_counter()
+    sam2 = compare_sam2(FA, RS, dev, log, checks)
+    print(json.dumps({"card": card, "sam2": sam2}), flush=True)
+    log(f"phase 28 took {time.perf_counter() - t0:.1f} s")
 
     log(f"chip_smoke phases took {time.perf_counter() - t_start:.1f} s")
     if checks.failed:

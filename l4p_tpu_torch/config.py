@@ -522,6 +522,132 @@ def vda_config_from_tree(tree: Mapping[str, Any]) -> VDAConfig:
         motion_attention_blocks=mm.get("num_attention_blocks", 2), ff_mult=mm.get("ff_mult", 4))
 
 
+SAM2_CLASS = "sam2.modeling.sam2_base.SAM2Base"
+SAM2_TASKS = ("masks",)
+
+
+@dataclasses.dataclass(frozen=True)
+class Sam2Config:
+    """SAM 2.1 (facebookresearch/sam2, sam2/configs/sam2.1/sam2.1_hiera_l.yaml
+    with the video predictor's overrides): the defaults are Hiera-L's
+    published settings. The image encoder is Hiera (`embed_dim` and
+    `num_heads` doubling at each of `stages`, 2x2 q-pooling at the first
+    block of stages 2-4, windows of `window_spec`, global attention in
+    `global_att_blocks`) with an FPN neck at `d_model`; memory attention is
+    `memory_layers` layers of RoPE self- and cross-attention with one head
+    of `d_model` over a bank of `num_maskmem` memories of width `mem_dim`
+    and up to `max_obj_ptrs` object pointers; the decoder is SAM's two-way
+    transformer with high-resolution skips and object scores. What upstream
+    hard-codes (the decoder's depth, heads and MLP, the prompt encoder's
+    mask channels) and the q-pooling at every stage change are
+    models/sam2.py constants."""
+
+    image_size: int = 1024
+    embed_dim: int = 144
+    num_heads: int = 2
+    stages: Tuple[int, ...] = (2, 6, 36, 4)
+    global_att_blocks: Tuple[int, ...] = (23, 33, 43)
+    window_pos_embed_bkg_spatial_size: Tuple[int, int] = (7, 7)
+    window_spec: Tuple[int, ...] = (8, 4, 16, 8)
+    d_model: int = 256  # the neck's width, memory attention's and the decoder's
+    fpn_top_down_levels: Tuple[int, ...] = (2, 3)
+    memory_layers: int = 4
+    memory_ffn: int = 2048
+    rope_theta: float = 10000.0
+    mem_dim: int = 64
+    num_maskmem: int = 7
+    max_obj_ptrs: int = 16
+    num_multimask_outputs: int = 3
+    fuser_layers: int = 2
+    fuser_kernel: int = 7
+    sigmoid_scale_for_mem_enc: float = 20.0
+    sigmoid_bias_for_mem_enc: float = -10.0
+    stability_delta: float = 0.05
+    stability_thresh: float = 0.98
+    multimask_max_pt_num: int = 1
+
+    @property
+    def channel_list(self) -> Tuple[int, ...]:
+        """Hiera's stage widths, the last stage's first (the neck's backbone_channel_list)."""
+        return tuple(self.embed_dim * 2 ** i for i in reversed(range(len(self.stages))))
+
+    @property
+    def feat_size(self) -> int:
+        """The side of the top feature map that memory attention and the decoder read."""
+        return self.image_size // 16
+
+
+# what the port builds of SAM 2: each key of a file's group that must hold this value
+_SAM2_FIXED = {
+    "model": {"use_high_res_features_in_sam": True, "multimask_output_in_sam": True, "iou_prediction_use_sigmoid": True,
+              "use_obj_ptrs_in_encoder": True, "add_tpos_enc_to_obj_ptrs": True, "proj_tpos_enc_in_obj_ptrs": True,
+              "use_signed_tpos_enc_to_obj_ptrs": True, "only_obj_ptrs_in_the_past_for_eval": True,
+              "pred_obj_scores": True, "pred_obj_scores_mlp": True, "fixed_no_obj_ptr": True,
+              "multimask_output_for_tracking": True, "use_multimask_token_for_obj_ptr": True,
+              "multimask_min_pt_num": 0, "use_mlp_for_obj_ptr_proj": True, "directly_add_no_mem_embed": True,
+              "no_obj_embed_spatial": True, "use_mask_input_as_output_without_sam": True,
+              "binarize_mask_from_pts_for_mem_enc": True, "fill_hole_area": 0, "non_overlap_masks_for_mem_enc": False,
+              "memory_temporal_stride_for_eval": 1, "max_cond_frames_in_attn": -1, "soft_no_obj_ptr": False},
+    "sam_mask_decoder_extra_args": {"dynamic_multimask_via_stability": True},
+    "trunk": {"q_stride": [2, 2], "dim_mul": 2.0, "head_mul": 2.0},
+    "neck": {"fpn_interp_model": "nearest", "fuse_type": "sum", "kernel_size": 1},
+    "memory_attention": {"pos_enc_at_input": True, "activation": "relu", "pos_enc_at_attn": False,
+                         "pos_enc_at_cross_attn_keys": True, "pos_enc_at_cross_attn_queries": False,
+                         "self_num_heads": 1, "cross_num_heads": 1, "rope_k_repeat": True, "downsample_rate": 1},
+    "memory_encoder": {"kernel_size": 3, "stride": 2, "padding": 1, "use_dwconv": True},
+}
+
+
+def sam2_config_from_tree(tree: Mapping[str, Any]) -> Sam2Config:
+    """A SAM 2 configuration file (upstream's YAML flattened into groups:
+    `model` for SAM2Base's arguments, `trunk`, `neck`, `memory_attention`,
+    `memory_encoder`, `sam_mask_decoder_extra_args`) -> Sam2Config. A
+    setting the port does not build raises ValueError."""
+    for group, fixed in _SAM2_FIXED.items():
+        for k, v in fixed.items():
+            if k in tree.get(group, {}) and tree[group][k] != v:
+                raise ValueError(f"{group}.{k} = {tree[group][k]!r}: the port builds {v!r} only")
+    m, tr, nk = tree.get("model", {}), tree.get("trunk", {}), tree.get("neck", {})
+    ma, me = tree.get("memory_attention", {}), tree.get("memory_encoder", {})
+    dx = tree.get("sam_mask_decoder_extra_args", {})
+    d = Sam2Config()
+    cfg = Sam2Config(
+        image_size=m.get("image_size", d.image_size), embed_dim=tr.get("embed_dim", d.embed_dim),
+        num_heads=tr.get("num_heads", d.num_heads), stages=tuple(tr.get("stages", d.stages)),
+        global_att_blocks=tuple(tr.get("global_att_blocks", d.global_att_blocks)),
+        window_pos_embed_bkg_spatial_size=tuple(tr.get("window_pos_embed_bkg_spatial_size",
+                                                       d.window_pos_embed_bkg_spatial_size)),
+        window_spec=tuple(tr.get("window_spec", d.window_spec)),
+        d_model=nk.get("d_model", d.d_model), fpn_top_down_levels=tuple(nk.get("fpn_top_down_levels",
+                                                                             d.fpn_top_down_levels)),
+        memory_layers=ma.get("num_layers", d.memory_layers),
+        memory_ffn=ma.get("dim_feedforward", d.memory_ffn), rope_theta=float(ma.get("rope_theta", d.rope_theta)),
+        mem_dim=me.get("out_dim", d.mem_dim), num_maskmem=m.get("num_maskmem", d.num_maskmem),
+        max_obj_ptrs=m.get("max_obj_ptrs_in_encoder", d.max_obj_ptrs),
+        num_multimask_outputs=m.get("num_multimask_outputs", d.num_multimask_outputs),
+        fuser_layers=me.get("fuser_num_layers", d.fuser_layers), fuser_kernel=me.get("fuser_kernel_size",
+                                                                                     d.fuser_kernel),
+        sigmoid_scale_for_mem_enc=float(m.get("sigmoid_scale_for_mem_enc", d.sigmoid_scale_for_mem_enc)),
+        sigmoid_bias_for_mem_enc=float(m.get("sigmoid_bias_for_mem_enc", d.sigmoid_bias_for_mem_enc)),
+        stability_delta=float(dx.get("dynamic_multimask_stability_delta", d.stability_delta)),
+        stability_thresh=float(dx.get("dynamic_multimask_stability_thresh", d.stability_thresh)),
+        multimask_max_pt_num=m.get("multimask_max_pt_num", d.multimask_max_pt_num))
+    if len(cfg.stages) != 4 or m.get("scalp", 1) != 1 or tr.get("q_pool", 3) != 3:
+        raise ValueError("the port builds four Hiera stages, q-pooling at the last three and scalp 1 only")
+    if tuple(nk.get("backbone_channel_list", cfg.channel_list)) != cfg.channel_list:
+        raise ValueError(f"neck.backbone_channel_list must be Hiera's stage widths {cfg.channel_list}")
+    if cfg.d_model % cfg.mem_dim or cfg.image_size % 16:
+        raise ValueError(f"mem_dim {cfg.mem_dim} must divide d_model {cfg.d_model}, and 16 the image size")
+    tied = {("memory_attention", "d_model"): cfg.d_model, ("memory_attention", "kv_in_dim"): cfg.mem_dim,
+            ("memory_attention", "feat_sizes"): [cfg.feat_size] * 2, ("memory_encoder", "fuser_dim"): cfg.d_model,
+            ("neck", "position_encoding_num_pos_feats"): cfg.d_model,
+            ("memory_encoder", "position_encoding_num_pos_feats"): cfg.mem_dim}
+    for (group, k), v in tied.items():
+        if k in tree.get(group, {}) and tree[group][k] != v:
+            raise ValueError(f"{group}.{k} = {tree[group][k]!r}: the port ties it to {v!r}")
+    return cfg
+
+
 def _dense_head_from_yaml(name: str, cls: str, args: Mapping[str, Any]) -> DenseHeadConfig:
     """A dense head's init_args with the YAML schema's defaults
     (l4p_tpu/config.py:76-108): camray and camera_rays have 6 channels and
@@ -606,8 +732,8 @@ def _encoder_from_yaml(args: Mapping[str, Any]) -> EncoderConfig:
 def load_model_config(path: str) -> Tuple[Any, Tuple[str, ...]]:
     """Parse a reference-schema model YAML into (L4PConfig, tasks), a VGGT
     configuration (`class_path` vggt.models.vggt.VGGT) into (VGGTConfig,
-    tasks), or a Video Depth Anything one (`VDA_CLASS`) into (VDAConfig,
-    tasks).
+    tasks), a Video Depth Anything one (`VDA_CLASS`) into (VDAConfig,
+    tasks), or a SAM 2 one (`SAM2_CLASS`) into (Sam2Config, tasks).
 
     The flow, depth, dyn_mask, camray, camera_rays and track_2d heads are
     read, and `tasks` is returned as written (InferenceSession refuses the
@@ -621,6 +747,8 @@ def load_model_config(path: str) -> Tuple[Any, Tuple[str, ...]]:
         return vggt_config_from_tree(tree), tuple(tree.get("tasks", VGGT_TASKS))
     if tree.get("class_path") == VDA_CLASS:
         return vda_config_from_tree(tree), tuple(tree.get("tasks", VDA_TASKS))
+    if tree.get("class_path") == SAM2_CLASS:
+        return sam2_config_from_tree(tree), tuple(tree.get("tasks", SAM2_TASKS))
     init = tree["init_args"]
     m = init["l4p_model"]["init_args"]
     heads = []

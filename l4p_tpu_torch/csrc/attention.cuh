@@ -54,15 +54,23 @@
 //   temporal attention runs 78,144 sequences of 32 frames a call); a block
 //   past the last pair returns before it touches a barrier. Such short
 //   sequences fill a quarter of a 128-row tile.
-// - D is a multiple of 8, at most 128, padded in shared memory to D_pad in
-//   {64, 96, 128} (88 -> 96); the pad columns are zeros, contribute 0 to
-//   q.k and give output columns that are not stored. Keys >= Nk are set to
-//   -inf before the row max; rows >= Nq are not stored.
+// - D is a multiple of 8, at most 256, padded in shared memory to D_pad in
+//   {64, 96, 128, 256} (88 -> 96); the pad columns are zeros, contribute 0
+//   to q.k and give output columns that are not stored. Keys >= Nk are set
+//   to -inf before the row max; rows >= Nq are not stored.
+// - D_pad 256 (SAM 2's memory attention: one head of 256 over up to 28,736
+//   keys) has its own key tile and ring depth (block_n, kv_stages): 128-key
+//   tiles in 3 stages would need Q 64 KB + 3 x (K + V) 128 KB = 448 KB of
+//   shared memory, and O alone is 128 fp32 registers a thread (m64n256). It
+//   takes 64-key tiles in 2 stages: Q 64 KB + 2 x (32 + 32) KB = 192 KB, S
+//   in 32 registers and P in 16 beside O's 128. S = Q K^T is then D_pad / 16
+//   wgmma m64n64k16 and P V 4 wgmma m64n256k16. D_pad 64, 96 and 128 keep
+//   128 keys in kStages stages, their code unchanged.
 //
 // Build-time hooks for scripts/attention_bounds.py only (each -D gives a
 // kernel whose times mean something and whose results do not, except
 // L4P_ATTN_KV_STAGES and L4P_ABLATE_NO_TURNS, which stay exact):
-//   L4P_ATTN_KV_STAGES=n   the K/V ring depth (default 3);
+//   L4P_ATTN_KV_STAGES=n   the K/V ring depth up to D_pad 128 (default 3);
 //   L4P_ABLATE_NO_TURNS    the warpgroups issue without taking turns;
 //   L4P_ABLATE_NO_RELOAD   K/V tiles are loaded once; later tiles reuse them;
 //   L4P_ABLATE_NO_EXP      the softmax's exponentials become a multiply;
@@ -98,9 +106,11 @@ namespace l4p {
 namespace attn {
 
 constexpr int kBlockM = 128;                   // query rows per block: two consumer warpgroups of 64
-constexpr int kBlockN = 128;                   // keys per K/V tile
+constexpr int kBlockN = 128;                   // keys per K/V tile up to D_pad 128
+constexpr int kBlockN256 = 64;                 // keys per K/V tile at D_pad 256
+constexpr int kStages256 = 2;                  // K/V ring depth at D_pad 256
 constexpr int kBox = 32;                       // columns per TMA box: 64 bytes, the swizzle span
-constexpr int kBoxBytes = kBlockN * kBox * 2;  // one box of 128 rows (Q and K/V tiles alike)
+constexpr int kBoxBytes = kBlockN * kBox * 2;  // one box of 128 rows: Q's, and K/V's up to D_pad 128
 constexpr int kConsumers = 2;                  // consumer warpgroups
 constexpr int kConsumerThreads = kConsumers * 128;
 constexpr int kThreads = kConsumerThreads + 128;  // and the producer warpgroup
@@ -117,10 +127,21 @@ constexpr bool kTurns = false;
 constexpr bool kTurns = true;
 #endif
 
+// keys per K/V tile and the ring's depth at head width DP
+template <int DP>
+__host__ __device__ constexpr int block_n() {
+  return DP <= 128 ? kBlockN : kBlockN256;
+}
+template <int DP>
+__host__ __device__ constexpr int kv_stages() {
+  return DP <= 128 ? kStages : kStages256;
+}
+
 template <int DP>
 constexpr int smem_bytes() {
   // Q + the ring, the barriers, and slack to align the buffers to 1024 bytes
-  return (1 + 2 * kStages) * (DP / kBox) * kBoxBytes + (1 + 2 * kStages) * 8 + 1024;
+  constexpr int q_tile = (DP / kBox) * kBlockM * kBox * 2, kv_tile = (DP / kBox) * block_n<DP>() * kBox * 2;
+  return q_tile + 2 * kv_stages<DP>() * kv_tile + (1 + 2 * kv_stages<DP>()) * 8 + 1024;
 }
 
 __device__ __forceinline__ float fast_exp2(float x) {
@@ -133,42 +154,47 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
-// One Q, K or V tile: DP / 32 boxes of 32 columns x 128 rows from row0 of bh.
-template <int DP>
+// One Q, K or V tile: DP / 32 boxes of 32 columns x ROWS rows from row0 of bh.
+template <int DP, int ROWS>
 __device__ __forceinline__ void load_tile(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int row0,
                                           int bh) {
 #pragma unroll
-  for (int j = 0; j < DP / kBox; ++j) sm90::tma_load_3d(dst + j * kBoxBytes, map, bar, j * kBox, row0, bh);
+  for (int j = 0; j < DP / kBox; ++j) sm90::tma_load_3d(dst + j * ROWS * kBox * 2, map, bar, j * kBox, row0, bh);
 }
 
-// S = Q K^T for the warpgroup's 64 rows x 128 keys: DP / 16 k-steps, each in
-// one box (k-step ks: box ks / 2, 32 bytes into its 64-byte rows for odd ks).
-template <int DP>
-__device__ __forceinline__ void issue_s(float (&sc)[kBlockN / 2], uint64_t desc_q, uint64_t desc_k) {
+// S = Q K^T for the warpgroup's 64 rows x BN keys: DP / 16 k-steps, each in
+// one box (k-step ks: box ks / 2, 32 bytes into its 64-byte rows for odd ks;
+// a box of Q holds kBlockM rows, one of K BN rows).
+template <int DP, int BN>
+__device__ __forceinline__ void issue_s(float (&sc)[BN / 2], uint64_t desc_q, uint64_t desc_k) {
   sm90::wgmma_fence();
 #pragma unroll
   for (int ks = 0; ks < DP / 16; ++ks) {
-    const uint32_t off = ((ks / 2) * kBoxBytes + (ks % 2) * 32) >> 4;
-    sm90::wgmma_m64n128k16_ss(sc, desc_q + off, desc_k + off, ks);
+    const uint32_t off_q = ((ks / 2) * kBoxBytes + (ks % 2) * 32) >> 4;
+    const uint32_t off_k = ((ks / 2) * BN * kBox * 2 + (ks % 2) * 32) >> 4;
+    if constexpr (BN == 128)
+      sm90::wgmma_m64n128k16_ss(sc, desc_q + off_q, desc_k + off_k, ks);
+    else
+      sm90::wgmma_m64n64k16_ss(sc, desc_q + off_q, desc_k + off_k, ks);
   }
   sm90::wgmma_commit();
 }
 
 // O += P V: k-step kk reads keys 16kk.. of V (16 rows x 64 bytes in).
-template <int DP>
-__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], const uint32_t (&p)[kBlockN / 16][4],
-                                         uint64_t desc_v) {
+template <int DP, int BN>
+__device__ __forceinline__ void issue_pv(float (&acc)[DP / 2], const uint32_t (&p)[BN / 16][4], uint64_t desc_v) {
   sm90::fence_regs(acc);
   sm90::wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk) sm90::wgmma_rs<DP>(acc, p[kk], desc_v + ((kk * 16 * 64) >> 4));
+  for (int kk = 0; kk < BN / 16; ++kk) sm90::wgmma_rs<DP>(acc, p[kk], desc_v + ((kk * 16 * 64) >> 4));
   sm90::wgmma_commit();
 }
 
 // The online softmax of one S tile in base 2: keys >= nk to -inf, the new
 // running max, sc <- exp2(s * scale_log2 - max), the running sum; returns in
 // alpha the factor O must be rescaled by before this tile's P V.
-__device__ __forceinline__ void online_softmax(float (&sc)[kBlockN / 2], float (&row_max)[2], float (&row_sum)[2],
+template <int BN>
+__device__ __forceinline__ void online_softmax(float (&sc)[BN / 2], float (&row_max)[2], float (&row_sum)[2],
                                                float (&alpha)[2], int key0, int nk, float scale_log2, int lane) {
 #ifdef L4P_ABLATE_NO_SOFTMAX
   alpha[0] = alpha[1] = 1.f;
@@ -177,9 +203,9 @@ __device__ __forceinline__ void online_softmax(float (&sc)[kBlockN / 2], float (
 #else
   // sc[i] holds column (i / 4) * 8 + (lane % 4) * 2 + (i & 1) of the tile
   const int limit = nk - key0 - (lane % 4) * 2;
-  if (limit < kBlockN) {
+  if (limit < BN) {
 #pragma unroll
-    for (int i = 0; i < kBlockN / 2; ++i)
+    for (int i = 0; i < BN / 2; ++i)
       if ((i / 4) * 8 + (i & 1) >= limit) sc[i] = -INFINITY;
   }
 #pragma unroll
@@ -187,7 +213,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[kBlockN / 2], float (
     // four partial maxima and sums: short dependency chains
     float mx[4] = {-INFINITY, -INFINITY, -INFINITY, -INFINITY};
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j)
+    for (int j = 0; j < BN / 8; ++j)
       mx[j % 4] = fmaxf(mx[j % 4], fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
     float mt = fmaxf(fmaxf(mx[0], mx[1]), fmaxf(mx[2], mx[3]));
     mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
@@ -197,7 +223,7 @@ __device__ __forceinline__ void online_softmax(float (&sc)[kBlockN / 2], float (
     row_max[r] = m_new;
     float sum[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < kBlockN / 8; ++j) {
+    for (int j = 0; j < BN / 8; ++j) {
       sc[4 * j + 2 * r] = fast_exp2(fmaf(sc[4 * j + 2 * r], scale_log2, -m_new));
       sc[4 * j + 2 * r + 1] = fast_exp2(fmaf(sc[4 * j + 2 * r + 1], scale_log2, -m_new));
       sum[j % 4] += sc[4 * j + 2 * r] + sc[4 * j + 2 * r + 1];
@@ -219,9 +245,10 @@ __device__ __forceinline__ void rescale(float (&acc)[N], const float (&alpha)[2]
 }
 
 // P as A fragments: k-step kk takes the S column chunks 2kk and 2kk + 1.
-__device__ __forceinline__ void pack_p(uint32_t (&p)[kBlockN / 16][4], const float (&sc)[kBlockN / 2]) {
+template <int BN>
+__device__ __forceinline__ void pack_p(uint32_t (&p)[BN / 16][4], const float (&sc)[BN / 2]) {
 #pragma unroll
-  for (int kk = 0; kk < kBlockN / 16; ++kk) {
+  for (int kk = 0; kk < BN / 16; ++kk) {
     p[kk][0] = pack_bf16x2(sc[8 * kk], sc[8 * kk + 1]);
     p[kk][1] = pack_bf16x2(sc[8 * kk + 2], sc[8 * kk + 3]);
     p[kk][2] = pack_bf16x2(sc[8 * kk + 4], sc[8 * kk + 5]);
@@ -245,28 +272,31 @@ __global__ void __launch_bounds__(kThreads, 1)
                      int nk, int d, float scale_log2, int heads, long long o_stride_b, long long o_stride_h,
                      int o_stride_row) {
   using namespace sm90;
-  constexpr int kTile = DP / kBox * kBoxBytes;  // bytes of one Q, K or V tile
+  constexpr int BN = block_n<DP>();             // keys per K/V tile
+  constexpr int S = kv_stages<DP>();            // K/V ring depth
+  constexpr int kQTile = DP / kBox * kBoxBytes;  // bytes of the Q tile
+  constexpr int kTile = DP / kBox * BN * kBox * 2;  // bytes of one K or V tile
   constexpr int kAcc = DP / 2;                  // O accumulators per thread (m64nDP)
   constexpr int kLoader = kConsumerThreads;     // the producer thread that issues every TMA load
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
   unsigned char* sQ = smem;
-  unsigned char* sKV = smem + kTile;  // stage s: K at sKV + 2 s kTile, V right after it
-  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + (1 + 2 * kStages) * kTile);
-  uint64_t* full = q_full + 1;             // a stage's K and V arrived
-  uint64_t* empty = q_full + 1 + kStages;  // both consumer warpgroups are done with a stage
+  unsigned char* sKV = smem + kQTile;  // stage s: K at sKV + 2 s kTile, V right after it
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + kQTile + 2 * S * kTile);
+  uint64_t* full = q_full + 1;       // a stage's K and V arrived
+  uint64_t* empty = q_full + 1 + S;  // both consumer warpgroups are done with a stage
 
   const int m0 = blockIdx.x * kBlockM;
   const int bh = blockIdx.z * gridDim.y + blockIdx.y;  // (batch, head) pairs past the grid's y run on along z
   if (bh >= bh_count) return;                          // the last z slice's spare blocks, before any barrier
-  const int n_tiles = (nk + kBlockN - 1) / kBlockN;
+  const int n_tiles = (nk + BN - 1) / BN;
 
   if (threadIdx.x == kLoader) {
     prefetch_tensor_map(&tm_q);
     prefetch_tensor_map(&tm_k);
     prefetch_tensor_map(&tm_v);
     mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < S; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumerThreads);
     }
@@ -280,20 +310,20 @@ __global__ void __launch_bounds__(kThreads, 1)
   if (wg == kConsumers) {
     setmaxnreg_dec<kProducerRegs>();
     if (threadIdx.x == kLoader) {
-      mbar_arrive_expect_tx(q_full, kTile);
-      load_tile<DP>(sQ, &tm_q, q_full, m0, bh);
+      mbar_arrive_expect_tx(q_full, kQTile);
+      load_tile<DP, kBlockM>(sQ, &tm_q, q_full, m0, bh);
       for (int t = 0; t < n_tiles; ++t) {
-        const int s = t % kStages;
-        if (t >= kStages) mbar_wait(&empty[s], (t / kStages - 1) & 1);
+        const int s = t % S;
+        if (t >= S) mbar_wait(&empty[s], (t / S - 1) & 1);
 #ifdef L4P_ABLATE_NO_RELOAD
-        if (t >= kStages) {
+        if (t >= S) {
           mbar_arrive(&full[s]);
           continue;
         }
 #endif
         mbar_arrive_expect_tx(&full[s], 2 * kTile);
-        load_tile<DP>(sKV + 2 * s * kTile, &tm_k, &full[s], t * kBlockN, bh);
-        load_tile<DP>(sKV + (2 * s + 1) * kTile, &tm_v, &full[s], t * kBlockN, bh);
+        load_tile<DP, BN>(sKV + 2 * s * kTile, &tm_k, &full[s], t * BN, bh);
+        load_tile<DP, BN>(sKV + (2 * s + 1) * kTile, &tm_v, &full[s], t * BN, bh);
       }
     }
   } else {
@@ -308,13 +338,13 @@ __global__ void __launch_bounds__(kThreads, 1)
     float row_max[2] = {-INFINITY, -INFINITY};
     float row_sum[2] = {0.f, 0.f};  // partial over this thread's columns
     float alpha[2];
-    float sc[kBlockN / 2];
-    uint32_t p[kBlockN / 16][4];
+    float sc[BN / 2];
+    uint32_t p[BN / 16][4];
 
     // this warpgroup's 64 Q rows start 64 rows x 64 bytes into every box
     const uint64_t desc_q = smem_desc(sQ + wg * 64 * 64, 16, 512);
-    auto desc_k = [&](int t) { return smem_desc(sKV + 2 * (t % kStages) * kTile, 16, 512); };
-    auto desc_v = [&](int t) { return smem_desc(sKV + (2 * (t % kStages) + 1) * kTile, kBoxBytes, 512); };
+    auto desc_k = [&](int t) { return smem_desc(sKV + 2 * (t % S) * kTile, 16, 512); };
+    auto desc_v = [&](int t) { return smem_desc(sKV + (2 * (t % S) + 1) * kTile, BN * kBox * 2, 512); };
     mbar_wait(q_full, 0);
 
     // warpgroup wg issues on turn barrier 1 + wg and passes the turn to the
@@ -323,32 +353,32 @@ __global__ void __launch_bounds__(kThreads, 1)
     if (wg == 1) turn_pass(1);
     mbar_wait(&full[0], 0);
     turn_wait(1 + wg);
-    issue_s<DP>(sc, desc_q, desc_k(0));
+    issue_s<DP, BN>(sc, desc_q, desc_k(0));
     if (wg == 0 || n_tiles > 1) turn_pass(2 - wg);
     wgmma_wait<0>();
     fence_regs(sc);
-    online_softmax(sc, row_max, row_sum, alpha, 0, nk, scale_log2, lane);
-    pack_p(p, sc);
+    online_softmax<BN>(sc, row_max, row_sum, alpha, 0, nk, scale_log2, lane);
+    pack_p<BN>(p, sc);
     for (int t = 1; t < n_tiles; ++t) {
-      mbar_wait(&full[t % kStages], (t / kStages) & 1);
+      mbar_wait(&full[t % S], (t / S) & 1);
       turn_wait(1 + wg);
-      issue_s<DP>(sc, desc_q, desc_k(t));
+      issue_s<DP, BN>(sc, desc_q, desc_k(t));
       rescale(acc, alpha);
-      issue_pv<DP>(acc, p, desc_v(t - 1));
+      issue_pv<DP, BN>(acc, p, desc_v(t - 1));
       if (wg == 0 || t + 1 < n_tiles) turn_pass(2 - wg);
       wgmma_wait<1>();  // S(t) done; P(t-1) V(t-1) may still run
       fence_regs(sc);
-      online_softmax(sc, row_max, row_sum, alpha, t * kBlockN, nk, scale_log2, lane);
+      online_softmax<BN>(sc, row_max, row_sum, alpha, t * BN, nk, scale_log2, lane);
       wgmma_wait<0>();
       fence_regs(acc);
-      mbar_arrive(&empty[(t - 1) % kStages]);
-      pack_p(p, sc);
+      mbar_arrive(&empty[(t - 1) % S]);
+      pack_p<BN>(p, sc);
     }
     rescale(acc, alpha);
-    issue_pv<DP>(acc, p, desc_v(n_tiles - 1));
+    issue_pv<DP, BN>(acc, p, desc_v(n_tiles - 1));
     wgmma_wait<0>();
     fence_regs(acc);
-    mbar_arrive(&empty[(n_tiles - 1) % kStages]);
+    mbar_arrive(&empty[(n_tiles - 1) % S]);
 
     float inv[2];
 #pragma unroll
@@ -384,8 +414,8 @@ int launch_attention(const void* q, const void* k, const void* v, void* o, int b
                      cudaStream_t stream) {
   CUtensorMap tq, tk, tv;
   int err = sm90::encode_bf16_3d(&tq, q, d, pitch, nq, bh, kBox, kBlockM);
-  if (err == 0) err = sm90::encode_bf16_3d(&tk, k, d, pitch, nk, bh, kBox, kBlockN);
-  if (err == 0) err = sm90::encode_bf16_3d(&tv, v, d, pitch, nk, bh, kBox, kBlockN);
+  if (err == 0) err = sm90::encode_bf16_3d(&tk, k, d, pitch, nk, bh, kBox, block_n<DP>());
+  if (err == 0) err = sm90::encode_bf16_3d(&tv, v, d, pitch, nk, bh, kBox, block_n<DP>());
   if (err != 0) return err;
   constexpr int smem = smem_bytes<DP>();
   auto* kernel = attention_kernel<DP>;

@@ -32,7 +32,14 @@ that model in one call of its forward on `rgb_u8_bthw3`: VGGT
 (`VGGTConfig`, models/vggt.py) with tasks of `camera`, `depth` and
 `world_points` on (B, S, H, W, 3), upstream's outputs and layouts out;
 Video Depth Anything (`VDAConfig`, models/vda.py) with task `depth` on a
-clip (B, L, H, W, 3) of any length, `depth` (B, L, H, W) fp32 out.
+clip (B, L, H, W, 3) of any length, `depth` (B, L, H, W) fp32 out; SAM 2
+(`Sam2Config`, models/sam2.py) with task `masks` on one clip (1, T, S, S,
+3) at the network's size S and clicks on frame 0, `point_coords_bnk2` (1,
+N, K, 2) as (x, y) pixels and `point_labels_bnk` (1, N, K) (1 positive, 0
+negative), `mask_logits_btnhw` (1, T, N, S, S) and
+`object_score_logits_btn` (1, T, N) fp32 out. A single-call model's
+prompts are the data keys its `SingleCall.prompts` names, passed to its
+forward by name.
 """
 
 from __future__ import annotations
@@ -45,8 +52,8 @@ import numpy as np
 import torch
 import torch.nn as nn
 
-from l4p_tpu_torch.config import L4PConfig, VDAConfig, VGGTConfig
-from l4p_tpu_torch.models import vda, vggt
+from l4p_tpu_torch.config import L4PConfig, Sam2Config, VDAConfig, VGGTConfig
+from l4p_tpu_torch.models import sam2, vda, vggt
 from l4p_tpu_torch.models.encoder import AttentionFn, EncoderBlocksFn
 from l4p_tpu_torch.models.l4p import (
     L4P,
@@ -74,17 +81,22 @@ DENSE_TASKS = ("flow_2d_backward", "depth", "dyn_mask")
 
 class SingleCall(NamedTuple):
     """A model served by one call of its forward: its class (built as
-    model(cfg, device=, dtype=), called as model(rgb_u8, tasks, attention)),
-    its task check and its loader of upstream's state dict."""
+    model(cfg, device=, dtype=), called as model(rgb_u8, tasks, attention,
+    **prompts)), its task check, its loader of upstream's state dict and
+    the data keys of its prompts (tensors moved to the device, anything
+    else passed as it is)."""
 
     model: Callable[..., nn.Module]
     check_tasks: Callable[[Sequence[str]], None]
     load: Callable[[nn.Module, Mapping[str, torch.Tensor]], None]
+    prompts: Tuple[str, ...] = ()
 
 
 SINGLE_CALL = {
     VGGTConfig: SingleCall(vggt.VGGT, vggt.check_tasks, vggt.load_upstream_state_dict),
     VDAConfig: SingleCall(vda.VideoDepthAnything, vda.check_tasks, vda.load_upstream_state_dict),
+    Sam2Config: SingleCall(sam2.Sam2, sam2.check_tasks, sam2.load_upstream_state_dict,
+                           ("point_coords_bnk2", "point_labels_bnk", "prompt_frame")),
 }
 
 
@@ -109,10 +121,11 @@ class InferenceSession:
     draws, so every rank returns the same outputs. The fused encoder takes
     no mesh: a request with `encoder.fused_encoder` and one raises
     ValueError (`VideoEncoder.forward`). The config of a single-call model
-    (`SINGLE_CALL`: VGGT, Video Depth Anything) gets a session of that
-    model (the module's docstring), which takes `attention` and no mesh."""
+    (`SINGLE_CALL`: VGGT, Video Depth Anything, SAM 2) gets a session of
+    that model (the module's docstring), which takes `attention` and no
+    mesh."""
 
-    def __init__(self, cfg: Union[L4PConfig, VGGTConfig, VDAConfig], tasks: Sequence[str],
+    def __init__(self, cfg: Union[L4PConfig, VGGTConfig, VDAConfig, Sam2Config], tasks: Sequence[str],
                  device: Union[str, torch.device], attention: AttentionFn = flash_attention,
                  track_kernels: TrackKernels = KERNELS,
                  encoder_blocks: EncoderBlocksFn = fused_encoder_blocks, draws: Optional[Draws] = None, mesh=None):
@@ -177,7 +190,10 @@ class InferenceSession:
         with profiling.span("request", device=self.device):
             if self.single is not None:
                 rgb_u8 = torch.as_tensor(data["rgb_u8_bthw3"], device=self.device)
-                return self.model(model_or_state)(rgb_u8, self.tasks, self.attention)
+                prompts = {k: data[k] for k in self.single.prompts if k in data}
+                prompts = {k: torch.as_tensor(v, device=self.device) if isinstance(v, (torch.Tensor, np.ndarray)) else v
+                           for k, v in prompts.items()}
+                return self.model(model_or_state)(rgb_u8, self.tasks, self.attention, **prompts)
             return self._serve(model_or_state, data)
 
     def _serve(self, model_or_state, data: Mapping) -> Dict[str, torch.Tensor]:

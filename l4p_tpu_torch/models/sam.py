@@ -1,5 +1,8 @@
 """SAM-style promptable video decoder of the track head: prompt encoder,
-two-way transformer, mask decoder (counterpart of l4p_tpu/models/sam.py).
+two-way transformer, mask decoder (counterpart of l4p_tpu/models/sam.py);
+and SAM 2's 2D prompt encoder and mask decoder (`Sam2PromptEncoder`,
+`Sam2MaskDecoder`, `sam2_decode`) on the same two-way transformer, attention
+and MLP modules (`twoway_block`, `attn_apply`, `pe_encoding`, `HyperMLP`).
 
 Modules carry the released checkpoint's parameter names; the forward
 functions take them and plain tensors. Queries are the decoder's batch
@@ -28,6 +31,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from l4p_tpu_torch.config import SamConfig
 from l4p_tpu_torch.ops.attention import mha
@@ -58,10 +62,13 @@ PLAIN = TrackKernels(t2i_flash_plain, i2t_ln_t2i_plain, fused_upscale_hypernet_p
 # ---------------------------------------------------------------------------
 
 class PositionEmbeddingRandom(nn.Module):
-    def __init__(self, embed_dim: int, device=None, dtype=None):
+    """The random Fourier matrix of `coords` coordinates: (t, x, y) for the
+    track head, (x, y) for SAM 2."""
+
+    def __init__(self, embed_dim: int, device=None, dtype=None, coords: int = 3):
         super().__init__()
         self.register_buffer("positional_encoding_gaussian_matrix",
-                             torch.zeros((3, embed_dim // 2), device=device, dtype=dtype))
+                             torch.zeros((coords, embed_dim // 2), device=device, dtype=dtype))
 
 
 class PromptEncoder(nn.Module):
@@ -153,7 +160,8 @@ class MaskDecoder(nn.Module):
 # ---------------------------------------------------------------------------
 
 def pe_encoding(coords: torch.Tensor, gauss: torch.Tensor) -> torch.Tensor:
-    """Random-Fourier encoding of [0, 1]^3 coordinates, fp32."""
+    """Random-Fourier encoding of [0, 1]^d coordinates (d the rows of
+    `gauss`: 3 for the track head, 2 for SAM 2), fp32."""
     c = 2 * math.pi * torch.matmul((2 * coords - 1).float(), gauss.float())
     return torch.cat([torch.sin(c), torch.cos(c)], dim=-1)
 
@@ -444,3 +452,132 @@ def mask_decoder_apply(md: MaskDecoder, cfg: SamConfig, image_embeddings: torch.
     out = out.reshape(n, m, t, h, w, kt, kh, kw, lt, lh, lw).permute(0, 1, 2, 5, 8, 3, 6, 9, 4, 7, 10)
     out = out.reshape(n, m, t * kt * lt, h * kh * lh, w * kw * lw)
     return out.to(src.dtype), {"io_features": hs, "enc_features": src}
+
+
+# ---------------------------------------------------------------------------
+# SAM 2's 2D prompt encoder and mask decoder (facebookresearch/sam2:
+# sam2/modeling/sam/prompt_encoder.py, mask_decoder.py, transformer.py)
+# ---------------------------------------------------------------------------
+
+NO_OBJ_SCORE = -1024.0  # sam2_base.py: the logits of a mask whose object is absent
+
+
+class LayerNorm2d(nn.LayerNorm):
+    """LayerNorm over the channels of (N, C, H, W) (upstream's LayerNorm2d,
+    eps 1e-6), applied by `layer_norm_2d`."""
+
+    def __init__(self, channels: int, eps: float = 1e-6, device=None, dtype=None):
+        super().__init__(channels, eps=eps, device=device, dtype=dtype)
+
+
+def layer_norm_2d(x: torch.Tensor, ln: LayerNorm2d) -> torch.Tensor:
+    """LayerNorm2d as ops/conv.py's layer_norm over the channels-last view."""
+    return layer_norm(x.permute(0, 2, 3, 1), ln.weight, ln.bias, ln.eps).permute(0, 3, 1, 2)
+
+
+class Sam2PromptEncoder(nn.Module):
+    """Points (two labels and two box corners) and the mask prompt's
+    downscaling, which the video propagation never runs but the released
+    state dict holds."""
+
+    def __init__(self, embed_dim: int, mask_in_chans: int = 16, device=None, dtype=None):
+        super().__init__()
+        kw = dict(device=device, dtype=dtype)
+        self.pe_layer = PositionEmbeddingRandom(embed_dim, coords=2, **kw)
+        self.point_embeddings = nn.ModuleList(nn.Embedding(1, embed_dim, **kw) for _ in range(4))
+        self.not_a_point_embed = nn.Embedding(1, embed_dim, **kw)
+        self.mask_downscaling = nn.Sequential(
+            nn.Conv2d(1, mask_in_chans // 4, 2, stride=2, **kw), LayerNorm2d(mask_in_chans // 4, **kw), nn.GELU(),
+            nn.Conv2d(mask_in_chans // 4, mask_in_chans, 2, stride=2, **kw), LayerNorm2d(mask_in_chans, **kw),
+            nn.GELU(), nn.Conv2d(mask_in_chans, embed_dim, 1, **kw))
+        self.no_mask_embed = nn.Embedding(1, embed_dim, **kw)
+
+
+class Sam2MaskDecoder(nn.Module):
+    """The two-way transformer (`TwoWayTransformer` on a SamConfig of SAM 2's
+    widths), the object-score, IoU and mask tokens, the upscaling with the
+    high-resolution skips, and the hypernetwork, IoU and object-score MLPs.
+    The transformer's MLPs are `MLPBlock`'s lin1 / lin2, upstream's
+    mlp.layers.0 / 1 (models/sam2.py:upstream_name maps them)."""
+
+    def __init__(self, cfg: SamConfig, device=None, dtype=None):
+        super().__init__()
+        c, m, kw = cfg.embed_dim, cfg.num_mask_tokens, dict(device=device, dtype=dtype)
+        self.transformer = TwoWayTransformer(cfg, **kw)
+        self.iou_token = nn.Embedding(1, c, **kw)
+        self.mask_tokens = nn.Embedding(m, c, **kw)
+        self.obj_score_token = nn.Embedding(1, c, **kw)
+        self.output_upscaling = nn.Sequential(
+            nn.ConvTranspose2d(c, c // 4, 2, stride=2, **kw), LayerNorm2d(c // 4, **kw), nn.GELU(),
+            nn.ConvTranspose2d(c // 4, c // 8, 2, stride=2, **kw), nn.GELU())
+        self.conv_s0 = nn.Conv2d(c, c // 8, 1, **kw)
+        self.conv_s1 = nn.Conv2d(c, c // 4, 1, **kw)
+        self.output_hypernetworks_mlps = nn.ModuleList(HyperMLP(c, c // 8, **kw) for _ in range(m))
+        self.iou_prediction_head = HyperMLP(c, m, **kw)
+        self.pred_obj_score_head = HyperMLP(c, 1, **kw)
+
+
+def dense_pe_2d(gauss: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(h * w, C) fp32 encoding of the token grid's centres, (x, y) order
+    (upstream's PositionEmbeddingRandom.forward), token-major."""
+    dev = gauss.device
+    y = (torch.arange(h, dtype=torch.float32, device=dev) + 0.5) / h
+    x = (torch.arange(w, dtype=torch.float32, device=dev) + 0.5) / w
+    yy, xx = torch.meshgrid(y, x, indexing="ij")
+    return pe_encoding(torch.stack([xx, yy], dim=-1), gauss).reshape(h * w, -1)
+
+
+def embed_points_2d(pe: Sam2PromptEncoder, coords: torch.Tensor, labels: torch.Tensor,
+                    image_size: int) -> torch.Tensor:
+    """(N, K, 2) clicks as (x, y) in the network's pixels, labels (N, K)
+    (1 positive, 0 negative, -1 none) -> the sparse prompts (N, K + 1, C)
+    fp32: pixel centres, a padding point appended, the encoding of each
+    labelled point plus its label's embedding, `not_a_point_embed` alone
+    for the padding."""
+    n = coords.shape[0]
+    coords = torch.cat([coords.float() + 0.5, coords.new_zeros((n, 1, 2), dtype=torch.float32)], dim=1)
+    labels = torch.cat([labels, -labels.new_ones((n, 1))], dim=1)[..., None]
+    emb = pe_encoding(coords / image_size, pe.pe_layer.positional_encoding_gaussian_matrix)
+    emb = torch.where(labels == -1, pe.not_a_point_embed.weight[0].float(), emb)
+    for i, point in enumerate(pe.point_embeddings):
+        emb = emb + torch.where(labels == i, point.weight[0].float(), torch.zeros_like(emb))
+    return emb
+
+
+def stability_scores(logits: torch.Tensor, delta: float) -> torch.Tensor:
+    """(N, h, w) -> (N,): the area above +delta over the area above -delta, 1 where the latter is 0."""
+    area_i = (logits > delta).flatten(1).sum(-1).float()
+    area_u = (logits > -delta).flatten(1).sum(-1).float()
+    return torch.where(area_u > 0, area_i / area_u.clamp_min(1), torch.ones_like(area_u))
+
+
+def sam2_decode(md: Sam2MaskDecoder, cfg: SamConfig, pe: Sam2PromptEncoder, image: torch.Tensor,
+                high_res: Tuple[torch.Tensor, torch.Tensor], sparse: torch.Tensor, image_pe: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """image (N, C, h, w), high_res (s0 (N or 1, C/8, 4h, 4w), s1 (N or 1,
+    C/4, 2h, 2w)) after conv_s0 / conv_s1, sparse prompts (N, Q, C), image_pe
+    (h * w, C) -> every mask token's low-resolution logits (N, M, 4h, 4w) in
+    the image dtype, their IoU predictions (N, M) and output tokens (N, M, C)
+    and the object-score logits (N, 1), fp32 (upstream's predict_masks; the
+    dense prompt is `no_mask_embed` everywhere). The two-way transformer
+    runs its naive schedule (`twoway_block`, `attn_apply`: plain attention
+    over the h * w image tokens)."""
+    n, c, h, w = image.shape
+    dt = image.dtype
+    out_tokens = torch.cat([md.obj_score_token.weight, md.iou_token.weight, md.mask_tokens.weight]).to(dt)
+    tokens = torch.cat([out_tokens[None].expand(n, -1, -1), sparse.to(dt)], dim=1)
+    src = (image + pe.no_mask_embed.weight.to(dt).view(1, c, 1, 1)).flatten(2).transpose(1, 2)
+    hs, src = twoway_transformer_apply(md.transformer, cfg, src, image_pe[None].to(dt), tokens, impl="naive")
+    m = md.mask_tokens.weight.shape[0]
+    mask_out = hs[:, 2: 2 + m]
+    src = src.transpose(1, 2).reshape(n, c, h, w)
+    dc1, ln1, _, dc2, _ = md.output_upscaling
+    s0, s1 = high_res
+    up = F.conv_transpose2d(src, dc1.weight.to(dt), dc1.bias.to(dt), stride=2) + s1
+    up = F.gelu(layer_norm_2d(up, ln1))
+    up = F.gelu(F.conv_transpose2d(up, dc2.weight.to(dt), dc2.bias.to(dt), stride=2) + s0)
+    hyper = torch.stack([hyper_mlp(md.output_hypernetworks_mlps[i], mask_out[:, i]) for i in range(m)], dim=1)
+    masks = torch.matmul(hyper, up.flatten(2)).view(n, m, 4 * h, 4 * w)
+    iou = torch.sigmoid(hyper_mlp(md.iou_prediction_head, hs[:, 1]).float())
+    score = hyper_mlp(md.pred_obj_score_head, hs[:, 0]).float()
+    return masks, iou, mask_out, score

@@ -151,7 +151,16 @@ einsum_fp32.launches = 0  # products sent to the tensor cores since the last res
 
 
 def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """LayerNorm over the last axis with fp32 statistics and affine, cast back."""
+    """LayerNorm over the last axis with fp32 statistics and affine, cast back.
+    Where the weight and bias have x's dtype, one F.layer_norm call on x does
+    it: PyTorch's kernel computes a bf16 or fp16 row in fp32 and rounds once,
+    the value of the upcast expression below in one launch in place of five
+    (on the card bit for bit; tests/test_torch_gpu.py holds it at the cells'
+    widths). Parameters of another dtype (fp32 weights beside bf16
+    activations) take the upcast expression, which rounds nothing but the
+    output."""
+    if weight.dtype == bias.dtype == x.dtype:
+        return F.layer_norm(x, (x.shape[-1],), weight, bias, eps)
     y = F.layer_norm(x.float(), (x.shape[-1],), weight.float(), bias.float(), eps)
     return y.to(x.dtype)
 

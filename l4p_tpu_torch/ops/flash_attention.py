@@ -26,7 +26,7 @@ from l4p_tpu_torch.ops.recompute import recomputing_function
 NAME = "flash_attention"
 SOURCES = ("flash_attention.cu",)
 KERNEL = _build.kernel(NAME, SOURCES, "l4p_flash_attention_fwd_bf16", "ppppiiiiifp")
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256  # csrc/attention.cuh: D_pad 64, 96 and 128 in 128-key tiles, 256 in 64-key tiles
 MAX_BH = 2 ** 31 - 65535  # csrc/attention.cuh:kMaxBH: the launcher's grid arithmetic stays inside an int
 
 

@@ -34,7 +34,8 @@ def test_wrapper_rejects_mismatched_shapes(k_shape):
 
 
 @pytest.mark.parametrize("bh,nq,nk,d,why", [(32, 2048, 2048, 88, None), (1, 1, 1, 128, None),
-                                             (32, 2048, 2048, 12, "multiple of 8"), (4, 64, 64, 136, "at most 128"),
+                                             (32, 2048, 2048, 12, "multiple of 8"), (4, 64, 64, 264, "at most 256"),
+                                             (4, 64, 64, 136, None), (8, 4096, 28736, 256, None),
                                              (70000, 64, 64, 64, None), (78144, 32, 32, 32, None),
                                              (2 ** 31 - 65535, 32, 32, 32, None),
                                              (2 ** 31 - 65534, 32, 32, 32, "B*H"), (2 ** 31, 32, 32, 32, "B*H"),
@@ -42,7 +43,8 @@ def test_wrapper_rejects_mismatched_shapes(k_shape):
                                              (4, 0, 64, 64, "positive")])
 def test_kernel_checks_what_tma_cannot_take(bh, nq, nk, d, why):
     """The checks the wrapper makes on CUDA tensors before the launch: TMA rows
-    of whole 16-byte units, D at most 128, B*H from 1 to MAX_BH (the grid
+    of whole 16-byte units, D at most 256 (SAM 2's memory attention: one
+    head of 256 over 28,736 keys), B*H from 1 to MAX_BH (the grid
     spreads it over y and z, so Video Depth Anything's 78,144 temporal
     sequences a call fit; past MAX_BH the launcher's grid arithmetic would
     leave an int)."""

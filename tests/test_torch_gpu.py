@@ -2012,3 +2012,132 @@ def test_vda_kernel_path_matches_plain_on_card(cuda):
 
 # relative L2 of the kernel path's clip against the plain path's, about 4x what an H100 read over seeds 23, 24, 26
 VDA_PATH_BAND = 8e-3  # [1.83e-3]
+
+
+# SAM 2's memory attention: one head of 256 over the bank (4,096 + 64 keys when one memory and 16 pointers
+# are read, 28,736 at steady state, 20,496 while the bank fills: off the 64-key tile), 8 objects
+MEMORY_ATTENTION = [((8, 1, 4096, 256), 28736), ((8, 1, 4096, 256), 4096 + 64), ((8, 1, 4096, 256), 20496),
+                    ((1, 1, 64, 256), 64), ((1, 2, 300, 256), 77), ((2, 1, 130, 136), 1000)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,nk", MEMORY_ATTENTION)
+def test_attention_kernel_at_head_dim_256_matches_plain(cuda, shape, nk):
+    """The D_pad 256 instantiation (64-key tiles, 2 stages) in one launch,
+    within the band of the plain version relative to max |plain|, as the
+    long shapes read it (the absolute band does not fit outputs near 1 over
+    28,736 keys); a one-tile shape, ragged Nq and Nk and D = 136 (padded to
+    256) among them."""
+    g = torch.Generator(device=cuda).manual_seed(34)
+    b, h, nq, d = shape
+    q = torch.randn(shape, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((b, h, nk, d), generator=g, device=cuda).bfloat16() for _ in range(2))
+    before = flash_attention.launches
+    out = flash_attention(q, k, v, d ** -0.5)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1 and bool(out.isfinite().all())
+    err = top = 0.0
+    for i in range(0, nq, 1024):
+        want = flash_attention_plain(q[:, :, i:i + 1024], k, v, d ** -0.5).float()
+        err = max(err, (out[:, :, i:i + 1024].float() - want).abs().max().item())
+        top = max(top, want.abs().max().item())
+    assert err <= HEAD_DIM_256_TOL * top, (err, top)
+
+
+# max |kernel - plain| / max |plain| at head dim 256, about 4x what an H100 read (in brackets)
+HEAD_DIM_256_TOL = 0.03  # [5.8e-3 at (8, 1, 4096, 4160, 256), 3.6e-3 to 5.1e-3 at the others]
+
+# sha256 (first 16 hex digits) of the bf16 output of the D <= 128 instantiations at the other cells' shapes,
+# from seed 7's inputs, as the kernel before the D_pad 256 instantiation computed them on an H100
+PARENT_DIGESTS = {((2, 16, 2048, 88), 2048): "8dec81e2dbd434c3",  # L4P's encoder
+                  ((1, 16, 50048, 64), 50048): "204dafcd96595c19",  # VGGT's global attention
+                  ((9768, 8, 32, 32), 32): "28cb0438aa9ebfb3",  # Video Depth Anything's temporal attention
+                  ((64, 16, 782, 64), 782): "3debc191c0884c88"}  # VGGT's frame attention
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("shape,nk", list(PARENT_DIGESTS))
+def test_attention_kernel_up_to_head_dim_128_unchanged_bit_for_bit(cuda, shape, nk):
+    import hashlib
+
+    g = torch.Generator(device=cuda).manual_seed(7)
+    b, h, nq, d = shape
+    q = torch.randn(shape, generator=g, device=cuda).bfloat16()
+    k, v = (torch.randn((b, h, nk, d), generator=g, device=cuda).bfloat16() for _ in range(2))
+    out = flash_attention(q, k, v, d ** -0.5)
+    digest = hashlib.sha256(out.cpu().view(torch.int16).numpy().tobytes()).hexdigest()[:16]
+    assert digest == PARENT_DIGESTS[(shape, nk)]
+
+
+@pytest.mark.gpu
+def test_sam2_propagates_on_the_kernels_without_a_host_sync(cuda):
+    """SAM 2 at a tiny width (tests/test_torch_sam2.py's) in bf16 on the card,
+    on the benchmark driver's seeded weights: a 10-frame, 2-object
+    propagation never blocks the host (sync debug mode "error" raises on
+    any blocking call), every Hiera call (a chunk of frames each) and every
+    memory-attention call launches the attention kernel, and the masks lie
+    within the band below of the plain attention's."""
+    from l4p_tpu_torch.config import Sam2Config
+    from l4p_tpu_torch.inference import InferenceSession
+    from l4p_tpu_torch.models import sam2
+    from portbench.drivers.sam2 import PRESENT
+    from portbench.drivers.vggt import seeded_weights
+
+    cfg = Sam2Config(image_size=128, embed_dim=8, num_heads=1, stages=(1, 1, 2, 1), global_att_blocks=(3,),
+                     window_pos_embed_bkg_spatial_size=(3, 3), window_spec=(4, 2, 4, 2), d_model=32, memory_ffn=64,
+                     mem_dim=8, num_maskmem=3, max_obj_ptrs=4)
+    t, n = 10, 2
+    model = sam2.Sam2(cfg, device=cuda, dtype=torch.bfloat16).eval()
+    w = seeded_weights(model, 25, cuda, torch.bfloat16, sam2.upstream_name)
+    w[PRESENT] = 1.0 + w[PRESENT].abs()
+    sam2.load_upstream_state_dict(model, w)
+    g = torch.Generator(device=cuda).manual_seed(26)
+    data = {"rgb_u8_bthw3": torch.randint(0, 256, (1, t, 128, 128, 3), generator=g, device=cuda, dtype=torch.uint8),
+            "point_coords_bnk2": 8 + 112 * torch.rand((1, n, 1, 2), generator=g, device=cuda),
+            "point_labels_bnk": torch.ones((1, n, 1), device=cuda, dtype=torch.int64)}
+    sess = InferenceSession(cfg, ("masks",), cuda)
+    sess(model, data)  # the kernels built and loaded
+    torch.cuda.synchronize()
+    before = flash_attention.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = sess(model, data)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    chunks = -(-t // sam2.ENCODE_CHUNK)  # the image encoder's calls, each of up to ENCODE_CHUNK frames
+    assert flash_attention.launches - before == chunks * sum(cfg.stages) + (t - 1) * 2 * cfg.memory_layers
+    plain = InferenceSession(cfg, ("masks",), cuda, attention=flash_attention_plain)(model, data)
+    got, want = out["mask_logits_btnhw"].double(), plain["mask_logits_btnhw"].double()
+    assert got.shape == (1, t, n, 128, 128) and bool(got.isfinite().all())
+    assert ((got - want).norm() / want.norm()).item() <= SAM2_PATH_BAND
+
+
+# relative L2 of the kernel path's masks against the plain path's at the tiny width with the published decoder
+# (bf16 both), 6-9x what an H100 read on the driver's weights of seeds 25, 27 and 28 (in brackets)
+SAM2_PATH_BAND = 0.05  # [0.0084, 0.0058, 0.0089]
+
+
+# LayerNorm's rows and widths in the cells: L4P's encoder (1408) and track head (256), VGGT's and VDA's DINOv2
+# (1024, VDA's rows a window of 32 frames of 2443 tokens), SAM 2's Hiera stages (144-1152), memory attention (256)
+# and its mask downsampler's channels (4, 16)
+LAYER_NORMS = [(4096, 1408, 1e-6), (2443, 1024, 1e-6), (50048, 1024, 1e-5), (4096, 256, 1e-5), (65536, 144, 1e-6),
+               (16384, 288, 1e-6), (4096, 576, 1e-6), (1024, 1152, 1e-6), (65536, 4, 1e-6), (16384, 16, 1e-6)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("rows,width,eps", LAYER_NORMS)
+def test_layer_norm_in_one_kernel_is_the_upcast_expression(cuda, rows, width, eps, dtype):
+    """ops/conv.py's layer_norm with parameters of x's dtype (one F.layer_norm
+    call on x) equals the upcast expression it stands for bit for bit, on a
+    whole tensor and on a strided view that starts one token in."""
+    from l4p_tpu_torch.ops.conv import layer_norm
+
+    g = torch.Generator(device=cuda).manual_seed(rows + width)
+    x = (3 * torch.randn((2, rows + 1, width), generator=g, device=cuda) + 1).to(dtype)
+    w = (1 + 0.3 * torch.randn((width,), generator=g, device=cuda)).to(dtype)
+    b = (0.2 * torch.randn((width,), generator=g, device=cuda)).to(dtype)
+    for t in (x, x[:, 1:]):
+        want = torch.nn.functional.layer_norm(t.float(), (width,), w.float(), b.float(), eps).to(dtype)
+        assert torch.equal(layer_norm(t, w, b, eps), want)
